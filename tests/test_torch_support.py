@@ -1,0 +1,144 @@
+"""Shared helpers of the port's tests, plus the port's boundary checks: it
+imports neither JAX nor the JAX package, its entry points default to the
+card, and a kernel that cannot be built raises instead of falling back."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def to_torch(a) -> "torch.Tensor":
+    """A JAX or numpy array as a torch tensor with the same values (bf16
+    goes through f32, which is exact)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(np.array(a, dtype=np.float32)).to(torch.bfloat16)
+    return torch.tensor(np.array(a))
+
+
+def to_f64(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().to(torch.float64).numpy()
+    return np.asarray(a, dtype=np.float64)
+
+
+def assert_same(a, b, *, atol: float = 0.0, what: str = "") -> None:
+    """Bit-exact (atol=0) or atol-bounded agreement, compared in float64."""
+    x, y = to_f64(a), to_f64(b)
+    assert x.shape == y.shape, (what, x.shape, y.shape)
+    if atol == 0.0:
+        assert np.array_equal(x, y), what
+    else:
+        np.testing.assert_allclose(x, y, atol=atol, rtol=0, err_msg=what)
+
+
+# ---------------------------------------------------------------------------
+# the port's import boundary
+# ---------------------------------------------------------------------------
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference_package(path):
+    banned = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not banned, (path, banned)
+
+
+# ---------------------------------------------------------------------------
+# the card by default, and no fallback that hides a missing kernel
+# ---------------------------------------------------------------------------
+
+def test_executor_defaults_to_cuda_and_raises_without_gpu(monkeypatch):
+    from repro_torch.core.executor import TMExecutor
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TMExecutor()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TMExecutor(backend="reference", device="cuda")
+    assert TMExecutor(device="cpu").device == torch.device("cpu")
+
+
+def test_executor_default_device_is_cuda(monkeypatch):
+    from repro_torch.core.executor import TMExecutor
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert TMExecutor().device.type == "cuda"
+
+
+def _failing_loader(name):
+    raise RuntimeError(f"nvcc failed for {name}.cu")
+
+
+def _kernel_calls():
+    from repro_torch.core import affine as af
+    from repro_torch.kernels.rme_gather.rme_gather import rme_evaluate
+    from repro_torch.kernels.tm_affine.tm_affine import (
+        analyze_block_mode, tm_affine_block, tm_affine_gather)
+    mt = af.transpose_map((4, 8, 3))
+    mu = af.upsample_map((4, 8, 3), 2)
+    return {
+        "block": lambda x: tm_affine_block(x, mt, analyze_block_mode(mt)),
+        "gather": lambda x: tm_affine_gather(x, mu),
+        "evaluate": lambda x: rme_evaluate(x.reshape(1, 32, 3), 0.5, 4),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["block", "gather", "evaluate"])
+def test_wrapper_raises_when_kernel_build_fails(monkeypatch, kernel):
+    """A non-CPU tensor goes to the kernel: when the library cannot be
+    built the wrapper raises — it never returns the plain version."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "library", _failing_loader)
+    call = _kernel_calls()[kernel]
+    x = torch.rand(4, 8, 3)
+    assert call(x) is not None  # CPU tensor: the plain version runs
+    launches_before = _launch_counts()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        call(x.to("meta"))
+    assert _launch_counts() == launches_before
+
+
+def test_wrapper_rejects_non_cuda_tensor_after_build(monkeypatch):
+    """With a library at hand, a tensor that is neither CPU nor CUDA is
+    refused by the operand checks before any launch."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "library", lambda name: object())
+    for call in _kernel_calls().values():
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call(torch.rand(4, 8, 3).to("meta"))
+
+
+def _launch_counts():
+    from repro_torch.kernels.rme_gather.rme_gather import rme_evaluate
+    from repro_torch.kernels.tm_affine.tm_affine import (tm_affine_block,
+                                                         tm_affine_gather)
+    return (tm_affine_block.launches, tm_affine_gather.launches,
+            rme_evaluate.launches)
+
+
+def test_build_keys_libraries_by_source_hash():
+    from repro_torch.kernels import build
+    assert set(build.SIGNATURES) == {p.stem for p in build.CSRC.glob("*.cu")}
+    a, b = build.library_path("tm_affine"), build.library_path("rme_gather")
+    assert a.parent != b.parent and a.name == "libtm_affine.so"
+    assert build.BUILD_ROOT == ROOT / "build" / "repro_torch"
