@@ -21,8 +21,9 @@ use, into ``build/``), then runs four phases and fails on any mismatch:
    run as ``TMProgram``s through the cuda executor, packed boxes bit-exact;
 4. the launch counts of phases 2-3 (the main path): every kernel > 0.
 
-The last two lines of standard output are the ``{"kernels": [...]}`` line
-and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
+The last three lines of standard output are the card's name and power
+limit as nvidia-smi gives them, the ``{"kernels": [...]}`` line and
+``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or without the repository's ``src`` beside it.
 """
 
@@ -40,6 +41,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+SECTOR = 32                # bytes: the least a strided load moves from HBM
 SEED = 0
 IMG = (8, 448, 448, 3)     # batch 8, paper Table III input
 N_CLASSES = 80
@@ -260,7 +262,9 @@ def kernel_phase(dev, gen) -> list[dict]:
     for b in range(B):  # what this run's data needs (the walk stops early)
         c = int(cnt[b])
         scanned = int(idx[b, c - 1]) + 1 if c == CAPACITY else N
-        nbytes += scanned * f32 + c * D * f32       # scores + kept rows
+        # a score sits a record (D * 4 bytes) from the next, so each scanned
+        # row that is not kept costs one sector; a kept row is read whole
+        nbytes += (scanned - c) * SECTOR + c * D * f32
     nbytes += B * (CAPACITY * D * f32 + CAPACITY * 4 + 4)  # packed output
     rows.append(dict(
         name="rme_evaluate", route="cuda",
@@ -458,8 +462,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: ({**r, "launches": counts[r["name"]]})[k] for k in keys}
                for r in rows]
-    print(json.dumps({"kernels": kernels}))
     print(card)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -30,7 +30,7 @@ from repro_torch.core.instr import TMInstr
 
 # a fault injector points this at its fire() method; None in production.  It
 # fires INSIDE the rule-execution try below, so an injected lowering fault
-# exercises the quarantine/fallback ladder, not a crash.
+# exercises the quarantine/fallback ladder (on the CPU), not a crash.
 fault_hook: Callable[[str, str], None] | None = None
 
 
@@ -214,6 +214,16 @@ def quarantine_key(rule_name: str, opcode: str,
     return (rule_name, opcode, shapes)
 
 
+def _check_ladder(quarantine: set | None, srcs) -> None:
+    """The degradation ladder skips rules only on the CPU, where a rule runs
+    its kernel's plain version.  On the card a kernel that fails to build or
+    launch fails the run: nothing gives way to the reference engine."""
+    if quarantine is not None and any(getattr(s, "is_cuda", False)
+                                      for s in srcs):
+        raise ValueError("the quarantine ladder runs only on CPU tensors; "
+                         "on a CUDA tensor a failing kernel must raise")
+
+
 def lower_instr(ins: TMInstr, srcs: Sequence[torch.Tensor], batch_dims: int,
                 segment_bytes: int | None = None,
                 quarantine: set | None = None,
@@ -233,8 +243,10 @@ def lower_instr(ins: TMInstr, srcs: Sequence[torch.Tensor], batch_dims: int,
     fails to build or launch fails the run.  ``faults`` (optional
     caller-owned list) collects one ``(rule name, why)`` row per skipped
     rule, so a None return can still tell the caller its engine fallback is
-    a degradation.
+    a degradation.  The ladder is for CPU tensors only: a quarantine set
+    with a CUDA source raises ``ValueError``.
     """
+    _check_ladder(quarantine, srcs)
     _ensure_registered()
     degraded = False
     for rule in _RULES:
@@ -290,8 +302,9 @@ def lower_chain(instrs: Sequence[TMInstr],
     first rule that claims the chain — one record, ``launches=1``, covering
     ``len(instrs)`` instructions — or None when no rule does (caller
     executes the links one by one).  A quarantined or raising chain rule is
-    skipped the same way as in :func:`lower_instr`.
+    skipped the same way as in :func:`lower_instr`, on CPU tensors only.
     """
+    _check_ladder(quarantine, [s for row in srcs for s in row])
     _ensure_registered()
     for rule in _CHAIN_RULES:
         if quarantine is not None:

@@ -69,10 +69,12 @@ class TMExecutor:
     # as ONE kernel where a chain rule claims it; with no chain rule
     # registered every chain lowers per instruction
     fuse_chains: bool = False
-    # cuda only: the degradation-ladder quarantine (a mutable set).  When
-    # set, a kernel rule that raises is quarantined and the instruction
-    # falls through to the next rule / the reference engine instead of
-    # failing the run — see dispatch.lower_instr.  None keeps fail-fast.
+    # cuda backend on the CPU only: the degradation-ladder quarantine (a
+    # mutable set).  When set, a rule whose plain version raises is
+    # quarantined and the instruction falls through to the next rule / the
+    # reference engine instead of failing the run — see
+    # dispatch.lower_instr.  None keeps fail-fast; on the card it must be
+    # None, so a kernel that fails always fails the run.
     quarantine: set | None = None
     last_report: FusionReport | None = None
     last_lowering: LoweringReport | None = None
@@ -81,6 +83,10 @@ class TMExecutor:
         if self.backend not in BACKENDS:
             raise ValueError(
                 f"unknown backend {self.backend!r}; expected one of {BACKENDS}")
+        if (self.quarantine is not None and torch.device(
+                "cuda" if self.device is None else self.device).type == "cuda"):
+            raise ValueError("TMExecutor: quarantine runs only on the CPU; on "
+                             "the card a failing kernel fails the run")
         self.device = resolve_device(self.device)
 
     def __call__(self, prog: TMProgram, buffers: dict[str, torch.Tensor],

@@ -8,8 +8,9 @@
 // stream, and the unbatched call is a batch of one.
 //
 // Bound on an H100: bytes over HBM bandwidth (3.35 TB/s) — the score column
-// up to the point the commit buffer is full, the surviving rows, and the
-// packed output (capacity rows, their source indices and the count).
+// up to the point the commit buffer is full (one 32-byte sector per row, as
+// the scores sit a record apart), the surviving rows, and the packed output
+// (capacity rows, their source indices and the count).
 //
 // Design against that bound: the Pallas kernel sorts (a stable argsort of
 // the inverted mask).  Here each record stream is walked in tiles of

@@ -26,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from typing import Callable
 
 import torch
 
@@ -203,20 +204,26 @@ def _check_launch(name: str, x: torch.Tensor, m: MixedRadixMap,
                          f"digit splits or digit bounds")
 
 
-def _launch(name: str, x: torch.Tensor, m: MixedRadixMap,
-            regs: tuple[torch.Tensor, bool], y: torch.Tensor | None,
-            ew: str | None, *extra: int) -> torch.Tensor:
+def _launch(wrapper, x: torch.Tensor, m: MixedRadixMap,
+            regs: Callable[[], tuple[torch.Tensor, bool]],
+            y: torch.Tensor | None, ew: str | None,
+            *extra: int) -> torch.Tensor:
+    """Launch ``wrapper``'s kernel with the register file ``regs()`` and add
+    one to ``wrapper.launches``.  An empty output launches nothing and
+    counts nothing."""
     out = torch.empty(m.out_shape, dtype=x.dtype, device=x.device)
     n = out.numel()
     if n == 0:
         return out
+    name = wrapper.__name__
     fn = getattr(build.library("tm_affine"), name)
-    table, narrow = regs
+    table, narrow = regs()
     rc = fn(x.data_ptr(), None if y is None else y.data_ptr(), out.data_ptr(),
             table.data_ptr(), DTYPE_CODES[x.dtype], EW_CODES[ew], n,
             int(narrow), *extra,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, name)
+    wrapper.launches += 1
     return out
 
 
@@ -284,10 +291,8 @@ def tm_affine_block(x: torch.Tensor, m: MixedRadixMap, plan: BlockPlan, *,
         return block_plain(x, m, plan, y=y, ew=ew)
     build.library("tm_affine")  # a kernel that cannot be built raises here
     _check_launch("tm_affine_block", x, m, y, ew)
-    out = _launch("tm_affine_block", x, m, _block_regs(m, plan, x.device),
-                  y, ew)
-    tm_affine_block.launches += 1
-    return out
+    return _launch(tm_affine_block, x, m,
+                   functools.partial(_block_regs, m, plan, x.device), y, ew)
 
 
 tm_affine_block.launches = 0
@@ -400,10 +405,9 @@ def tm_affine_gather(x: torch.Tensor, m: MixedRadixMap, *,
         return gather_plain(x, m, y=y, ew=ew)
     build.library("tm_affine")  # a kernel that cannot be built raises here
     _check_launch("tm_affine_gather", x, m, y, ew)
-    out = _launch("tm_affine_gather", x, m, _gather_regs(m, x.dtype, x.device),
-                  y, ew, len(m.out_shape) + len(m.splits))
-    tm_affine_gather.launches += 1
-    return out
+    return _launch(tm_affine_gather, x, m,
+                   functools.partial(_gather_regs, m, x.dtype, x.device),
+                   y, ew, len(m.out_shape) + len(m.splits))
 
 
 tm_affine_gather.launches = 0

@@ -282,6 +282,26 @@ def test_without_quarantine_a_failing_rule_fails_the_run(monkeypatch):
             _transpose_program(), {"x": torch.zeros(4, 6, 2)})
 
 
+def test_quarantine_is_refused_on_the_card():
+    """The ladder gives way to the engine only on the CPU: an executor for
+    the card with a quarantine set, or a CUDA source under one, raises
+    before any rule runs."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import dispatch
+    from repro_torch.core.executor import TMExecutor
+    for device in (None, "cuda"):
+        with pytest.raises(ValueError, match="quarantine"):
+            TMExecutor(backend="cuda", device=device, quarantine=set())
+    ins = _transpose_program().instrs[0]
+    on_card = SimpleNamespace(is_cuda=True, shape=(4, 6, 2))
+    with pytest.raises(ValueError, match="quarantine"):
+        dispatch.lower_instr(ins, [on_card], 0, quarantine=set())
+    with pytest.raises(ValueError, match="quarantine"):
+        dispatch.lower_chain([ins, ins], [[on_card], [None]], 0,
+                             quarantine=set())
+
+
 def test_lowering_report_accounting():
     from repro_torch.core.executor import TMExecutor
     route = TProgram.decode(CASES[[c.name for c in CASES].index("route")]

@@ -104,6 +104,39 @@ def test_gather_kernel_matches_plain_on_card(cuda, name):
 
 
 @pytest.mark.gpu
+def test_empty_output_launches_nothing_on_card(cuda):
+    counts = lambda: (ta.tm_affine_block.launches,  # noqa: E731
+                      ta.tm_affine_gather.launches, rg.rme_evaluate.launches)
+    before = counts()
+    m = af.transpose_map((0, 4, 2))
+    out = ta.tm_affine_block(torch.zeros(m.in_shape, device=cuda), m,
+                             ta.analyze_block_mode(m))
+    assert out.shape == (4, 0, 2)
+    m = af.upsample_map((0, 3, 2), 2)
+    out = ta.tm_affine_gather(torch.zeros(m.in_shape, device=cuda), m)
+    assert out.shape == (0, 6, 2)
+    rows, _, _ = rg.rme_evaluate(torch.zeros((0, 9, 5), device=cuda), 0.5, 4)
+    assert rows.shape == (0, 4, 5)
+    assert counts() == before
+
+
+@pytest.mark.gpu
+def test_quarantine_is_refused_on_card(cuda):
+    from repro_torch.core import dispatch
+    from repro_torch.core.executor import TMExecutor
+    from repro_torch.core.instr import TMInstr, TMOpcode
+    with pytest.raises(ValueError, match="quarantine"):
+        TMExecutor(backend="cuda", device=cuda, quarantine=set())
+    ins = TMInstr(TMOpcode.COARSE, ("x",), "y",
+                  map_=af.transpose_map((4, 6, 2)))
+    before = ta.tm_affine_block.launches
+    with pytest.raises(ValueError, match="quarantine"):
+        dispatch.lower_instr(ins, [torch.zeros((4, 6, 2), device=cuda)], 0,
+                             quarantine=set())
+    assert ta.tm_affine_block.launches == before
+
+
+@pytest.mark.gpu
 def test_max_epilogue_propagates_nan_on_card(cuda):
     m = af.identity_map((4, 64))
     plan = ta.analyze_block_mode(m)
