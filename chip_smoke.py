@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (at first
-use, into ``build/``), then runs four phases and fails on any mismatch:
+use, into ``build/``, one ``nvcc`` per source, all at once), then runs its
+phases and fails on any mismatch:
 
 1. kernels  — each kernel at the main path's shapes against its plain
    PyTorch version on the card (bit-exact), with its device time (from a
@@ -12,14 +13,22 @@ use, into ``build/``), then runs four phases and fails on any mismatch:
    wrapper's host work, the plain version's time, its bound (bytes /
    3.35 TB/s) and, where one PyTorch call computes the same function, that
    call's device time;
-2. operators — the paper's Table III operators as single-instruction
-   ``TMProgram``s through ``TMExecutor(backend="cuda")`` against
-   ``backend="reference"``, bit-exact, with the expected ``cuda.*`` path;
-3. model    — YOLOv3-Tiny at 448x448x3, 80 classes, batch 8, f32: the eager
+2. slice 1, per-instruction lowering: the paper's Table III operators as
+   single-instruction ``TMProgram``s through ``TMExecutor(backend="cuda")``
+   against ``backend="reference"``, bit-exact, with the expected ``cuda.*``
+   path; then YOLOv3-Tiny at 448x448x3, 80 classes, batch 8, f32: the eager
    model and its detect tails against a hand-partitioned forward whose TM
    stages (Rearrange, Upsample + Route, reshape + Bboxcal for both heads)
    run as ``TMProgram``s through the cuda executor, packed boxes bit-exact;
-4. the launch counts of phases 2-3 (the main path): every kernel > 0.
+3. slice 2, forwarding chains and assemble: chain programs (transpose ->
+   split -> transpose, the EDSR x2 superres tail, upsample -> Route, the
+   detect tail) and runtime-mask assemble through
+   ``TMExecutor(backend="cuda", fuse_chains=True)`` against the reference
+   engine, then the same YOLOv3-Tiny forward through the chaining executor
+   (4 TM launches instead of 8), bit-exact against the eager model and the
+   unfused forward;
+4. the launch counts of each slice's path, read just after it ran with the
+   counts set to 0 just before it: every kernel of the slice > 0.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``{"kernels": [...]}`` line and
@@ -156,11 +165,14 @@ def partitioned_forward(model, img, ex, *, conf=CONF, capacity=CAPACITY,
     """YOLOv3-Tiny with every TM stage run as a TMProgram through ``ex``
     (a ``TMExecutor``, batch axis lifted by the executor) and the
     convolutions as torch calls in between.  Returns ``(pred1, pred2,
-    boxes1, boxes2, lowering paths)``.  With ``tm_events`` (a list), each
-    TM stage is bracketed by a pair of CUDA events."""
+    boxes1, boxes2, lowering paths, TM kernel launches)``.  With
+    ``tm_events`` (a list), each TM stage is bracketed by a pair of CUDA
+    events."""
     paths = []
+    launches = 0
 
     def stage(prog, bufs):
+        nonlocal launches
         if tm_events is not None:
             a, b = (torch.cuda.Event(enable_timing=True),
                     torch.cuda.Event(enable_timing=True))
@@ -170,6 +182,7 @@ def partitioned_forward(model, img, ex, *, conf=CONF, capacity=CAPACITY,
             b.record()
             tm_events.append((a, b))
         paths.extend(low.paths())
+        launches += low.launch_count()
         return out
 
     core = lambda t: tuple(t.shape[1:])  # noqa: E731
@@ -182,7 +195,7 @@ def partitioned_forward(model, img, ex, *, conf=CONF, capacity=CAPACITY,
     pred2 = model.head2(cat)
     boxes = [stage(detect_program(core(p), conf, capacity), {"p": p})["boxes"]
              for p in (pred1, pred2)]
-    return pred1, pred2, boxes[0], boxes[1], paths
+    return pred1, pred2, boxes[0], boxes[1], paths, launches
 
 
 def eager_forward(model, img, *, conf=CONF, capacity=CAPACITY):
@@ -196,6 +209,107 @@ def eager_forward(model, img, *, conf=CONF, capacity=CAPACITY):
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
+
+def chain_row(dev, gen) -> dict:
+    """tm_chain at the YOLOv3-Tiny neck: u0 (8, 14, 14, 128) upsample x2,
+    then Route with the skip map (8, 28, 28, 128) -> (8, 28, 28, 256)."""
+    from repro_torch.core import affine as af
+    from repro_torch.kernels.tm_affine import chain as ch
+
+    batch = (IMG[0],)
+    up = af.batch_extend_map(af.upsample_map((14, 14, 128), 2), batch)
+    route = tuple(af.batch_extend_map(m, batch) for m in
+                  af.route_maps([(28, 28, 128), (28, 28, 128)]))
+    sig = ch.ChainSig(links=((up, None),), route_maps=route, route_band=0,
+                      dtype="float32")
+    plan = ch.chain_plan_of(sig)
+    u0 = torch.rand(up.in_shape, generator=gen).to(dev)
+    skip = torch.rand(route[1].in_shape, generator=gen).to(dev)
+    got = ch.tm_chain(sig, u0, (skip,))
+    ref = ch.chain_plain(u0, plan, (skip,))
+    require_equal(got, ref, "tm_chain")
+    require_equal(got, torch.cat([u0.repeat_interleave(2, 1)
+                                  .repeat_interleave(2, 2), skip], -1),
+                  "tm_chain vs upsample + concatenate")
+    f32 = 4
+    nbytes = (u0.numel() + skip.numel() + got.numel()) * f32
+    consts = sum(a.nbytes for a in [plan.j]
+                 + [a for lv in plan.levels for a in (lv.mask, lv.p)
+                    if a is not None]
+                 + [a for ex in plan.extras for a in (ex.idx, ex.mask)
+                    if a is not None])
+    log(f"kernel tm_chain: {nbytes} bytes of data, {consts} bytes of plan "
+        f"constants (not in the bound); {len(plan.levels)} level(s), "
+        f"{len(plan.extras)} extra band(s)")
+    return dict(
+        name="tm_chain", route="cuda",
+        source="src/repro_torch/csrc/tm_chain.cu",
+        replaces="src/repro/kernels/tm_affine/chain.py:340",
+        max_abs_err=max_abs_err(got, ref),
+        ms=graph_ms(lambda: ch.tm_chain(sig, u0, (skip,))),
+        call_ms=cuda_ms(lambda: ch.tm_chain(sig, u0, (skip,))),
+        plain_ms=cuda_ms(lambda: ch.chain_plain(u0, plan, (skip,))),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None,
+        shape="neck upsample x2 (8, 14, 14, 128) + Route (8, 28, 28, 128) "
+              "f32")
+
+
+def chained_evaluate_row(dev, gen) -> dict:
+    """rme_evaluate_chained at head 2's detect tail: the raw grid
+    (8, 28, 28, 255) pulled back as (8, 2352, 85) record streams."""
+    from repro_torch.core import affine as af
+    from repro_torch.kernels.rme_gather import rme_gather as rg
+    from repro_torch.kernels.tm_affine.chain import fold_pullback
+
+    f32 = 4
+    m = af.batch_extend_map(af.reshape_map((28, 28, 255), (2352, 85)),
+                            (IMG[0],))
+    j, ok, fill = fold_pullback((m,))
+    idx = torch.from_numpy(j.reshape(m.out_shape)).to(dev)
+    ok = None if ok is None else torch.from_numpy(
+        ok.reshape(m.out_shape)).to(dev)
+    pred = torch.randn(m.in_shape, generator=gen).to(dev)
+
+    def call():
+        return rg.rme_evaluate_chained(pred, idx, ok, fill, CONF, CAPACITY,
+                                       score_index=4)
+
+    got = call()
+    ref = rg.evaluate_chained_plain(pred, idx, ok, fill, CONF, CAPACITY,
+                                    score_index=4)
+    unchained = rg.evaluate_plain(pred.reshape(m.out_shape), CONF, CAPACITY,
+                                  score_index=4)
+    for g, r, u, what in zip(got, ref, unchained, ("rows", "idx", "count")):
+        require_equal(g, r, f"rme_evaluate_chained {what}")
+        require_equal(g, u, f"rme_evaluate_chained {what} vs unchained")
+    B, N, D = m.out_shape
+    src, cnt = ref[1], ref[2]
+    nbytes = consts = 0
+    for b in range(B):  # what this run's data needs (the walk stops early)
+        c = int(cnt[b])
+        scanned = int(src[b, c - 1]) + 1 if c == CAPACITY else N
+        # a scanned, unkept row costs one sector of scores (and one of its
+        # pullback index); a kept row is read whole (and its D indices)
+        nbytes += (scanned - c) * SECTOR + c * D * f32
+        consts += (scanned - c) * SECTOR + c * D * 4
+    nbytes += B * (CAPACITY * D * f32 + CAPACITY * 4 + 4)  # packed output
+    log(f"kernel rme_evaluate_chained: {nbytes} bytes of data, {consts} "
+        f"bytes of pullback index read (not in the bound), ok mask "
+        f"{'none' if ok is None else 'present'}")
+    return dict(
+        name="rme_evaluate_chained", route="cuda",
+        source="src/repro_torch/csrc/rme_gather.cu",
+        replaces="src/repro/kernels/rme_gather/rme_gather.py:176",
+        max_abs_err=max(max_abs_err(g, r) for g, r in zip(got, ref)),
+        ms=graph_ms(call), call_ms=cuda_ms(call),
+        plain_ms=cuda_ms(lambda: rg.evaluate_chained_plain(
+            pred, idx, ok, fill, CONF, CAPACITY, score_index=4)),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None,
+        shape=f"(8, 28, 28, 255) -> (8, 2352, 85) f32 cap {CAPACITY}, "
+              f"{int(cnt.sum())} kept")
+
 
 def kernel_phase(dev, gen) -> list[dict]:
     from repro_torch.core import affine as af
@@ -281,6 +395,37 @@ def kernel_phase(dev, gen) -> list[dict]:
         library_ms=None,
         shape=f"(8, 2352, 85) f32 cap {CAPACITY}, "
               f"{int(cnt.sum())} kept"))
+    evaluated = ref
+
+    rows.append(chain_row(dev, gen))
+    rows.append(chained_evaluate_row(dev, gen))
+
+    # RME assemble: the same records under mask = score >= CONF, which is
+    # rme_evaluate's test, so the packed rows must equal its rows as well
+    mask = recs[..., 4] >= CONF
+    got = rg.rme_assemble(recs, mask, CAPACITY)
+    ref = rg.assemble_plain(recs, mask, CAPACITY)
+    for g, r, what in zip(got, ref, ("rows", "count")):
+        require_equal(g, r, f"rme_assemble {what}")
+    require_equal(got[0], evaluated[0], "rme_assemble rows vs rme_evaluate")
+    require_equal(got[1], evaluated[2], "rme_assemble count vs rme_evaluate")
+    nbytes = 0
+    for b in range(B):  # the walk stops once the buffer is full
+        c = int(cnt[b])
+        scanned = int(idx[b, c - 1]) + 1 if c == CAPACITY else N
+        nbytes += scanned + c * D * f32  # one mask byte per scanned row
+    nbytes += B * (CAPACITY * D * f32 + 4)  # packed rows and count
+    rows.append(dict(
+        name="rme_assemble", route="cuda",
+        source="src/repro_torch/csrc/rme_gather.cu",
+        replaces="src/repro/kernels/rme_gather/rme_gather.py:222",
+        max_abs_err=max(max_abs_err(g, r) for g, r in zip(got, ref)),
+        ms=graph_ms(lambda: rg.rme_assemble(recs, mask, CAPACITY)),
+        call_ms=cuda_ms(lambda: rg.rme_assemble(recs, mask, CAPACITY)),
+        plain_ms=cuda_ms(lambda: rg.assemble_plain(recs, mask, CAPACITY)),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None,
+        shape=f"(8, 2352, 85) f32 mask score >= {CONF} cap {CAPACITY}"))
     for r in rows:
         log(f"kernel {r['name']:17s} {r['shape']}: {r['ms']:.4f} ms device "
             f"({r['call_ms']:.4f} per call with host work; plain "
@@ -352,8 +497,126 @@ def operator_phase(dev, gen) -> None:
             f"{t_cuda:.3f} ms, reference engine {t_ref:.3f} ms (wall)")
 
 
-def model_phase(dev, gen) -> None:
+def chain_operator_phase(dev, gen) -> None:
+    """Slice 2's operators: forwarding chains and runtime-mask assemble
+    through the chaining cuda executor against the reference engine,
+    bit-exact, each with its expected lowering."""
+    from repro_torch.core import affine as af
     from repro_torch.core.executor import TMExecutor
+    from repro_torch.core.instr import (EwOp, RMEConfig, TMInstr, TMOpcode,
+                                        TMProgram)
+
+    def coarse(srcs, dst, **kw):
+        return TMInstr(TMOpcode.COARSE, srcs, dst, **kw)
+
+    def chain3(shape):
+        h, w, c = shape
+        return TMProgram(
+            [coarse(("x",), "a", map_=af.transpose_map(shape)),
+             coarse(("a",), "b", map_=af.split_map((w, h, c), 2, 1)),
+             coarse(("b",), "y", map_=af.transpose_map((w, h, c // 2)))],
+            ("x",), ("y",)), {"x": shape}
+
+    def superres(shape, s=2):
+        # the EDSR x2 tail as tests/harness.py builds it: pixel shuffle +
+        # Add skip, crop 1, pad 1
+        h, w, c = shape
+        hs, ws, cs = h * s, w * s, c // (s * s)
+        return TMProgram(
+            [coarse(("x", "skip"), "a", map_=af.pixel_shuffle_map(shape, s),
+                    ew=EwOp.ADD),
+             coarse(("a",), "b", map_=af.pad_map((hs, ws, cs), (-1, -1, 0),
+                                                 (-1, -1, 0))),
+             coarse(("b",), "y", map_=af.pad_map((hs - 2, ws - 2, cs),
+                                                 (1, 1, 0), (1, 1, 0)))],
+            ("x", "skip"), ("y",)), {"x": shape, "skip": (hs, ws, cs)}
+
+    def chain_route(shape):
+        h, w, c = shape
+        up = af.upsample_map(shape, 2)
+        maps = tuple(af.route_maps([up.out_shape, up.out_shape]))
+        return TMProgram(
+            [coarse(("u",), "v", map_=up),
+             coarse(("v", "skip"), "y", maps=maps)],
+            ("u", "skip"), ("y",)), {"u": shape, "skip": up.out_shape}
+
+    def detect(shape):
+        return (detect_program(shape, CONF, CAPACITY), {"p": shape})
+
+    def assemble(shape):
+        return TMProgram(
+            [TMInstr(TMOpcode.FINE_ASSEMBLE, ("x", "mask"), "y",
+                     rme=RMEConfig(scheme="assemble", capacity=CAPACITY))],
+            ("x", "mask"), ("y",)), {"x": shape, "mask": shape[:-1]}
+
+    head2 = (28, 28, 3 * (5 + N_CLASSES))
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    # (name, (program, core input shapes), batch, dtype, expected paths).
+    # The JAX package declines a chain whose inputs and pullback constants
+    # exceed CHAIN_VMEM_BUDGET (128 MiB), and so does the port: in f32 the
+    # Table III transpose -> split -> transpose fuses its first two links
+    # only, and upsample -> Route at 448x448x128 does not fuse at all; the
+    # Route chain is also run at 224x224x128, where it does.
+    ops = [
+        ("chain3", chain3(TABLE3), (), f32, ["cuda.chain", "cuda.block"]),
+        ("chain3", chain3(TABLE3), (), bf16, ["cuda.chain"]),
+        ("chain_superres", superres((224, 224, 12)), (IMG[0],), f32,
+         ["cuda.chain"]),
+        ("chain_route", chain_route((112, 112, 64)), (), f32,
+         ["cuda.chain+route"]),
+        ("chain_route", chain_route((224, 224, 64)), (), f32,
+         ["cuda.gather", "cuda.route"]),
+        ("detect_tail", detect(head2), (IMG[0],), f32,
+         ["cuda.chain+rme.evaluate"]),
+        ("assemble", assemble((2352, 85)), (IMG[0],), f32,
+         ["cuda.rme.assemble"]),
+    ]
+    for dtype in (i8, bf16):
+        ops += [(n, p, b, dtype, path) for n, p, b, d, path in ops
+                if d == f32 and n in ("chain_superres", "detect_tail",
+                                      "assemble")]
+    chained = TMExecutor(backend="cuda", device=dev, fuse_chains=True)
+    unfused = TMExecutor(backend="cuda", device=dev)
+    reference = TMExecutor(backend="reference", device=dev)
+    for name, (prog, shapes), batch, dtype, path in ops:
+        bufs = {}
+        for k, core in shapes.items():
+            shape = batch + tuple(core)
+            if k == "mask":
+                bufs[k] = (torch.rand(shape, generator=gen) < 0.3).to(dev)
+            elif k == "p":
+                bufs[k] = torch.randn(shape, generator=gen).to(dtype).to(dev)
+            else:
+                bufs[k] = (torch.rand(shape, generator=gen) * 200 - 100
+                           ).to(dtype).to(dev)
+        bd = len(batch)
+        got, low, _ = chained.run(prog, bufs, batch_dims=bd)
+        ref, _, _ = reference.run(prog, bufs, batch_dims=bd)
+        require_equal(got["y"] if "y" in got else got["boxes"],
+                      ref["y"] if "y" in ref else ref["boxes"],
+                      f"operator {name}[{dtype}]")
+        if low.paths() != path:
+            raise AssertionError(f"operator {name}[{dtype}]: lowered to "
+                                 f"{low.paths()}, expected {path}")
+        t_chn = wall_ms(lambda: chained.run(prog, bufs, batch_dims=bd))
+        t_unf = wall_ms(lambda: unfused.run(prog, bufs, batch_dims=bd))
+        label = f"{name}{tuple(batch + tuple(next(iter(shapes.values()))))}"
+        log(f"operator {label}[{str(dtype)[6:]}] {'+'.join(path)} bit-exact, "
+            f"{low.launch_count()} launch(es); chaining executor "
+            f"{t_chn:.3f} ms, per-instruction {t_unf:.3f} ms (wall)")
+
+
+UNFUSED_PATHS = ["cuda.gather", "cuda.gather", "cuda.route", "cuda.gather",
+                 "cuda.rme.evaluate", "cuda.gather", "cuda.rme.evaluate"]
+CHAINED_PATHS = ["cuda.gather", "cuda.chain+route",
+                 "cuda.chain+rme.evaluate", "cuda.chain+rme.evaluate"]
+
+
+def yolo_setup(dev, gen) -> dict:
+    """YOLOv3-Tiny with random weights, its input and the eager outputs
+    (heads and packed boxes, TM stages on the reference engine), plus a
+    detect-tail threshold the data crosses (head 2's 90th-percentile
+    confidence): random weights may leave every confidence below CONF."""
     from repro_torch.models import cnn
 
     torch.backends.cudnn.allow_tf32 = False
@@ -362,68 +625,120 @@ def model_phase(dev, gen) -> None:
     torch.backends.cudnn.benchmark = False
     model = cnn.init_yolov3_tiny(gen, n_classes=N_CLASSES, device=dev)
     img = torch.rand(IMG, generator=gen).to(dev)
-    ex = TMExecutor(backend="cuda", device=dev)
-    e1, e2, eb1, eb2 = eager_forward(model, img)
-    p1, p2, b1, b2, paths = partitioned_forward(model, img, ex)
-    for got, ref, what in ((p1, e1, "head 1"), (p2, e2, "head 2"),
-                           (b1, eb1, "boxes head 1"),
-                           (b2, eb2, "boxes head 2")):
-        require_equal(got, ref, f"YOLOv3-Tiny {what}")
+    eager = eager_forward(model, img)
+    d = 5 + N_CLASSES
+    conf2 = float(eager[1].reshape(-1, d)[:, 4].quantile(0.9))
+    return dict(model=model, img=img, eager=eager, conf2=conf2)
+
+
+def yolo_check(y: dict, ex, expect: list[str], name: str,
+               against: tuple | None = None) -> tuple:
+    """The partitioned forward through ``ex``: heads and packed boxes
+    bit-exact against the eager model (and ``against``, another
+    partitioned forward's outputs), the TM stages lowered to ``expect``,
+    and the detect tails also at ``y['conf2']``.  Returns the outputs."""
+    from repro_torch.models import cnn
+
+    p1, p2, b1, b2, paths, launches = partitioned_forward(y["model"],
+                                                          y["img"], ex)
+    outs = (p1, p2, b1, b2)
+    whats = ("head 1", "head 2", "boxes head 1", "boxes head 2")
+    for i, (got, what) in enumerate(zip(outs, whats)):
+        require_equal(got, y["eager"][i], f"YOLOv3-Tiny {name} {what}")
+        if against is not None:
+            require_equal(got, against[i], f"YOLOv3-Tiny {name} {what} vs "
+                                           f"the unfused forward")
         if not torch.isfinite(got.float()).all():
             raise AssertionError(f"YOLOv3-Tiny {what}: non-finite values")
-    expect = ["cuda.gather", "cuda.gather", "cuda.route", "cuda.gather",
-              "cuda.rme.evaluate", "cuda.gather", "cuda.rme.evaluate"]
     if paths != expect:
-        raise AssertionError(f"YOLOv3-Tiny TM stages lowered to {paths}")
+        raise AssertionError(f"YOLOv3-Tiny {name} TM stages lowered to "
+                             f"{paths}")
     kept = [int((b[..., 4] >= CONF).sum()) for b in (b1, b2)]
-    log(f"model YOLOv3-Tiny {IMG} {N_CLASSES} classes f32: heads "
+    log(f"model YOLOv3-Tiny {IMG} {N_CLASSES} classes f32, {name}: heads "
         f"{tuple(p1.shape)} {tuple(p2.shape)}, boxes {tuple(b1.shape)} "
         f"{tuple(b2.shape)} bit-exact ({kept[0]} + {kept[1]} packed); "
-        f"TM stages {paths}")
-    # random weights may leave every confidence below CONF: hold the detect
-    # tails also at a threshold the data crosses (head 2's 90th percentile)
-    d = 5 + N_CLASSES
-    conf2 = float(e2.reshape(-1, d)[:, 4].quantile(0.9))
+        f"TM stages {paths}, {launches} TM launches per forward")
+    conf2 = y["conf2"]
     for i, pred in enumerate((p1, p2)):
         prog = detect_program(tuple(pred.shape[1:]), conf2, CAPACITY)
-        got = ex.run(prog, {"p": pred}, batch_dims=1)[0]["boxes"]
+        got, low, _ = ex.run(prog, {"p": pred}, batch_dims=1)
         ref = cnn.detect_tail_raw(pred, conf2, CAPACITY)
-        require_equal(got, ref, f"YOLOv3-Tiny boxes head {i + 1} at "
-                                f"conf {conf2}")
-        log(f"model detect tail {i + 1} at conf {conf2:.6g}: bit-exact, "
-            f"{int((got[..., 4] >= conf2).sum())} packed")
+        require_equal(got["boxes"], ref, f"YOLOv3-Tiny {name} boxes head "
+                                         f"{i + 1} at conf {conf2}")
+        log(f"model {name} detect tail {i + 1} at conf {conf2:.6g} "
+            f"({'+'.join(low.paths())}): bit-exact, "
+            f"{int((got['boxes'][..., 4] >= conf2).sum())} packed")
+    return outs, launches
+
+
+def yolo_timings(y: dict, executors: dict) -> None:
+    """Wall ms per forward of the eager model and of the partitioned
+    forward through each executor, in turns (a, b, b, a), and the TM share
+    of one partitioned forward's device time."""
+    model, img = y["model"], y["img"]
     t_eager = wall_ms(lambda: eager_forward(model, img))
-    t_part = wall_ms(lambda: partitioned_forward(model, img, ex))
-    events: list = []
-    start, end = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-    start.record()
-    partitioned_forward(model, img, ex, tm_events=events)
-    end.record()
-    torch.cuda.synchronize()
-    total = start.elapsed_time(end)
-    tm = sum(a.elapsed_time(b) for a, b in events)
-    log(f"model wall ms/forward: eager (engine TM) {t_eager:.3f}, "
-        f"partitioned (cuda TM) {t_part:.3f}; TM share of one partitioned "
-        f"forward {tm:.3f} of {total:.3f} ms = {tm / total:.3f}")
+    order = list(executors) + list(executors)[::-1]
+    walls: dict[str, list[float]] = {k: [] for k in executors}
+    for k in order:
+        walls[k].append(wall_ms(
+            lambda: partitioned_forward(model, img, executors[k])))
+    parts = []
+    for k, ex in executors.items():
+        events: list = []
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        partitioned_forward(model, img, ex, tm_events=events)
+        end.record()
+        torch.cuda.synchronize()
+        total = start.elapsed_time(end)
+        tm = sum(a.elapsed_time(b) for a, b in events)
+        parts.append(f"{k} {min(walls[k]):.3f} (runs "
+                     f"{', '.join(f'{t:.3f}' for t in walls[k])}), TM "
+                     f"{tm:.3f} of {total:.3f} ms device = share "
+                     f"{tm / total:.3f}")
+    log(f"model wall ms/forward: eager (engine TM) {t_eager:.3f}; "
+        + "; ".join(parts))
+
+
+KERNELS = {  # slice -> the kernels its path must launch
+    1: ("tm_affine_block", "tm_affine_gather", "rme_evaluate"),
+    2: ("tm_chain", "rme_evaluate_chained", "rme_assemble"),
+}
+
+
+def _wrappers() -> dict:
+    from repro_torch.kernels.rme_gather import rme_gather as rg
+    from repro_torch.kernels.tm_affine import chain, tm_affine
+    return {"tm_affine_block": tm_affine.tm_affine_block,
+            "tm_affine_gather": tm_affine.tm_affine_gather,
+            "rme_evaluate": rg.rme_evaluate,
+            "tm_chain": chain.tm_chain,
+            "rme_evaluate_chained": rg.rme_evaluate_chained,
+            "rme_assemble": rg.rme_assemble}
 
 
 def launch_counts() -> dict[str, int]:
-    from repro_torch.kernels.rme_gather.rme_gather import rme_evaluate
-    from repro_torch.kernels.tm_affine.tm_affine import (tm_affine_block,
-                                                         tm_affine_gather)
-    return {"tm_affine_block": tm_affine_block.launches,
-            "tm_affine_gather": tm_affine_gather.launches,
-            "rme_evaluate": rme_evaluate.launches}
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels.rme_gather.rme_gather import rme_evaluate
-    from repro_torch.kernels.tm_affine.tm_affine import (tm_affine_block,
-                                                         tm_affine_gather)
-    tm_affine_block.launches = 0
-    tm_affine_gather.launches = 0
-    rme_evaluate.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def run_path(slice_no: int, fn) -> tuple[object, dict[str, int]]:
+    """Run one slice's path with every count set to 0 just before it;
+    fail unless each of the slice's kernels launched in it."""
+    reset_launch_counts()
+    out = fn()
+    counts = launch_counts()
+    log(f"slice {slice_no} path launches: {counts}")
+    missing = [k for k in KERNELS[slice_no] if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on slice {slice_no}'s "
+                             f"path: {missing}")
+    return out, counts
 
 
 def main() -> int:
@@ -431,6 +746,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a GPU", file=sys.stderr)
         return 1
+    from repro_torch.core.executor import TMExecutor
     from repro_torch.kernels import build
 
     smi = subprocess.run(
@@ -449,15 +765,29 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     with torch.inference_mode():
         rows = kernel_phase(dev, gen)
-        reset_launch_counts()
-        operator_phase(dev, gen)
-        model_phase(dev, gen)
-        counts = launch_counts()
-    log(f"main-path launches: {counts}")
-    missing = [k for k, v in counts.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
+        y = yolo_setup(dev, gen)  # the eager model launches no kernel
+        unfused = TMExecutor(backend="cuda", device=dev)
+        chained = TMExecutor(backend="cuda", device=dev, fuse_chains=True)
+
+        def slice1():
+            operator_phase(dev, gen)
+            return yolo_check(y, unfused, UNFUSED_PATHS, "unfused")
+
+        def slice2():
+            chain_operator_phase(dev, gen)
+            out = yolo_check(y, chained, CHAINED_PATHS, "chained",
+                             against=unfused_outs)
+            yolo_timings(y, {"unfused": unfused, "chained": chained})
+            return out
+
+        (unfused_outs, n_unf), counts1 = run_path(1, slice1)
+        (_, n_chn), counts2 = run_path(2, slice2)
+    if (n_unf, n_chn) != (8, 4):
+        raise AssertionError(f"TM launches per forward {n_unf} unfused, "
+                             f"{n_chn} chained; expected 8 and 4")
+    counts = {k: (counts1 if k in KERNELS[1] else counts2)[k]
+              for k in launch_counts()}
+    log(f"main-path launches (each kernel from its slice's path): {counts}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: ({**r, "launches": counts[r["name"]]})[k] for k in keys}

@@ -138,8 +138,12 @@ class ChainRule:
     chain's instruction run and each instruction's resolved sources
     (``None`` in the slot of a chain-internal intermediate — it never
     materializes).  It returns ``(value, path, segments)`` when the rule can
-    execute the chain as ONE kernel, None otherwise.  No chain kernel is
-    ported yet, so the registry starts empty.
+    execute the chain as ONE kernel, None otherwise.  The kernel packages
+    register two: ``rme_gather.chain_evaluate`` (priority 10, coarse links
+    into an RME evaluate) and ``tm_affine.chain`` (coarse links, optionally
+    ending in a Route).  A rule that claims a chain on a CUDA tensor
+    launches its kernel or raises; it never returns None to hide a kernel
+    that fails.
     """
 
     name: str

@@ -19,7 +19,9 @@ Backends:
   * ``cuda``      — lower each instruction through the kernel-dispatch
     registry (:mod:`repro_torch.core.dispatch`) onto the hand-written CUDA
     kernels; an instruction no rule claims runs on the reference engine.
-    ``last_lowering`` records which path each instruction took.
+    With ``fuse_chains=True`` each forwarding chain runs as ONE kernel
+    where a chain rule claims it.  ``last_lowering`` records which path
+    each instruction (or chain) took.
 
 The executor runs on ``device`` — the card unless the caller asks for the
 CPU.  Input buffers are moved there; on the CPU the kernel rules run their
@@ -66,8 +68,9 @@ class TMExecutor:
     # their segments from; None keeps the shared default
     params: CycleParams | None = None
     # cuda only: execute each forwarding chain (fusion.forwarding_chains)
-    # as ONE kernel where a chain rule claims it; with no chain rule
-    # registered every chain lowers per instruction
+    # as ONE kernel where a chain rule claims it (the chain megakernel, or
+    # the chained RME evaluate); a chain no rule claims lowers per
+    # instruction
     fuse_chains: bool = False
     # cuda backend on the CPU only: the degradation-ladder quarantine (a
     # mutable set).  When set, a rule whose plain version raises is
@@ -197,10 +200,6 @@ class TMExecutor:
             else:
                 reason = (f"no matching kernel rule (batch_dims={batch_dims})"
                           if batch_dims else "no matching kernel rule")
-                if (ins.opcode == TMOpcode.FINE_ASSEMBLE
-                        and ins.rme.lane_mask is None):
-                    reason += ("; the RME assemble kernel is not ported yet, "
-                               "so runtime-mask assemble runs on the engine")
             val = self._exec(ins, bufs, batch_dims)
             lowering.records.append(Lowering(
                 dst=ins.dst, opcode=ins.opcode.value,

@@ -36,9 +36,16 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "tm_affine_block": [_P, _P, _P, _P, _I, _I, _I64, _I, _P],
         "tm_affine_gather": [_P, _P, _P, _P, _I, _I, _I64, _I, _I, _P],
     },
+    "tm_chain": {
+        "tm_chain": [_P, _P, _P, _I, _I64, _I, _I, _P],
+    },
     "rme_gather": {
         "rme_evaluate": [_P, _P, _P, _P, _I, _I64, _I64, _I64, _I64, _I64,
                          _I, _I, _D, _I64, _P],
+        "rme_evaluate_chained": [_P, _P, _P, _I64, _P, _P, _P, _I, _I64,
+                                 _I64, _I64, _I64, _I64, _I, _I, _D, _I64,
+                                 _P],
+        "rme_assemble": [_P, _P, _I, _P, _P, _I, _I64, _I64, _I64, _I64, _P],
     },
 }
 

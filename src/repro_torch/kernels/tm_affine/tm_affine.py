@@ -313,7 +313,9 @@ def gather_plain(x: torch.Tensor, m: MixedRadixMap, *,
     return _epilogue(torch.where(valid, out, fill), y, ew)
 
 
+@functools.lru_cache(maxsize=256)
 def _fill_bits(fill: float, dtype: torch.dtype) -> int:
+    """The fill register: ``fill`` in ``dtype``, its bytes as an int."""
     raw = torch.tensor([fill], dtype=dtype).view(torch.uint8).tolist()
     return int.from_bytes(bytes(raw), "little")
 

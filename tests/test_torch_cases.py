@@ -30,9 +30,6 @@ PORT_ONLY_PATHS = {
     # no resize kernel is ported yet: the RESIZE instruction runs on the
     # reference engine
     "resize": ("reference.resize",),
-    # no RME assemble kernel is ported yet: runtime-mask assemble runs on
-    # the reference engine
-    "assemble": ("reference.fine_asm",),
 }
 
 PORT_BACKENDS = ("reference", "fused", "cuda", "cuda+chains")

@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import affine as af  # noqa: E402
 from repro_torch.kernels.rme_gather import rme_gather as rg  # noqa: E402
+from repro_torch.kernels.tm_affine import chain as ch  # noqa: E402
 from repro_torch.kernels.tm_affine import tm_affine as ta  # noqa: E402
 
 DTYPES = (torch.int8, torch.int32, torch.bfloat16, torch.float32)
@@ -106,8 +107,22 @@ def test_gather_kernel_matches_plain_on_card(cuda, name):
 @pytest.mark.gpu
 def test_empty_output_launches_nothing_on_card(cuda):
     counts = lambda: (ta.tm_affine_block.launches,  # noqa: E731
-                      ta.tm_affine_gather.launches, rg.rme_evaluate.launches)
+                      ta.tm_affine_gather.launches, rg.rme_evaluate.launches,
+                      ch.tm_chain.launches, rg.rme_evaluate_chained.launches,
+                      rg.rme_assemble.launches)
     before = counts()
+    m = af.transpose_map((0, 4, 2))
+    sig = ch.ChainSig(links=((m, None), (af.transpose_map((4, 0, 2)), None)))
+    out = ch.tm_chain(sig, torch.zeros(m.in_shape, device=cuda))
+    assert out.shape == (0, 4, 2)
+    idx = torch.zeros((0, 9, 5), dtype=torch.int32, device=cuda)
+    rows, _, _ = rg.rme_evaluate_chained(torch.zeros(4, device=cuda), idx,
+                                         None, 0.0, 0.5, 4)
+    assert rows.shape == (0, 4, 5)
+    rows, _ = rg.rme_assemble(torch.zeros((0, 9, 5), device=cuda),
+                              torch.zeros((0, 9), dtype=torch.bool,
+                                          device=cuda), 4)
+    assert rows.shape == (0, 4, 5)
     m = af.transpose_map((0, 4, 2))
     out = ta.tm_affine_block(torch.zeros(m.in_shape, device=cuda), m,
                              ta.analyze_block_mode(m))
@@ -165,3 +180,119 @@ def test_evaluate_kernel_matches_plain_on_card(cuda, dtype, thr):
             torch.cuda.synchronize()
             for g, r in zip(got, ref):
                 assert torch.equal(g, r), (dtype, cmp, B, N, D, cap)
+
+
+# ---------------------------------------------------------------------------
+# slice 2: the chain megakernel, the chained evaluate and assemble
+# ---------------------------------------------------------------------------
+
+def _chain3():
+    m1 = af.transpose_map((8, 12, 16))
+    m2 = af.split_map((12, 8, 16), 2, 1)
+    m3 = af.transpose_map((12, 8, 8))
+    return ch.ChainSig(links=((m1, None), (m2, None), (m3, None)))
+
+
+def _superres(ew):
+    ps = af.pixel_shuffle_map((6, 10, 8), 2)
+    crop = af.pad_map((12, 20, 2), (-1, -1, 0), (-1, -1, 0), fill=-5.0)
+    pad = af.pad_map((10, 18, 2), (1, 2, 0), (2, 1, 0), fill=3.0)
+    return ch.ChainSig(links=((ps, ew), (crop, None), (pad, None)))
+
+
+def _route():
+    up = af.batch_extend_map(af.upsample_map((5, 7, 3), 2), (2,))
+    maps = tuple(af.batch_extend_map(m, (2,))
+                 for m in af.route_maps([(10, 14, 3), (10, 14, 5)]))
+    return ch.ChainSig(links=((up, None),), route_maps=maps, route_band=0)
+
+
+def _two_epilogues(ew):
+    # pixel shuffle + ew, then crop fused with an identity + ew: two levels
+    # that each round to the working dtype
+    ps = af.pixel_shuffle_map((6, 10, 8), 2)
+    crop = af.pad_map((12, 20, 2), (-1, -1, 0), (-1, -1, 0))
+    return ch.ChainSig(links=((ps, ew), (crop, None),
+                              (af.identity_map((10, 18, 2)), "mul")))
+
+
+CHAIN_SIGS = {
+    "chain3": lambda ew: _chain3(),
+    "superres": _superres,
+    "route": lambda ew: _route(),
+    "two_epilogues": _two_epilogues,
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CHAIN_SIGS))
+def test_chain_kernel_matches_plain_on_card(cuda, name):
+    rng = np.random.RandomState(7)
+    for dtype in DTYPES:
+        for ew in EW_OPS[1:]:
+            sig = dataclasses.replace(CHAIN_SIGS[name](ew),
+                                      dtype=str(dtype)[len("torch."):])
+            plan = ch.chain_plan_of(sig)
+            x = _rand(rng, sig.links[0][0].in_shape, dtype, cuda)
+            slabs = tuple(_rand(rng, shape, dtype, cuda)
+                          for shape in ch._slab_shapes(sig))
+            before = ch.tm_chain.launches
+            got = ch.tm_chain(sig, x, slabs)
+            ref = ch.chain_plain(x, plan, slabs)
+            torch.cuda.synchronize()
+            assert ch.tm_chain.launches == before + 1
+            assert torch.equal(got, ref), (name, dtype, ew)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,thr", [(torch.float32, 20.0),
+                                       (torch.bfloat16, 7.3),
+                                       (torch.int32, 10.5), (torch.int8, 3)])
+def test_chained_evaluate_kernel_matches_plain_on_card(cuda, dtype, thr):
+    """Streams pulled back through a pad (fill 25, which passes some
+    thresholds: the test must see the filled value) and a reshape, with and
+    without the validity mask, over every compare and edge capacities."""
+    rng = np.random.RandomState(8)
+    pad = af.pad_map((3, 40, 7), (0, 2, 0), (0, 3, 0), fill=25.0)
+    for maps in ((af.reshape_map((3, 315), (3, 45, 7)),),
+                 (pad, af.reshape_map((3, 45, 7), (3, 45, 7)))):
+        j, ok, fill = ch.fold_pullback(maps)
+        shape = maps[-1].out_shape
+        idx = torch.from_numpy(j.reshape(shape)).to(cuda)
+        okt = None if ok is None else torch.from_numpy(
+            ok.reshape(shape)).to(cuda)
+        x = _rand(rng, maps[0].in_shape, dtype, cuda)
+        for cmp in ("ge", "gt", "le", "lt"):
+            for cap in (0, 8, 45, 100):
+                before = rg.rme_evaluate_chained.launches
+                got = rg.rme_evaluate_chained(x, idx, okt, fill, thr, cap,
+                                              cmp=cmp, score_index=4)
+                ref = rg.evaluate_chained_plain(x, idx, okt, fill, thr, cap,
+                                                cmp=cmp, score_index=4)
+                torch.cuda.synchronize()
+                assert rg.rme_evaluate_chained.launches == before + 1
+                for g, r in zip(got, ref):
+                    assert torch.equal(g, r), (dtype, cmp, cap, okt is None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_assemble_kernel_matches_plain_on_card(cuda, dtype):
+    rng = np.random.RandomState(9)
+    for B, N, D in ((1, 33, 7), (3, 2352, 85), (2, 700, 5)):
+        x = _rand(rng, (B, N, D), dtype, cuda)
+        for kind in ("bool", "int32", "none"):
+            if kind == "none":
+                mask = torch.zeros((B, N), dtype=torch.bool, device=cuda)
+            else:
+                mask = torch.tensor(rng.rand(B, N) < 0.3, device=cuda)
+                if kind == "int32":
+                    mask = mask.to(torch.int32) * 7
+            for cap in (0, 16, 256, N + 5):
+                before = rg.rme_assemble.launches
+                got = rg.rme_assemble(x, mask, cap)
+                ref = rg.assemble_plain(x, mask, cap)
+                torch.cuda.synchronize()
+                assert rg.rme_assemble.launches == before + 1
+                for g, r in zip(got, ref):
+                    assert torch.equal(g, r), (dtype, B, N, kind, cap)

@@ -87,14 +87,38 @@ def test_partitioned_forward_equals_eager_model(yolo):
         conf = float(e2.reshape(-1, 8)[:, 4].median())
         e1, e2, eb1, eb2 = chip_smoke.eager_forward(model, x, conf=conf,
                                                     capacity=16)
-        p1, p2, b1, b2, paths = chip_smoke.partitioned_forward(
+        p1, p2, b1, b2, paths, launches = chip_smoke.partitioned_forward(
             model, x, ex, conf=conf, capacity=16)
     for got, ref in ((p1, e1), (p2, e2), (b1, eb1), (b2, eb2)):
         assert torch.equal(got, ref)
     assert int((b2[..., 4] >= conf).sum()) > 0
-    assert paths == ["cuda.gather", "cuda.gather", "cuda.route",
-                     "cuda.gather", "cuda.rme.evaluate", "cuda.gather",
-                     "cuda.rme.evaluate"]
+    assert paths == chip_smoke.UNFUSED_PATHS == [
+        "cuda.gather", "cuda.gather", "cuda.route", "cuda.gather",
+        "cuda.rme.evaluate", "cuda.gather", "cuda.rme.evaluate"]
+    assert launches == 8
+
+
+def test_chained_partitioned_forward_equals_unfused(yolo):
+    """With fuse_chains=True the neck and both detect tails each run as one
+    chain (4 TM launches instead of 8), bit-exact against the unfused
+    forward and the eager model."""
+    _, model, img, _, _ = yolo
+    x = torch.tensor(img)
+    unfused = TMExecutor(backend="cuda", device="cpu")
+    chained = TMExecutor(backend="cuda", device="cpu", fuse_chains=True)
+    with torch.no_grad():
+        conf = float(model(x)[1].reshape(-1, 8)[:, 4].median())
+        eager = chip_smoke.eager_forward(model, x, conf=conf, capacity=16)
+        ref = chip_smoke.partitioned_forward(model, x, unfused, conf=conf,
+                                             capacity=16)
+        got = chip_smoke.partitioned_forward(model, x, chained, conf=conf,
+                                             capacity=16)
+    for g, r, e in zip(got[:4], ref[:4], eager):
+        assert torch.equal(g, r) and torch.equal(g, e)
+    assert got[4] == chip_smoke.CHAINED_PATHS == [
+        "cuda.gather", "cuda.chain+route", "cuda.chain+rme.evaluate",
+        "cuda.chain+rme.evaluate"]
+    assert (ref[5], got[5]) == (8, 4)
 
 
 def test_yolo_postprocess_matches_on_the_same_head(yolo):

@@ -91,19 +91,33 @@ def _failing_loader(name):
 
 def _kernel_calls():
     from repro_torch.core import affine as af
-    from repro_torch.kernels.rme_gather.rme_gather import rme_evaluate
+    from repro_torch.kernels.rme_gather.rme_gather import (
+        rme_assemble, rme_evaluate, rme_evaluate_chained)
+    from repro_torch.kernels.tm_affine.chain import ChainSig, tm_chain
     from repro_torch.kernels.tm_affine.tm_affine import (
         analyze_block_mode, tm_affine_block, tm_affine_gather)
     mt = af.transpose_map((4, 8, 3))
     mu = af.upsample_map((4, 8, 3), 2)
+    sig = ChainSig(links=((mt, None), (af.upsample_map((8, 4, 3), 2), None)))
+
+    def pullback(x):  # the records of a chained evaluate: x reversed
+        return torch.arange(95, -1, -1, dtype=torch.int32,
+                            device=x.device).reshape(1, 32, 3)
+
     return {
         "block": lambda x: tm_affine_block(x, mt, analyze_block_mode(mt)),
         "gather": lambda x: tm_affine_gather(x, mu),
         "evaluate": lambda x: rme_evaluate(x.reshape(1, 32, 3), 0.5, 4),
+        "chain": lambda x: tm_chain(sig, x),
+        "evaluate_chained": lambda x: rme_evaluate_chained(
+            x, pullback(x), None, 0.0, 0.5, 4),
+        "assemble": lambda x: rme_assemble(x.reshape(1, 32, 3),
+                                           x[..., 0].reshape(1, 32) > 0.5, 4),
     }
 
 
-@pytest.mark.parametrize("kernel", ["block", "gather", "evaluate"])
+@pytest.mark.parametrize("kernel", ["block", "gather", "evaluate", "chain",
+                                    "evaluate_chained", "assemble"])
 def test_wrapper_raises_when_kernel_build_fails(monkeypatch, kernel):
     """A non-CPU tensor goes to the kernel: when the library cannot be
     built the wrapper raises — it never returns the plain version."""
@@ -129,11 +143,14 @@ def test_wrapper_rejects_non_cuda_tensor_after_build(monkeypatch):
 
 
 def _launch_counts():
-    from repro_torch.kernels.rme_gather.rme_gather import rme_evaluate
+    from repro_torch.kernels.rme_gather.rme_gather import (
+        rme_assemble, rme_evaluate, rme_evaluate_chained)
+    from repro_torch.kernels.tm_affine.chain import tm_chain
     from repro_torch.kernels.tm_affine.tm_affine import (tm_affine_block,
                                                          tm_affine_gather)
     return (tm_affine_block.launches, tm_affine_gather.launches,
-            rme_evaluate.launches)
+            rme_evaluate.launches, tm_chain.launches,
+            rme_evaluate_chained.launches, rme_assemble.launches)
 
 
 def test_build_keys_libraries_by_source_hash():
@@ -141,4 +158,6 @@ def test_build_keys_libraries_by_source_hash():
     assert set(build.SIGNATURES) == {p.stem for p in build.CSRC.glob("*.cu")}
     a, b = build.library_path("tm_affine"), build.library_path("rme_gather")
     assert a.parent != b.parent and a.name == "libtm_affine.so"
+    # the chain kernel is its own library: editing it rebuilds only it
+    assert build.library_path("tm_chain").name == "libtm_chain.so"
     assert build.BUILD_ROOT == ROOT / "build" / "repro_torch"
