@@ -8,11 +8,12 @@ use, into ``build/``, one ``nvcc`` per source, all at once), then runs its
 phases and fails on any mismatch:
 
 1. kernels  — each kernel at the main path's shapes against its plain
-   PyTorch version on the card (bit-exact), with its device time (from a
-   CUDA graph of back-to-back launches) and its time per call with the
-   wrapper's host work, the plain version's time, its bound (bytes /
-   3.35 TB/s) and, where one PyTorch call computes the same function, that
-   call's device time;
+   PyTorch version on the card (bit-exact; the conv and resize within a
+   stated tolerance), with its device time (from a CUDA graph of
+   back-to-back launches) and its time per call with the wrapper's host
+   work, the plain version's time, its bound (the larger of bytes over
+   3.35 TB/s and f32 operations over 67 TFLOP/s) and, where one PyTorch
+   call computes the same function, that call's device time;
 2. slice 1, per-instruction lowering: the paper's Table III operators as
    single-instruction ``TMProgram``s through ``TMExecutor(backend="cuda")``
    against ``backend="reference"``, bit-exact, with the expected ``cuda.*``
@@ -27,7 +28,14 @@ phases and fails on any mismatch:
    engine, then the same YOLOv3-Tiny forward through the chaining executor
    (4 TM launches instead of 8), bit-exact against the eager model and the
    unfused forward;
-4. the launch counts of each slice's path, read just after it ran with the
+4. slice 3, img2col, the implicit-GEMM conv and resize: the paper's Table
+   III Img2col and Resize as single-instruction ``TMProgram``s through the
+   cuda executor against the reference engine (Img2col bit-exact in every
+   dtype, its padding filled from the map), then EDSR x2 at full width
+   (feats 64, 8 residual blocks, batch 8, 224x224 -> 448x448, f32): the
+   eager model (cuDNN convs) against a hand-partitioned forward whose 18
+   convs per image all run through ``conv2d_call``;
+5. the launch counts of each slice's path, read just after it ran with the
    counts set to 0 just before it: every kernel of the slice > 0.
 
 The last three lines of standard output are the card's name and power
@@ -49,13 +57,25 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
+from repro_torch.core.fp_bounds import bf16_ulp, conv_tol  # noqa: E402
+from repro_torch.models.partitioned import (  # noqa: E402
+    CAPACITY, CHAINED_PATHS, CONF, UNFUSED_PATHS, detect_program,
+    edsr_partitioned_forward, eager_forward, partitioned_forward)
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+F32_FLOP_PER_S = 67e12     # f32 outside the tensor cores, the same sheet
 SECTOR = 32                # bytes: the least a strided load moves from HBM
 SEED = 0
 IMG = (8, 448, 448, 3)     # batch 8, paper Table III input
 N_CLASSES = 80
-CONF, CAPACITY = 0.5, 256
 TABLE3 = (448, 448, 64)    # paper Table III feature map
+EDSR_IMG = (8, 224, 224, 3)  # EDSR x2: batch 8 -> (8, 448, 448, 3)
+# partitioned EDSR vs the eager model: 18 stacked f32 convs (K <= 576)
+# summed in other orders, and cuDNN may pick a transform algorithm; the
+# residual branches are scaled by 0.1, so the errors stay near the f32
+# rounding of one conv (about 1e-6 relative): 1e-4 of the output's largest
+# magnitude leaves a factor of 100
+EDSR_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -114,96 +134,23 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
 
 
+def require_within(a: torch.Tensor, b: torch.Tensor, tol, what: str) -> None:
+    """Every element of ``a`` within ``tol`` (a number or an elementwise
+    tensor) of ``b``."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{what}: shapes {tuple(a.shape)} / "
+                             f"{tuple(b.shape)}, dtypes {a.dtype} / {b.dtype}")
+    err = (a.to(torch.float64) - b.to(torch.float64)).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{what}: max |err| {float(err.max())} past the "
+                             f"tolerance")
+
+
 def require_equal(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
     if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
         raise AssertionError(f"{what}: mismatch (shapes {tuple(a.shape)} / "
                              f"{tuple(b.shape)}, max |err| "
                              f"{max_abs_err(a, b) if a.shape == b.shape else 'n/a'})")
-
-
-# ---------------------------------------------------------------------------
-# the hand-partitioned YOLOv3-Tiny forward (what a compiler will partition)
-# ---------------------------------------------------------------------------
-
-def rearrange_program(img_core):
-    """Paper Rearrange: the RGB stream into a 16-channel burst-friendly map."""
-    from repro_torch.core import affine as af
-    from repro_torch.core.instr import TMInstr, TMOpcode, TMProgram
-    m = af.rearrange_map(img_core, 1, 16)
-    return TMProgram([TMInstr(TMOpcode.COARSE, ("img",), "x", map_=m)],
-                     ("img",), ("x",))
-
-
-def neck_program(u0_core, skip_core):
-    """The neck: Upsample x2 of the reduced map, Route with the skip map."""
-    from repro_torch.core import affine as af
-    from repro_torch.core.instr import TMInstr, TMOpcode, TMProgram
-    up = af.upsample_map(u0_core, 2)
-    route = tuple(af.route_maps([up.out_shape, skip_core]))
-    return TMProgram([TMInstr(TMOpcode.COARSE, ("u0",), "u", map_=up),
-                      TMInstr(TMOpcode.COARSE, ("u", "skip"), "cat",
-                              maps=route)], ("u0", "skip"), ("cat",))
-
-
-def detect_program(pred_core, conf, capacity):
-    """A detect tail: the raw head grid laid out as record streams (COARSE
-    reshape), then Bboxcal (FINE_EVALUATE)."""
-    from repro_torch.core import affine as af
-    from repro_torch.core.instr import (RMEConfig, TMInstr, TMOpcode,
-                                        TMProgram)
-    hg, wg, no = pred_core
-    rows = af.reshape_map((hg, wg, no), (hg * wg * 3, no // 3))
-    rme = RMEConfig(scheme="evaluate", threshold=conf, cmp="ge",
-                    score_index=4, capacity=capacity)
-    return TMProgram([TMInstr(TMOpcode.COARSE, ("p",), "rows", map_=rows),
-                      TMInstr(TMOpcode.FINE_EVALUATE, ("rows",), "boxes",
-                              rme=rme)], ("p",), ("boxes",))
-
-
-def partitioned_forward(model, img, ex, *, conf=CONF, capacity=CAPACITY,
-                        tm_events=None):
-    """YOLOv3-Tiny with every TM stage run as a TMProgram through ``ex``
-    (a ``TMExecutor``, batch axis lifted by the executor) and the
-    convolutions as torch calls in between.  Returns ``(pred1, pred2,
-    boxes1, boxes2, lowering paths, TM kernel launches)``.  With
-    ``tm_events`` (a list), each TM stage is bracketed by a pair of CUDA
-    events."""
-    paths = []
-    launches = 0
-
-    def stage(prog, bufs):
-        nonlocal launches
-        if tm_events is not None:
-            a, b = (torch.cuda.Event(enable_timing=True),
-                    torch.cuda.Event(enable_timing=True))
-            a.record()
-        out, low, _ = ex.run(prog, bufs, batch_dims=1)
-        if tm_events is not None:
-            b.record()
-            tm_events.append((a, b))
-        paths.extend(low.paths())
-        launches += low.launch_count()
-        return out
-
-    core = lambda t: tuple(t.shape[1:])  # noqa: E731
-    x = stage(rearrange_program(core(img)), {"img": img})["x"]
-    r, skip = model.trunk(x)
-    pred1 = model.head1(r)
-    u0 = model.neck_in(r)
-    cat = stage(neck_program(core(u0), core(skip)),
-                {"u0": u0, "skip": skip})["cat"]
-    pred2 = model.head2(cat)
-    boxes = [stage(detect_program(core(p), conf, capacity), {"p": p})["boxes"]
-             for p in (pred1, pred2)]
-    return pred1, pred2, boxes[0], boxes[1], paths, launches
-
-
-def eager_forward(model, img, *, conf=CONF, capacity=CAPACITY):
-    """The port's eager model and its detect tails (the reference engine)."""
-    from repro_torch.models import cnn
-    pred1, pred2 = model(img)
-    return (pred1, pred2, cnn.detect_tail_raw(pred1, conf, capacity),
-            cnn.detect_tail_raw(pred2, conf, capacity))
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +256,142 @@ def chained_evaluate_row(dev, gen) -> dict:
         library_ms=None,
         shape=f"(8, 28, 28, 255) -> (8, 2352, 85) f32 cap {CAPACITY}, "
               f"{int(cnt.sum())} kept")
+
+
+def img2col_row(dev, gen) -> dict:
+    """img2col at Table III: (448, 448, 64) f32, 3x3 stride 1, no padding
+    (site #11, overlapping slabs); the other dtypes are checked beside it,
+    the 2x2 stride-2 case (site #10) checked and timed."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.img2col import img2col as ik
+
+    x = torch.rand(TABLE3, generator=gen).to(dev)
+    got = ik.img2col(x, 3, 3, 1, 0)
+    ref = ik.img2col_plain(x, 3, 3, 1, 0)
+    require_equal(got, ref, "img2col")
+    err = max_abs_err(got, ref)
+    nbytes = (x.numel() + got.numel()) * 4
+    del got, ref
+    for dtype in (torch.int8, torch.int32, torch.bfloat16):
+        xd = (x * 200 - 100).to(dtype)
+        require_equal(ik.img2col(xd, 3, 3, 1, 0),
+                      ik.img2col_plain(xd, 3, 3, 1, 0), f"img2col[{dtype}]")
+    # the library call: one strided copy of the (OH, OW, ky, kx, C) window
+    # view, which is this layout; F.unfold's (channel-major columns, rows
+    # last) is timed beside it as the nearest conv-library call
+    def unfold_copy(k, s):
+        return lambda: (x.unfold(0, k, s).unfold(1, k, s)
+                        .permute(0, 1, 3, 4, 2)
+                        .reshape(-1, k * k * x.shape[2]))
+
+    lib3, lib2 = unfold_copy(3, 1), unfold_copy(2, 2)
+    require_equal(lib3(), ik.img2col(x, 3, 3, 1, 0),
+                  "img2col vs the unfold copy")
+    xn = x.permute(2, 0, 1)[None]  # NCHW view of the same memory
+    unfold_ms = graph_ms(lambda: F.unfold(xn, 3), iters=10)
+    s2 = ik.img2col(x, 2, 2, 2, 0)
+    require_equal(s2, ik.img2col_plain(x, 2, 2, 2, 0), "img2col 2x2 s2")
+    require_equal(s2, lib2(), "img2col 2x2 s2 vs the unfold copy")
+    s2_bytes = (x.numel() + s2.numel()) * 4
+    del s2
+    s2_ms = graph_ms(lambda: ik.img2col(x, 2, 2, 2, 0), iters=10)
+    s2_call_ms = cuda_ms(lambda: ik.img2col(x, 2, 2, 2, 0), iters=10)
+    s2_plain_ms = cuda_ms(lambda: ik.img2col_plain(x, 2, 2, 2, 0), iters=3,
+                          warmup=1)
+    log(f"kernel img2col 2x2 stride 2 (448, 448, 64) f32 (site #10): "
+        f"{s2_ms:.4f} ms device ({s2_call_ms:.4f} per call with host work; "
+        f"plain {s2_plain_ms:.4f}, bound "
+        f"{s2_bytes / HBM_BYTES_PER_S * 1e3:.4f}, library (unfold copy) "
+        f"{graph_ms(lib2, iters=10):.4f}); int8, int32, bf16 at 3x3 s1 "
+        f"bit-exact; F.unfold 3x3 (columns channel-major, another layout) "
+        f"{unfold_ms:.4f} ms")
+    return dict(
+        name="img2col", route="cuda",
+        source="src/repro_torch/csrc/img2col.cu",
+        replaces="src/repro/kernels/img2col/img2col.py:94",
+        max_abs_err=err,
+        ms=graph_ms(lambda: ik.img2col(x, 3, 3, 1, 0), iters=10),
+        call_ms=cuda_ms(lambda: ik.img2col(x, 3, 3, 1, 0), iters=10),
+        plain_ms=cuda_ms(lambda: ik.img2col_plain(x, 3, 3, 1, 0), iters=3,
+                         warmup=1),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=graph_ms(lib3, iters=10),
+        shape="3x3 stride 1 (448, 448, 64) -> (198916, 576) f32")
+
+
+def conv2d_row(dev, gen) -> dict:
+    """The implicit-GEMM conv at the EDSR body conv: (224, 224, 64) by
+    (3, 3, 64, 64), pad 1, f32 (timed) and bf16 (checked)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.img2col import img2col as ik
+
+    H, W, C = EDSR_IMG[1], EDSR_IMG[2], 64
+    x = torch.rand((H, W, C), generator=gen).to(dev)
+    w = ((torch.rand((3, 3, C, C), generator=gen) - 0.5) * 0.1).to(dev)
+    got = ik.conv2d(x, w, 1, 1)
+    ref = ik.conv2d_plain(x, w, 1, 1)
+    tol = conv_tol(x, w, 1, 1)
+    require_within(got, ref, tol, "conv2d f32")
+    err = max_abs_err(got, ref)
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    gb, rb = ik.conv2d(xb, wb, 1, 1), ik.conv2d_plain(xb, wb, 1, 1)
+    require_within(gb, rb, conv_tol(xb, wb, 1, 1) + bf16_ulp(rb),
+                   "conv2d bf16")
+    log(f"kernel conv2d: f32 max |err| {err} (tolerance 2 gamma_576 sum|xw|,"
+        f" max {float(tol.max()):.3g}); bf16 max |err| "
+        f"{max_abs_err(gb, rb)} within one bf16 ulp")
+    M, K = H * W, 9 * C
+    flops = 2 * M * C * K
+    nbytes = (x.numel() + w.numel() + got.numel()) * 4
+    xn, wn = x.permute(2, 0, 1)[None], w.permute(3, 2, 0, 1)
+    return dict(
+        name="conv2d", route="cuda",
+        source="src/repro_torch/csrc/img2col.cu",
+        replaces="src/repro/kernels/img2col/img2col.py:130",
+        max_abs_err=err,
+        ms=graph_ms(lambda: ik.conv2d(x, w, 1, 1)),
+        call_ms=cuda_ms(lambda: ik.conv2d(x, w, 1, 1)),
+        plain_ms=cuda_ms(lambda: ik.conv2d_plain(x, w, 1, 1)),
+        bound_ms=max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        bound_by=("operations" if flops / F32_FLOP_PER_S
+                  > nbytes / HBM_BYTES_PER_S else "bytes"),
+        library_ms=graph_ms(lambda: F.conv2d(xn, wn, padding=1)),
+        shape="EDSR body conv (224, 224, 64) x (3, 3, 64, 64) pad 1 f32, "
+              f"{flops / 1e9:.3f} GFLOP")
+
+
+def resize_row(dev, gen) -> dict:
+    """Bilinear resize of the Table III map, (448, 448, 64) ->
+    (224, 224, 64), f32 (timed) and bf16 (checked)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.resize import resize as rk
+
+    x = torch.rand(TABLE3, generator=gen).to(dev)
+    got = rk.resize_bilinear(x, 224, 224)
+    ref = rk.resize_plain(x, 224, 224)
+    require_within(got, ref, 1e-5, "resize f32")
+    xb = x.to(torch.bfloat16)
+    gb, rb = rk.resize_bilinear(xb, 224, 224), rk.resize_plain(xb, 224, 224)
+    require_within(gb, rb, bf16_ulp(rb), "resize bf16")
+    xn = x.permute(2, 0, 1)[None]
+    lib = F.interpolate(xn, size=(224, 224), mode="bilinear",
+                        align_corners=False)
+    log(f"kernel resize: f32 max |err| {max_abs_err(got, ref)} (tolerance "
+        f"1e-5), bf16 {max_abs_err(gb, rb)} (one bf16 ulp); F.interpolate "
+        f"vs the kernel {max_abs_err(lib[0].permute(1, 2, 0), got)}")
+    nbytes = (x.numel() + got.numel()) * 4
+    return dict(
+        name="resize", route="cuda",
+        source="src/repro_torch/csrc/resize.cu",
+        replaces="src/repro/kernels/resize/resize.py:52",
+        max_abs_err=max_abs_err(got, ref),
+        ms=graph_ms(lambda: rk.resize_bilinear(x, 224, 224)),
+        call_ms=cuda_ms(lambda: rk.resize_bilinear(x, 224, 224)),
+        plain_ms=cuda_ms(lambda: rk.resize_plain(x, 224, 224)),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=graph_ms(lambda: F.interpolate(
+            xn, size=(224, 224), mode="bilinear", align_corners=False)),
+        shape="(448, 448, 64) -> (224, 224, 64) f32")
 
 
 def kernel_phase(dev, gen) -> list[dict]:
@@ -426,6 +509,8 @@ def kernel_phase(dev, gen) -> list[dict]:
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None,
         shape=f"(8, 2352, 85) f32 mask score >= {CONF} cap {CAPACITY}"))
+    rows += [img2col_row(dev, gen), conv2d_row(dev, gen),
+             resize_row(dev, gen)]
     for r in rows:
         log(f"kernel {r['name']:17s} {r['shape']}: {r['ms']:.4f} ms device "
             f"({r['call_ms']:.4f} per call with host work; plain "
@@ -606,10 +691,111 @@ def chain_operator_phase(dev, gen) -> None:
             f"{t_chn:.3f} ms, per-instruction {t_unf:.3f} ms (wall)")
 
 
-UNFUSED_PATHS = ["cuda.gather", "cuda.gather", "cuda.route", "cuda.gather",
-                 "cuda.rme.evaluate", "cuda.gather", "cuda.rme.evaluate"]
-CHAINED_PATHS = ["cuda.gather", "cuda.chain+route",
-                 "cuda.chain+rme.evaluate", "cuda.chain+rme.evaluate"]
+def img2col_resize_phase(dev, gen, fmap=TABLE3, small=(448, 448, 3),
+                         out_hw=(224, 224)) -> None:
+    """Slice 3's operators: the paper's Table III Img2col and Resize as
+    single-instruction programs through the cuda executor against the
+    reference engine, each with its expected lowering.  Img2col bit-exact
+    (3x3 stride 1 in every dtype, 2x2 stride 2, and 3x3 pad 1 under a map
+    whose fill is 7); Resize f32 within 1e-5 of inputs in [0, 1), bf16
+    within one bf16 ulp of the output."""
+    from repro_torch.core import affine as af
+    from repro_torch.core.executor import TMExecutor
+    from repro_torch.core.instr import TMInstr, TMOpcode, TMProgram
+
+    def img2col(shape, k, stride, pad, fill=0.0):
+        m = af.img2col_map(shape, k, k, stride, pad, fill=fill)
+        meta = {"img2col": {"kh": k, "kw": k, "stride": stride, "pad": pad}}
+        return TMProgram([TMInstr(TMOpcode.COARSE, ("x",), "y", map_=m,
+                                  meta=meta)], ("x",), ("y",))
+
+    def resize(h, w):
+        return TMProgram([TMInstr(TMOpcode.RESIZE, ("x",), "y",
+                                  meta={"out_h": h, "out_w": w})],
+                         ("x",), ("y",))
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    ops = [(f"img2col 3x3 s1 {fmap}", img2col(fmap, 3, 1, 0), fmap, d,
+            "cuda.img2col") for d in (torch.int8, torch.int32, bf16, f32)]
+    ops += [(f"img2col 2x2 s2 {fmap}", img2col(fmap, 2, 2, 0), fmap, f32,
+             "cuda.img2col"),
+            (f"img2col 3x3 s1 pad 1 fill 7 {fmap}", img2col(fmap, 3, 1, 1, 7.0),
+             fmap, f32, "cuda.img2col")]
+    ops += [(f"resize {shape} -> {out_hw}", resize(*out_hw), shape, d,
+             "cuda.resize") for shape in (small, fmap) for d in (f32, bf16)]
+    cuda = TMExecutor(backend="cuda", device=dev)
+    reference = TMExecutor(backend="reference", device=dev)
+    for name, prog, shape, dtype, path in ops:
+        base = torch.rand(shape, generator=gen)
+        if name.startswith("img2col"):
+            base = base * 200 - 100
+        bufs = {"x": base.to(dtype).to(dev)}
+        got, low, _ = cuda.run(prog, bufs)
+        ref, _, _ = reference.run(prog, bufs)
+        if name.startswith("img2col"):
+            require_equal(got["y"], ref["y"], f"operator {name}[{dtype}]")
+            if "fill 7" in name and int((got["y"] == 7).sum()) == 0:
+                raise AssertionError("img2col fill 7: no padded tap")
+        else:
+            tol = 1e-5 if dtype == f32 else bf16_ulp(ref["y"])
+            require_within(got["y"], ref["y"], tol, f"operator {name}[{dtype}]")
+        if low.paths() != [path]:
+            raise AssertionError(f"operator {name}: lowered to {low.paths()}, "
+                                 f"expected [{path!r}]")
+        err = max_abs_err(got["y"], ref["y"])
+        del got, ref
+        t_cuda = wall_ms(lambda: cuda.run(prog, bufs), iters=3)
+        t_ref = wall_ms(lambda: reference.run(prog, bufs), iters=2)
+        log(f"operator {name}[{str(dtype)[6:]}] {path} max |err| {err}; "
+            f"cuda executor {t_cuda:.3f} ms, reference engine {t_ref:.3f} ms "
+            f"(wall)")
+
+
+def edsr_setup(dev, gen, img_shape=EDSR_IMG) -> dict:
+    """EDSR x2 at the JAX package's init_edsr defaults (feats 64, 8
+    blocks) with random weights, its input and the eager output (cuDNN
+    convs, TF32 off)."""
+    from repro_torch.models import cnn
+    model = cnn.init_edsr(gen, device=dev)
+    img = torch.rand(img_shape, generator=gen).to(dev)
+    return dict(model=model, img=img, eager=model(img))
+
+
+def edsr_check(e: dict, ex) -> int:
+    """The partitioned EDSR forward against the eager model within
+    EDSR_RTOL of the output's largest magnitude; returns the conv kernel
+    launches of that one forward (the wrapper's own count)."""
+    from repro_torch.kernels.img2col.img2col import conv2d
+    before = conv2d.launches
+    got, paths = edsr_partitioned_forward(e["model"], e["img"], ex)
+    n_convs = conv2d.launches - before
+    eager = e["eager"]
+    scale = float(eager.abs().max())
+    require_within(got, eager, EDSR_RTOL * scale, "EDSR partitioned vs eager")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("EDSR: non-finite values")
+    if paths != ["cuda.gather"]:
+        raise AssertionError(f"EDSR tail lowered to {paths}")
+    log(f"model EDSR x2 {tuple(e['img'].shape)} -> {tuple(got.shape)} f32: "
+        f"partitioned vs eager max |err| {max_abs_err(got, eager)} (max "
+        f"|out| {scale:.4g}, tolerance {EDSR_RTOL} of it); {n_convs} "
+        f"conv2d kernel launches per forward, tail {paths}")
+    return n_convs
+
+
+def edsr_timings(e: dict, ex) -> None:
+    """Wall ms per forward, eager (cuDNN) and partitioned (conv2d_call),
+    in turns (a, b, b, a), and the partitioned forward's device ms."""
+    model, img = e["model"], e["img"]
+    runs = {"eager": lambda: model(img),
+            "partitioned": lambda: edsr_partitioned_forward(model, img, ex)}
+    walls: dict[str, list[float]] = {k: [] for k in runs}
+    for k in ("eager", "partitioned", "partitioned", "eager"):
+        walls[k].append(wall_ms(runs[k], iters=3))
+    dev_ms = {k: cuda_ms(fn, iters=3, warmup=1) for k, fn in runs.items()}
+    log("model EDSR x2 wall ms/forward: " + "; ".join(
+        f"{k} {min(v):.3f} (runs {', '.join(f'{t:.3f}' for t in v)}), "
+        f"device {dev_ms[k]:.3f}" for k, v in walls.items()))
 
 
 def yolo_setup(dev, gen) -> dict:
@@ -619,10 +805,6 @@ def yolo_setup(dev, gen) -> dict:
     confidence): random weights may leave every confidence below CONF."""
     from repro_torch.models import cnn
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
     model = cnn.init_yolov3_tiny(gen, n_classes=N_CLASSES, device=dev)
     img = torch.rand(IMG, generator=gen).to(dev)
     eager = eager_forward(model, img)
@@ -704,10 +886,13 @@ def yolo_timings(y: dict, executors: dict) -> None:
 KERNELS = {  # slice -> the kernels its path must launch
     1: ("tm_affine_block", "tm_affine_gather", "rme_evaluate"),
     2: ("tm_chain", "rme_evaluate_chained", "rme_assemble"),
+    3: ("img2col", "conv2d", "resize"),
 }
 
 
 def _wrappers() -> dict:
+    from repro_torch.kernels.img2col import img2col as ik
+    from repro_torch.kernels.resize import resize as rk
     from repro_torch.kernels.rme_gather import rme_gather as rg
     from repro_torch.kernels.tm_affine import chain, tm_affine
     return {"tm_affine_block": tm_affine.tm_affine_block,
@@ -715,7 +900,10 @@ def _wrappers() -> dict:
             "rme_evaluate": rg.rme_evaluate,
             "tm_chain": chain.tm_chain,
             "rme_evaluate_chained": rg.rme_evaluate_chained,
-            "rme_assemble": rg.rme_assemble}
+            "rme_assemble": rg.rme_assemble,
+            "img2col": ik.img2col,
+            "conv2d": ik.conv2d,
+            "resize": rk.resize_bilinear}
 
 
 def launch_counts() -> dict[str, int]:
@@ -763,6 +951,12 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
+    # full f32 for every reference product and conv (no TF32), and cuDNN's
+    # algorithm chosen by its heuristics, not by timing
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     with torch.inference_mode():
         rows = kernel_phase(dev, gen)
         y = yolo_setup(dev, gen)  # the eager model launches no kernel
@@ -780,13 +974,23 @@ def main() -> int:
             yolo_timings(y, {"unfused": unfused, "chained": chained})
             return out
 
+        def slice3():
+            img2col_resize_phase(dev, gen)
+            n_convs = edsr_check(e, unfused)
+            edsr_timings(e, unfused)
+            return n_convs
+
         (unfused_outs, n_unf), counts1 = run_path(1, slice1)
         (_, n_chn), counts2 = run_path(2, slice2)
-    if (n_unf, n_chn) != (8, 4):
+        e = edsr_setup(dev, gen)  # the eager model launches no kernel
+        n_convs, counts3 = run_path(3, slice3)
+    if (n_unf, n_chn, n_convs) != (8, 4, 144):
         raise AssertionError(f"TM launches per forward {n_unf} unfused, "
-                             f"{n_chn} chained; expected 8 and 4")
-    counts = {k: (counts1 if k in KERNELS[1] else counts2)[k]
-              for k in launch_counts()}
+                             f"{n_chn} chained, EDSR conv launches "
+                             f"{n_convs}; expected 8, 4 and 144")
+    by_slice = {1: counts1, 2: counts2, 3: counts3}
+    counts = {k: by_slice[s][k] for s, names in KERNELS.items()
+              for k in names}
     log(f"main-path launches (each kernel from its slice's path): {counts}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

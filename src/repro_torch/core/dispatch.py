@@ -198,6 +198,8 @@ def _ensure_registered() -> None:
     global _REGISTERED
     if _REGISTERED:
         return
+    import repro_torch.kernels.img2col.ops  # noqa: F401
+    import repro_torch.kernels.resize.ops  # noqa: F401
     import repro_torch.kernels.rme_gather.ops  # noqa: F401
     import repro_torch.kernels.tm_affine.ops  # noqa: F401
     _REGISTERED = True

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I64, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
+_U64, _F = ctypes.c_uint64, ctypes.c_float
 # argtypes of every C entry point, per source file
 SIGNATURES: dict[str, dict[str, list]] = {
     "tm_affine": {
@@ -46,6 +47,14 @@ SIGNATURES: dict[str, dict[str, list]] = {
                                  _I64, _I64, _I64, _I64, _I, _I, _D, _I64,
                                  _P],
         "rme_assemble": [_P, _P, _I, _P, _P, _I, _I64, _I64, _I64, _I64, _P],
+    },
+    "img2col": {
+        "img2col": [_P, _P, _I, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                    _I64, _I64, _P, _U64, _U64, _I, _P],
+        "conv2d": [_P, _P, _P, _I] + [_I] * 10 + [_P],
+    },
+    "resize": {
+        "resize_bilinear": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     },
 }
 

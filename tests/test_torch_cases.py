@@ -20,18 +20,6 @@ from repro_torch.core.instr import TMProgram as TProgram  # noqa: E402
 from tests.harness import ALL_DTYPES, CASES, make_inputs  # noqa: E402
 from tests.test_torch_support import assert_same, to_torch  # noqa: E402
 
-# Cases whose lowering differs from the JAX package on purpose in this slice,
-# with the port's path at every batch rank and the reason:
-PORT_ONLY_PATHS = {
-    # no img2col kernel is ported yet: the generic gather kernel claims the
-    # img2col map (the JAX package's img2col rule claims it at rank 0), so
-    # the path and the segment count differ there
-    "img2col": ("cuda.gather",),
-    # no resize kernel is ported yet: the RESIZE instruction runs on the
-    # reference engine
-    "resize": ("reference.resize",),
-}
-
 PORT_BACKENDS = ("reference", "fused", "cuda", "cuda+chains")
 
 
@@ -85,9 +73,6 @@ def test_lowering_matches_reference_package(case, batch_dims):
                                          for k, v in bufs.items()},
         batch_dims=batch_dims)
     jrecs, trecs = jex.last_lowering.records, tex.last_lowering.records
-    if case.name in PORT_ONLY_PATHS:
-        assert tuple(tex.last_lowering.paths()) == PORT_ONLY_PATHS[case.name]
-        return
     assert [r.path.replace("pallas.", "cuda.", 1) for r in jrecs] == \
         [r.path for r in trecs]
     assert [r.segments for r in jrecs] == [r.segments for r in trecs]
@@ -97,4 +82,3 @@ def test_lowering_matches_reference_package(case, batch_dims):
 
 def test_every_dtype_covered():
     assert set(ALL_DTYPES) == {"int8", "int32", "bfloat16", "float32"}
-    assert {c.name for c in CASES} >= set(PORT_ONLY_PATHS)

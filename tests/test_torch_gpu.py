@@ -296,3 +296,122 @@ def test_assemble_kernel_matches_plain_on_card(cuda, dtype):
                 assert rg.rme_assemble.launches == before + 1
                 for g, r in zip(got, ref):
                     assert torch.equal(g, r), (dtype, B, N, kind, cap)
+
+
+# ---------------------------------------------------------------------------
+# slice 3: img2col, the implicit-GEMM conv and bilinear resize
+# ---------------------------------------------------------------------------
+
+# (H, W, C, kh, kw, stride, pad): aligned and odd channel counts (copy units
+# of 16 down to 1 byte), non-square windows, padding wider than the window
+IMG2COL_CASES = [(16, 16, 8, 3, 3, 1, 1), (13, 11, 3, 3, 3, 2, 1),
+                 (8, 12, 4, 2, 2, 2, 0), (9, 7, 5, 5, 3, 1, 2),
+                 (6, 10, 64, 3, 3, 1, 0), (5, 6, 1, 2, 2, 1, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", IMG2COL_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_img2col_kernel_matches_plain_on_card(cuda, case):
+    from repro_torch.kernels.img2col import img2col as ik
+    H, W, C, kh, kw, stride, pad = case
+    rng = np.random.RandomState(10)
+    for dtype in DTYPES:
+        for fill in (0.0, 7.0, -3.5):
+            x = _rand(rng, (H, W, C), dtype, cuda)
+            # the same values one element off the allocation's alignment
+            shifted = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+            shifted[1:] = x.reshape(-1)
+            for xin in (x, shifted[1:].view(H, W, C)):
+                before = ik.img2col.launches
+                got = ik.img2col(xin, kh, kw, stride, pad, fill)
+                ref = ik.img2col_plain(xin, kh, kw, stride, pad, fill)
+                torch.cuda.synchronize()
+                assert ik.img2col.launches == before + 1
+                assert torch.equal(got, ref), (case, dtype, fill)
+
+
+@pytest.mark.gpu
+def test_img2col_wide_index_path_on_card(cuda, monkeypatch):
+    """The 64-bit index instantiation, forced on small shapes."""
+    from repro_torch.kernels.img2col import img2col as ik
+    monkeypatch.setattr(ik, "_NARROW", 0)
+    rng = np.random.RandomState(11)
+    for H, W, C, kh, kw, stride, pad in IMG2COL_CASES[:4]:
+        for dtype in DTYPES:
+            x = _rand(rng, (H, W, C), dtype, cuda)
+            got = ik.img2col(x, kh, kw, stride, pad, 5.0)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ik.img2col_plain(x, kh, kw, stride, pad,
+                                                     5.0))
+
+
+# (H, W, C, OC, k, stride, pad): several row and column tiles, K not a
+# multiple of the tile depth, a 3-channel input, a 1x1 conv
+CONV_CASES = [(16, 16, 8, 16, 3, 1, 1), (13, 11, 3, 7, 3, 2, 1),
+              (9, 10, 5, 70, 3, 1, 0), (20, 30, 64, 64, 3, 1, 1),
+              (7, 5, 130, 12, 1, 1, 0), (17, 9, 6, 5, 5, 2, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CONV_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_conv2d_kernel_matches_plain_on_card(cuda, case):
+    """Within 2 gamma_K sum |x w| of the plain f32 product (each f32 sum of
+    K products lies within gamma_K sum |x w| of the exact one), plus one
+    bf16 ulp of the output in bf16."""
+    from repro_torch.core.fp_bounds import bf16_ulp, conv_tol
+    from repro_torch.kernels.img2col import img2col as ik
+    H, W, C, OC, k, stride, pad = case
+    gen = torch.Generator().manual_seed(12)
+    x = torch.rand((H, W, C), generator=gen).to(cuda)
+    w = (torch.rand((k, k, C, OC), generator=gen) - 0.5).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        xd, wd = x.to(dtype), w.to(dtype)
+        before = ik.conv2d.launches
+        got = ik.conv2d(xd, wd, stride, pad)
+        ref = ik.conv2d_plain(xd, wd, stride, pad)
+        torch.cuda.synchronize()
+        assert ik.conv2d.launches == before + 1
+        assert got.shape == ref.shape and got.dtype == dtype
+        tol = conv_tol(xd, wd, stride, pad)
+        if dtype == torch.bfloat16:
+            tol = tol + bf16_ulp(ref)
+        err = (got.double() - ref.double()).abs()
+        assert bool((err <= tol).all()), (case, dtype, float(err.max()))
+
+
+@pytest.mark.gpu
+def test_resize_kernel_matches_plain_on_card(cuda):
+    """Bit-exact: the kernel does the plain version's f32 operations in its
+    order, with no contraction into FMAs."""
+    from repro_torch.kernels.resize import resize as rk
+    rng = np.random.RandomState(13)
+    for (H, W, C), outs in (((64, 48, 8), ((32, 24), (96, 100), (5, 7),
+                                           (1, 1))),
+                            ((7, 9, 3), ((7, 9), (20, 3))),
+                            ((1, 5, 2), ((4, 3),))):
+        for dtype in DTYPES:
+            x = _rand(rng, (H, W, C), dtype, cuda)
+            for out_h, out_w in outs:
+                before = rk.resize_bilinear.launches
+                got = rk.resize_bilinear(x, out_h, out_w)
+                ref = rk.resize_plain(x, out_h, out_w)
+                torch.cuda.synchronize()
+                assert rk.resize_bilinear.launches == before + 1
+                assert torch.equal(got, ref), ((H, W, C), dtype, out_h, out_w)
+
+
+@pytest.mark.gpu
+def test_slice3_empty_output_launches_nothing_on_card(cuda):
+    from repro_torch.kernels.img2col import img2col as ik
+    from repro_torch.kernels.resize import resize as rk
+    counts = lambda: (ik.img2col.launches, ik.conv2d.launches,  # noqa: E731
+                      rk.resize_bilinear.launches)
+    before = counts()
+    x = torch.zeros((2, 5, 3), device=cuda)
+    assert ik.img2col(x, 3, 3).shape == (0, 27)
+    assert ik.conv2d(x, torch.zeros((3, 3, 3, 4), device=cuda)).shape == (
+        0, 3, 4)
+    assert rk.resize_bilinear(x, 0, 4).shape == (0, 4, 3)
+    assert counts() == before

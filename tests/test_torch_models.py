@@ -9,12 +9,13 @@ jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 
-import chip_smoke  # noqa: E402
 from repro.models import cnn as jcnn  # noqa: E402
 from repro_torch.core.executor import TMExecutor  # noqa: E402
 from repro_torch.models import cnn as tcnn  # noqa: E402
+from repro_torch.models import partitioned  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
-from tests.test_torch_support import assert_same, to_torch  # noqa: E402
+from tests.test_torch_support import (assert_same, assert_within,  # noqa: E402
+                                      espcn_f64, to_torch)
 
 # Conv outputs agree only to float32 rounding: XLA's and PyTorch's CPU
 # convolutions sum in different orders.  Activations here stay below 1 in
@@ -66,7 +67,7 @@ def test_detect_tails_bit_exact_on_the_same_head(yolo, head):
     ref = jcnn.detect_tail_raw(jnp.asarray(pred), conf, 16)
     got = tcnn.detect_tail_raw(torch.tensor(pred), conf, 16)
     assert_same(ref, got)
-    prog = chip_smoke.detect_program(pred.shape[1:], conf, 16)
+    prog = partitioned.detect_program(pred.shape[1:], conf, 16)
     ex = TMExecutor(backend="cuda", device="cpu")
     out, low, _ = ex.run(prog, {"p": torch.tensor(pred)}, batch_dims=1)
     assert low.paths() == ["cuda.gather", "cuda.rme.evaluate"]
@@ -77,22 +78,23 @@ def test_detect_tails_bit_exact_on_the_same_head(yolo, head):
 
 
 def test_partitioned_forward_equals_eager_model(yolo):
-    """The hand-partitioned forward of chip_smoke.py (TM stages through the
-    port's cuda executor, here on the CPU) equals the port's eager model."""
+    """The hand-partitioned forward (models.partitioned, which chip_smoke.py
+    drives; TM stages through the port's cuda executor, here on the CPU)
+    equals the port's eager model."""
     _, model, img, _, _ = yolo
     x = torch.tensor(img)
     ex = TMExecutor(backend="cuda", device="cpu")
     with torch.no_grad():
-        e1, e2, _, _ = chip_smoke.eager_forward(model, x)
+        e1, e2, _, _ = partitioned.eager_forward(model, x)
         conf = float(e2.reshape(-1, 8)[:, 4].median())
-        e1, e2, eb1, eb2 = chip_smoke.eager_forward(model, x, conf=conf,
+        e1, e2, eb1, eb2 = partitioned.eager_forward(model, x, conf=conf,
                                                     capacity=16)
-        p1, p2, b1, b2, paths, launches = chip_smoke.partitioned_forward(
+        p1, p2, b1, b2, paths, launches = partitioned.partitioned_forward(
             model, x, ex, conf=conf, capacity=16)
     for got, ref in ((p1, e1), (p2, e2), (b1, eb1), (b2, eb2)):
         assert torch.equal(got, ref)
     assert int((b2[..., 4] >= conf).sum()) > 0
-    assert paths == chip_smoke.UNFUSED_PATHS == [
+    assert paths == partitioned.UNFUSED_PATHS == [
         "cuda.gather", "cuda.gather", "cuda.route", "cuda.gather",
         "cuda.rme.evaluate", "cuda.gather", "cuda.rme.evaluate"]
     assert launches == 8
@@ -108,14 +110,14 @@ def test_chained_partitioned_forward_equals_unfused(yolo):
     chained = TMExecutor(backend="cuda", device="cpu", fuse_chains=True)
     with torch.no_grad():
         conf = float(model(x)[1].reshape(-1, 8)[:, 4].median())
-        eager = chip_smoke.eager_forward(model, x, conf=conf, capacity=16)
-        ref = chip_smoke.partitioned_forward(model, x, unfused, conf=conf,
+        eager = partitioned.eager_forward(model, x, conf=conf, capacity=16)
+        ref = partitioned.partitioned_forward(model, x, unfused, conf=conf,
                                              capacity=16)
-        got = chip_smoke.partitioned_forward(model, x, chained, conf=conf,
+        got = partitioned.partitioned_forward(model, x, chained, conf=conf,
                                              capacity=16)
     for g, r, e in zip(got[:4], ref[:4], eager):
         assert torch.equal(g, r) and torch.equal(g, e)
-    assert got[4] == chip_smoke.CHAINED_PATHS == [
+    assert got[4] == partitioned.CHAINED_PATHS == [
         "cuda.gather", "cuda.chain+route", "cuda.chain+rme.evaluate",
         "cuda.chain+rme.evaluate"]
     assert (ref[5], got[5]) == (8, 4)
@@ -131,13 +133,33 @@ def test_yolo_postprocess_matches_on_the_same_head(yolo):
         assert_same(r, g)
 
 
+# ESPCN's precision limit, beside its derived bound.  The derived float32
+# bound is a worst case (1.3e-3 to 9.1e-3 per element here) that a network
+# run with TF32-rounded conv operands still meets (7.0e-4 from the float64
+# network, measured on the CPU by rounding F.conv2d's operands); bf16
+# operands give 6.4e-3.  Float32 evaluations measured 6.5e-7 (PyTorch) and
+# 8.1e-7 (XLA), and once 3.58e-5 (PyTorch) under the parallel test run: 1e-4
+# leaves 2.8x over that worst and fails TF32 by 7x.
+ESPCN_ATOL = 1e-4
+
+
 def test_espcn_matches():
+    """Each package's ESPCN against the float64 evaluation of the same
+    network: every element within its derived float32 error bound (the sum
+    lengths of the three convs, 75, 576 and 288 products, carried through
+    the layers: test_torch_support.espcn_f64), and within ESPCN_ATOL, which
+    a float32 network meets and one with reduced-precision convs does not;
+    then the two packages within ESPCN_ATOL of each other."""
     jp = jcnn.init_espcn(jax.random.PRNGKey(2), s=2)
     x = np.random.RandomState(1).rand(2, 10, 14, 3).astype(np.float32)
-    ref = jcnn.espcn(jp, jnp.asarray(x))
+    ref, bound = espcn_f64(jax.tree.map(np.asarray, jp), x)
     with torch.no_grad():
         got = tcnn.ESPCN(_port(jp))(torch.tensor(x))
-    assert_same(ref, got, atol=CONV_ATOL)
+    jax_out = jcnn.espcn(jp, jnp.asarray(x))
+    for what, out in (("JAX ESPCN", jax_out), ("port ESPCN", got)):
+        assert_within(out, ref, bound, what=what)
+        assert_same(out, ref, atol=ESPCN_ATOL, what=what)
+    assert_same(jax_out, got, atol=ESPCN_ATOL, what="port vs JAX ESPCN")
 
 
 def test_edsr_matches():

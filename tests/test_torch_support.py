@@ -11,6 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+from repro_torch.core.fp_bounds import U32, gamma  # noqa: E402
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -37,6 +39,108 @@ def assert_same(a, b, *, atol: float = 0.0, what: str = "") -> None:
         assert np.array_equal(x, y), what
     else:
         np.testing.assert_allclose(x, y, atol=atol, rtol=0, err_msg=what)
+
+
+def assert_within(got, ref: np.ndarray, bound: np.ndarray, *,
+                  what: str = "") -> None:
+    """Every element of ``got`` within its own ``bound`` of ``ref``."""
+    g = to_f64(got)
+    assert g.shape == ref.shape, (what, g.shape, ref.shape)
+    over = np.abs(g - ref) - bound
+    assert (over <= 0).all(), (
+        f"{what}: {int((over > 0).sum())} element(s) past the bound, worst "
+        f"|err| {float(np.abs(g - ref).flat[over.argmax()])} against "
+        f"{float(bound.flat[over.argmax()])}")
+
+
+# ---------------------------------------------------------------------------
+# float64 oracles of float32 conv networks, with derived error bounds
+#
+# Each helper carries (value, bound): the exact result of the network's
+# float32 inputs and weights, computed in float64, and an elementwise bound
+# on how far ANY float32 evaluation of it can lie from that value, whatever
+# order its sums take.  A float32 sum of n products lies within gamma_n *
+# sum |w x| of the exact sum (Higham, Accuracy and Stability of Numerical
+# Algorithms, 2002, eq. 3.5), so the bound of a conv is its sum length n =
+# kh*kw*C times the conv of absolute values, plus its input's bound carried
+# through |w|.  Activations are 1-Lipschitz; tanh adds its library rounding.
+# ---------------------------------------------------------------------------
+
+TANH_ULPS = 4 * U32   # a library tanh (|tanh| < 1) to within 4 ulps
+
+
+def conv_f64(x: np.ndarray, w: np.ndarray, pad: int) -> np.ndarray:
+    """Stride-1 conv of (B, H, W, C) by (kh, kw, C, OC), ``pad`` on every
+    side, in float64."""
+    B, H, W, _ = x.shape
+    kh, kw, _, oc = w.shape
+    xp = np.pad(x, ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+    OH, OW = H + 2 * pad - kh + 1, W + 2 * pad - kw + 1
+    out = np.zeros((B, OH, OW, oc))
+    for ky in range(kh):
+        for kx in range(kw):
+            out += np.einsum("bhwc,co->bhwo", xp[:, ky:ky + OH, kx:kx + OW],
+                             w[ky, kx])
+    return out
+
+
+def bounded_conv(v, e, w, pad):
+    w = np.asarray(w, np.float64)
+    aw = np.abs(w)
+    n = w.shape[0] * w.shape[1] * w.shape[2]
+    return (conv_f64(v, w, pad),
+            conv_f64(e, aw, pad) + gamma(n) * conv_f64(np.abs(v) + e, aw, pad))
+
+
+def bounded_tanh(v, e):
+    return np.tanh(v), e + TANH_ULPS
+
+
+def bounded_relu(v, e):
+    return np.maximum(v, 0.0), e
+
+
+def bounded_scale(v, e, s):
+    s = float(np.float32(s))  # a Python float meets a float32 array
+    out = v * s
+    return out, abs(s) * e + U32 * (np.abs(out) + abs(s) * e)
+
+
+def bounded_add(v1, e1, v2, e2):
+    out = v1 + v2
+    return out, e1 + e2 + U32 * (np.abs(out) + e1 + e2)
+
+
+def pixel_shuffle_f64(h: np.ndarray, s: int) -> np.ndarray:
+    """out[y, x, c] = in[y // s, x // s, c*s*s + (y % s)*s + x % s]."""
+    B, H, W, C = h.shape
+    c = C // (s * s)
+    return (h.reshape(B, H, W, c, s, s).transpose(0, 1, 4, 2, 5, 3)
+            .reshape(B, H * s, W * s, c))
+
+
+def espcn_f64(p: dict, x: np.ndarray):
+    """ESPCN (SAME convs 5x5, 3x3, 3x3; tanh) -> (value, bound)."""
+    v, e = x.astype(np.float64), np.zeros(x.shape)
+    v, e = bounded_tanh(*bounded_conv(v, e, p["c1"], 2))
+    v, e = bounded_tanh(*bounded_conv(v, e, p["c2"], 1))
+    v, e = bounded_conv(v, e, p["c3"], 1)
+    s = int(p["s"])
+    return pixel_shuffle_f64(v, s), pixel_shuffle_f64(e, s)
+
+
+def edsr_f64(p: dict, x: np.ndarray, res_scale: float = 0.1):
+    """EDSR (3x3 SAME convs, ReLU, scaled residuals) -> (value, bound)."""
+    h, eh = bounded_conv(x.astype(np.float64), np.zeros(x.shape), p["head"],
+                         1)
+    skip, eskip = h, eh
+    for blk in p["blocks"]:
+        r, er = bounded_relu(*bounded_conv(h, eh, blk["c1"], 1))
+        r, er = bounded_scale(*bounded_conv(r, er, blk["c2"], 1), res_scale)
+        h, eh = bounded_add(h, eh, r, er)
+    h, eh = bounded_conv(*bounded_add(h, eh, skip, eskip), p["up"], 1)
+    s = int(p["s"])
+    return pixel_shuffle_f64(h, s), pixel_shuffle_f64(eh, s)
 
 
 # ---------------------------------------------------------------------------
@@ -91,6 +195,8 @@ def _failing_loader(name):
 
 def _kernel_calls():
     from repro_torch.core import affine as af
+    from repro_torch.kernels.img2col.img2col import conv2d, img2col
+    from repro_torch.kernels.resize.resize import resize_bilinear
     from repro_torch.kernels.rme_gather.rme_gather import (
         rme_assemble, rme_evaluate, rme_evaluate_chained)
     from repro_torch.kernels.tm_affine.chain import ChainSig, tm_chain
@@ -113,11 +219,16 @@ def _kernel_calls():
             x, pullback(x), None, 0.0, 0.5, 4),
         "assemble": lambda x: rme_assemble(x.reshape(1, 32, 3),
                                            x[..., 0].reshape(1, 32) > 0.5, 4),
+        "img2col": lambda x: img2col(x, 3, 3, 1, 1, fill=2.0),
+        "conv2d": lambda x: conv2d(x, torch.ones((3, 3, 3, 5),
+                                                 device=x.device), 1, 1),
+        "resize": lambda x: resize_bilinear(x, 7, 5),
     }
 
 
 @pytest.mark.parametrize("kernel", ["block", "gather", "evaluate", "chain",
-                                    "evaluate_chained", "assemble"])
+                                    "evaluate_chained", "assemble", "img2col",
+                                    "conv2d", "resize"])
 def test_wrapper_raises_when_kernel_build_fails(monkeypatch, kernel):
     """A non-CPU tensor goes to the kernel: when the library cannot be
     built the wrapper raises — it never returns the plain version."""
@@ -143,6 +254,8 @@ def test_wrapper_rejects_non_cuda_tensor_after_build(monkeypatch):
 
 
 def _launch_counts():
+    from repro_torch.kernels.img2col.img2col import conv2d, img2col
+    from repro_torch.kernels.resize.resize import resize_bilinear
     from repro_torch.kernels.rme_gather.rme_gather import (
         rme_assemble, rme_evaluate, rme_evaluate_chained)
     from repro_torch.kernels.tm_affine.chain import tm_chain
@@ -150,7 +263,8 @@ def _launch_counts():
                                                          tm_affine_gather)
     return (tm_affine_block.launches, tm_affine_gather.launches,
             rme_evaluate.launches, tm_chain.launches,
-            rme_evaluate_chained.launches, rme_assemble.launches)
+            rme_evaluate_chained.launches, rme_assemble.launches,
+            img2col.launches, conv2d.launches, resize_bilinear.launches)
 
 
 def test_build_keys_libraries_by_source_hash():
