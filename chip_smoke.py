@@ -35,7 +35,17 @@ phases and fails on any mismatch:
    (feats 64, 8 residual blocks, batch 8, 224x224 -> 448x448, f32): the
    eager model (cuDNN convs) against a hand-partitioned forward whose 18
    convs per image all run through ``conv2d_call``;
-5. the launch counts of each slice's path, read just after it ran with the
+5. slice 4, the compiler and the cross-engine kernels: ESPCN x3 on one
+   640x360 frame (-> 1920x1080, f32) eager against ``tm_compile`` without
+   and with ``cross_engine`` on the cuda backend (one
+   ``cuda.xchain.commit``: the last conv and its PixelShuffle in one
+   launch); its last layer in im2col form through ``matmul_tm``'s
+   pixel-shuffle store; then YOLOv3-Tiny 448x448 batch 8 compiled with
+   ``cross_engine=True`` and ``fuse_chains=True`` (phases ``ftf``: the
+   Rearrange crossing declined over the 128 MiB budget kept from the JAX
+   package, the neck realized as ``cuda.xchain.prologue``), both heads
+   against the eager model and the hand-partitioned chained forward;
+6. the launch counts of each slice's path, read just after it ran with the
    counts set to 0 just before it: every kernel of the slice > 0.
 
 The last three lines of standard output are the card's name and power
@@ -70,6 +80,9 @@ IMG = (8, 448, 448, 3)     # batch 8, paper Table III input
 N_CLASSES = 80
 TABLE3 = (448, 448, 64)    # paper Table III feature map
 EDSR_IMG = (8, 224, 224, 3)  # EDSR x2: batch 8 -> (8, 448, 448, 3)
+# ESPCN x3 on one 640x360 frame -> 1920x1080 (the ESPCN paper's 1080p
+# video setting, Shi et al. CVPR 2016)
+ESPCN_IMG = (1, 360, 640, 3)
 # partitioned EDSR vs the eager model: 18 stacked f32 convs (K <= 576)
 # summed in other orders, and cuDNN may pick a transform algorithm; the
 # residual branches are scaled by 0.1, so the errors stay near the f32
@@ -394,7 +407,163 @@ def resize_row(dev, gen) -> dict:
         shape="(448, 448, 64) -> (224, 224, 64) f32")
 
 
-def kernel_phase(dev, gen) -> list[dict]:
+def _conv_mag(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum |x w| of an NHWC SAME conv (stride 1) in float64: the scale of
+    its rounding bound 2 gamma_K sum |x w| (K = kh kw C)."""
+    from repro_torch.models.cnn import conv2d_nhwc
+    return conv2d_nhwc(x.double().abs(), w.double().abs(), 1, "SAME")
+
+
+def _shuffle(y: torch.Tensor, s: int) -> torch.Tensor:
+    """PixelShuffle of an NHWC map, the paper's c-major channel order."""
+    B, H, W, Cs = y.shape
+    C = Cs // (s * s)
+    return (y.reshape(B, H, W, C, s, s).permute(0, 1, 4, 2, 5, 3)
+            .reshape(B, H * s, W * s, C))
+
+
+def espcn_setup(dev, gen) -> dict:
+    """ESPCN x3 at init_espcn's widths (5x5 to 64, 3x3 to 32, 3x3 to 27)
+    with random weights, one 640x360 frame, the eager output and the
+    feature map its last conv reads."""
+    from repro_torch.models import cnn
+    model = cnn.init_espcn(gen, s=3, device=dev)
+    img = torch.rand(ESPCN_IMG, generator=gen).to(dev)
+    h = torch.tanh(cnn.conv2d(torch.tanh(cnn.conv2d(img, model.c1)),
+                              model.c2))
+    return dict(model=model, img=img, eager=model(img), h=h)
+
+
+def matmul_tm_row(e: dict) -> dict:
+    """matmul_tm (#13) at ESPCN's last layer in im2col form: the
+    (360, 640, 32) map's 3x3 patches (230400, 288) by the (288, 27)
+    weights, stored through the pixel-shuffle epilogue as (1080, 1920, 3)."""
+    from repro_torch.kernels.img2col.ops import img2col_call
+    from repro_torch.kernels.matmul_tm import matmul_tm as mk
+    from repro_torch.core.fp_bounds import gamma
+
+    (_, H, W, _), C, s = e["h"].shape, 3, 3
+    patches = img2col_call(e["h"][0], kh=3, kw=3, stride=1, pad=1)
+    w = e["model"].c3.reshape(-1, C * s * s).contiguous()
+    ep = mk.Epilogue("pixel_shuffle", H, W, C, s)
+    got = mk.matmul_tm(patches, w, ep)
+    ref = mk.matmul_tm_plain(patches, w, ep)
+    K = patches.shape[1]
+    mag = _shuffle((patches.double().abs() @ w.double().abs())
+                   .reshape(1, H, W, -1), s)[0]
+    require_within(got, ref, 2 * gamma(K) * mag, "matmul_tm pixel shuffle")
+    # the identity and transposed epilogues at the same product
+    for mode in ("identity", "transpose"):
+        g = mk.matmul_tm(patches, w, mk.Epilogue(mode))
+        r = mk.matmul_tm_plain(patches, w, mk.Epilogue(mode))
+        bound = 2 * gamma(K) * (patches.double().abs() @ w.double().abs())
+        require_within(g, r, bound.T if mode == "transpose" else bound,
+                       f"matmul_tm {mode}")
+        ms = graph_ms(lambda: mk.matmul_tm(patches, w, mk.Epilogue(mode)),
+                      iters=10)
+        log(f"kernel matmul_tm {mode} epilogue: {ms:.4f} ms device")
+    M, N = patches.shape[0], w.shape[1]
+    flops = 2 * M * N * K
+    nbytes = (patches.numel() + w.numel() + got.numel()) * 4
+    return dict(
+        name="matmul_tm", route="cuda",
+        source="src/repro_torch/csrc/matmul_tm.cu",
+        replaces="src/repro/kernels/matmul_tm/matmul_tm.py:85",
+        max_abs_err=max_abs_err(got, ref),
+        ms=graph_ms(lambda: mk.matmul_tm(patches, w, ep), iters=10),
+        call_ms=cuda_ms(lambda: mk.matmul_tm(patches, w, ep), iters=10),
+        plain_ms=cuda_ms(lambda: mk.matmul_tm_plain(patches, w, ep),
+                         iters=5),
+        bound_ms=max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        bound_by=("operations" if flops / F32_FLOP_PER_S
+                  > nbytes / HBM_BYTES_PER_S else "bytes"),
+        library_ms=graph_ms(lambda: torch.mm(patches, w), iters=10),
+        shape="ESPCN last layer im2col (230400, 288) x (288, 27) -> "
+              "pixel shuffle (1080, 1920, 3) f32")
+
+
+def xchain_commit_row(e: dict) -> dict:
+    """xchain_commit (#14) at ESPCN's crossing: the 3x3 conv of the
+    (1, 360, 640, 32) map to 27 channels, through the PixelShuffle x3 chain
+    into (1, 1080, 1920, 3)."""
+    from repro_torch.core import affine as af
+    from repro_torch.core.fp_bounds import gamma
+    from repro_torch.kernels.matmul_tm import chain as xc
+    from repro_torch.kernels.tm_affine.chain import ChainSig
+
+    h, w = e["h"], e["model"].c3
+    g = xc.Gemm("conv", tuple(h.shape), tuple(w.shape), 1, "SAME")
+    m = af.batch_extend_map(af.pixel_shuffle_map(g.out_shape[1:], 3), (1,))
+    sig = ChainSig(links=((m, None),), dtype="float32")
+    got = xc.xchain_commit(sig, g, h, w)
+    ref = xc.xchain_commit_plain(sig, g, h, w)
+    tol = 2 * gamma(g.words()[3]) * _shuffle(_conv_mag(h, w), 3)
+    require_within(got, ref, tol, "xchain_commit")
+    flops = g.flops()
+    nbytes = (h.numel() + w.numel() + got.numel()) * 4
+    return dict(
+        name="xchain_commit", route="cuda",
+        source="src/repro_torch/csrc/matmul_tm.cu",
+        replaces="src/repro/kernels/matmul_tm/chain.py:222",
+        max_abs_err=max_abs_err(got, ref),
+        ms=graph_ms(lambda: xc.xchain_commit(sig, g, h, w), iters=10),
+        call_ms=cuda_ms(lambda: xc.xchain_commit(sig, g, h, w), iters=10),
+        plain_ms=cuda_ms(lambda: xc.xchain_commit_plain(sig, g, h, w),
+                         iters=10),
+        bound_ms=max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        bound_by=("operations" if flops / F32_FLOP_PER_S
+                  > nbytes / HBM_BYTES_PER_S else "bytes"),
+        library_ms=None,
+        shape="ESPCN conv3 (1, 360, 640, 32) x (3, 3, 32, 27) -> "
+              "PixelShuffle x3 (1, 1080, 1920, 3) f32")
+
+
+def xchain_prologue_row(dev, gen) -> dict:
+    """xchain_prologue (#15) at the YOLOv3-Tiny neck: upsample x2 of u
+    (8, 14, 14, 128), Route with the skip map (8, 28, 28, 128), into
+    head 2's 1x1 conv (1, 1, 256, 255)."""
+    from repro_torch.core import affine as af
+    from repro_torch.core.fp_bounds import gamma
+    from repro_torch.kernels.matmul_tm import chain as xc
+    from repro_torch.kernels.tm_affine.chain import ChainSig
+
+    batch = (IMG[0],)
+    up = af.batch_extend_map(af.upsample_map((14, 14, 128), 2), batch)
+    route = tuple(af.batch_extend_map(m, batch) for m in
+                  af.route_maps([(28, 28, 128), (28, 28, 128)]))
+    sig = ChainSig(links=((up, None),), route_maps=route, route_band=0,
+                   dtype="float32")
+    u = torch.rand(up.in_shape, generator=gen).to(dev)
+    skip = torch.rand(route[1].in_shape, generator=gen).to(dev)
+    w = ((torch.rand((1, 1, 256, 255), generator=gen) - 0.5) / 8).to(dev)
+    g = xc.Gemm("conv", (8, 28, 28, 256), tuple(w.shape), 1, "SAME")
+    got = xc.xchain_prologue(sig, g, 0, u, w, (skip,))
+    ref = xc.xchain_prologue_plain(sig, g, 0, u, w, (skip,))
+    cat = torch.cat([u.repeat_interleave(2, 1).repeat_interleave(2, 2),
+                     skip], -1)
+    require_within(got, ref, 2 * gamma(256) * _conv_mag(cat, w),
+                   "xchain_prologue")
+    flops = g.flops()
+    nbytes = (u.numel() + skip.numel() + w.numel() + got.numel()) * 4
+    return dict(
+        name="xchain_prologue", route="cuda",
+        source="src/repro_torch/csrc/matmul_tm.cu",
+        replaces="src/repro/kernels/matmul_tm/chain.py:312",
+        max_abs_err=max_abs_err(got, ref),
+        ms=graph_ms(lambda: xc.xchain_prologue(sig, g, 0, u, w, (skip,))),
+        call_ms=cuda_ms(lambda: xc.xchain_prologue(sig, g, 0, u, w,
+                                                   (skip,))),
+        plain_ms=cuda_ms(lambda: xc.xchain_prologue_plain(sig, g, 0, u, w,
+                                                          (skip,))),
+        bound_ms=max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        bound_by=("operations" if flops / F32_FLOP_PER_S
+                  > nbytes / HBM_BYTES_PER_S else "bytes"),
+        library_ms=None,
+        shape="YOLO neck upsample (8, 14, 14, 128) + Route (8, 28, 28, 128) "
+              "-> head2 1x1 conv (1, 1, 256, 255) f32")
+
+
+def kernel_phase(dev, gen, espcn: dict) -> list[dict]:
     from repro_torch.core import affine as af
     from repro_torch.core.engine import gather_indices
     from repro_torch.kernels.rme_gather import rme_gather as rg
@@ -510,7 +679,8 @@ def kernel_phase(dev, gen) -> list[dict]:
         library_ms=None,
         shape=f"(8, 2352, 85) f32 mask score >= {CONF} cap {CAPACITY}"))
     rows += [img2col_row(dev, gen), conv2d_row(dev, gen),
-             resize_row(dev, gen)]
+             resize_row(dev, gen), matmul_tm_row(espcn),
+             xchain_commit_row(espcn), xchain_prologue_row(dev, gen)]
     for r in rows:
         log(f"kernel {r['name']:17s} {r['shape']}: {r['ms']:.4f} ms device "
             f"({r['call_ms']:.4f} per call with host work; plain "
@@ -883,15 +1053,146 @@ def yolo_timings(y: dict, executors: dict) -> None:
         + "; ".join(parts))
 
 
+def espcn_compiled_check(e: dict) -> None:
+    """ESPCN x3 compiled without and with cross_engine, cuda backend: the
+    split program bit-exact against the eager model (the same cuDNN convs,
+    the PixelShuffle gather), the fused one with ONE cuda.xchain.commit
+    within the last conv's rounding bound; wall ms of the three and the
+    device ms of the fused phase against the split conv + PixelShuffle."""
+    from repro_torch.compiler import tm_compile
+    from repro_torch.compiler.ir import eval_tpu_node
+    from repro_torch.core.fp_bounds import gamma
+
+    model, img, eager = e["model"], e["img"], e["eager"]
+    split = tm_compile(model, img)
+    fused = tm_compile(model, img, cross_engine=True)
+    if (split.phase_kinds, fused.phase_kinds) != ("tm", "tf"):
+        raise AssertionError(f"ESPCN phases {split.phase_kinds} / "
+                             f"{fused.phase_kinds}, expected tm / tf")
+    out_s, reps_s = split.run(img, backend="cuda")
+    out_f, reps_f = fused.run(img, backend="cuda")
+    recs = [r for rep in reps_f for r in rep.records]
+    if [(r.path, r.launches, r.instrs) for r in recs] != [
+            ("cuda.xchain.commit", 1, 2)]:
+        raise AssertionError(f"ESPCN fused phase lowered to "
+                             f"{[(r.path, r.reason) for r in recs]}")
+    require_equal(out_s, eager, "ESPCN split vs eager")
+    tol = 2 * gamma(3 * 3 * 32) * _shuffle(_conv_mag(e["h"], model.c3), 3)
+    require_within(out_f, eager, tol, "ESPCN fused vs eager")
+    if not bool(torch.isfinite(out_f).all()):
+        raise AssertionError("ESPCN: non-finite values")
+    e["compiled"] = out_f
+    walls = {k: wall_ms(fn, iters=5) for k, fn in (
+        ("eager", lambda: model(img)),
+        ("split", lambda: split.run(img, backend="cuda")),
+        ("fused", lambda: fused.run(img, backend="cuda")))}
+    # the crossing alone: the fused phase against the split path's last
+    # conv and PixelShuffle phase, from the same environment
+    env_f = fused.bind_inputs(img)
+    t_ph, f_ph = fused.partition_report.phases
+    fused.run_phase(t_ph, env_f)
+    env_s = split.bind_inputs(img)
+    s_t, s_m = split.partition_report.phases
+    for i in s_t.node_indices[:-1]:
+        eval_tpu_node(split.graph.nodes[i], env_s)
+    conv3 = split.graph.nodes[s_t.node_indices[-1]]
+
+    def split_tail():
+        eval_tpu_node(conv3, env_s)
+        split.run_phase(s_m, env_s, backend="cuda")
+
+    dev_f = cuda_ms(lambda: fused.run_phase(f_ph, env_f, backend="cuda"),
+                    iters=10)
+    dev_s = cuda_ms(split_tail, iters=10)
+    log(f"model ESPCN x3 {tuple(img.shape)} -> {tuple(out_f.shape)} f32: "
+        f"split bit-exact vs eager; fused ({recs[0].path}, launches "
+        f"{recs[0].launches}) max |err| {max_abs_err(out_f, eager)} "
+        f"(bound max {float(tol.max()):.3g}); wall ms/frame "
+        + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+        + f"; device ms of the crossing: fused phase {dev_f:.4f}, split "
+        f"conv + PixelShuffle {dev_s:.4f}")
+
+
+def espcn_im2col_check(e: dict) -> None:
+    """ESPCN's last layer in im2col form through matmul_tm (#13): the
+    (360, 640, 32) map's 3x3 patches by the (288, 27) weights, stored
+    through the pixel-shuffle epilogue — the same function as the
+    compiled program's last layer, within its rounding bound."""
+    from repro_torch.core.fp_bounds import gamma
+    from repro_torch.kernels.img2col.ops import img2col_call
+    from repro_torch.kernels.matmul_tm.ops import matmul_pixel_shuffle_call
+
+    h, c3 = e["h"], e["model"].c3
+    patches = img2col_call(h[0], kh=3, kw=3, stride=1, pad=1)
+    out = matmul_pixel_shuffle_call(patches, c3.reshape(-1, 27).contiguous(),
+                                    H=h.shape[1], W=h.shape[2], C=3, s=3)
+    tol = 2 * gamma(288) * _shuffle(_conv_mag(h, c3), 3)[0]
+    require_within(out, e["compiled"][0], tol,
+                   "matmul_tm im2col vs the compiled ESPCN")
+    log(f"model ESPCN last layer as img2col {tuple(patches.shape)} + "
+        f"matmul_pixel_shuffle_call: max |err| "
+        f"{max_abs_err(out, e['compiled'][0])} against the compiled output")
+
+
+def yolo_compiled_check(y: dict, chained) -> None:
+    """YOLOv3-Tiny compiled with cross_engine=True, run with fuse_chains:
+    phases ftf, the Rearrange crossing declined (split path, its reason),
+    the neck realized as cuda.xchain.prologue; head 1 bit-exact against
+    the eager model and the hand-partitioned chained forward, head 2
+    within head 2's rounding bound (its 1x1 conv summed by the kernel)."""
+    from repro_torch.compiler import tm_compile
+    from repro_torch.core import tm_ops
+    from repro_torch.core.fp_bounds import gamma
+
+    model, img = y["model"], y["img"]
+    yc = tm_compile(model, img, cross_engine=True)
+    if yc.phase_kinds != "ftf":
+        raise AssertionError(f"YOLOv3-Tiny phases {yc.phase_kinds}")
+    (p1, p2), reps = yc.run(img, backend="cuda", fuse_chains=True)
+    recs = [r for rep in reps for r in rep.records]
+    paths = [r.path for r in recs]
+    # the declined crossing runs its TM run, then its op (tm_to_compute)
+    if paths != ["cuda.gather", "torch.conv2d_nhwc", "cuda.xchain.prologue"]:
+        raise AssertionError(f"YOLOv3-Tiny compiled lowered to {paths}")
+    decline = recs[1].reason
+    if "327.6 MB over the 128 MiB budget" not in decline:
+        raise AssertionError(f"rearrange decline: {decline!r}")
+    part = partitioned_forward(model, img, chained)
+    require_equal(p1, y["eager"][0], "YOLOv3-Tiny compiled head 1 vs eager")
+    require_equal(p1, part[0], "YOLOv3-Tiny compiled head 1 vs partitioned")
+    r, skip = model.trunk(tm_ops.rearrange(img, 1, 16))
+    cat = tm_ops.route([tm_ops.upsample(model.neck_in(r), 2), skip])
+    tol = 2 * gamma(256) * _conv_mag(cat, model.head2_w)
+    for ref, what in ((y["eager"][1], "eager"), (part[1], "partitioned")):
+        require_within(p2, ref, tol, f"YOLOv3-Tiny compiled head 2 vs {what}")
+    if not (torch.isfinite(p1).all() and torch.isfinite(p2).all()):
+        raise AssertionError("YOLOv3-Tiny compiled: non-finite values")
+    tm_launches = sum(r.launches for r in recs if r.path.startswith("cuda."))
+    walls = {k: wall_ms(fn) for k, fn in (
+        ("eager", lambda: model(img)),
+        ("partitioned chained (with detect tails)",
+         lambda: partitioned_forward(model, img, chained)),
+        ("compiled", lambda: yc.run(img, backend="cuda", fuse_chains=True)))}
+    log(f"model YOLOv3-Tiny {IMG} compiled cross_engine: phases "
+        f"{yc.phase_kinds}, records {paths}; decline: {decline}; "
+        f"head 2 max |err| {max_abs_err(p2, y['eager'][1])} vs eager (bound "
+        f"max {float(tol.max()):.3g}); {tm_launches} TM-engine launches per "
+        f"forward (the prologue carries head 2's conv); wall ms/forward "
+        + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+
+
 KERNELS = {  # slice -> the kernels its path must launch
     1: ("tm_affine_block", "tm_affine_gather", "rme_evaluate"),
     2: ("tm_chain", "rme_evaluate_chained", "rme_assemble"),
     3: ("img2col", "conv2d", "resize"),
+    4: ("matmul_tm", "xchain_commit", "xchain_prologue"),
 }
 
 
 def _wrappers() -> dict:
     from repro_torch.kernels.img2col import img2col as ik
+    from repro_torch.kernels.matmul_tm import chain as xc
+    from repro_torch.kernels.matmul_tm import matmul_tm as mk
     from repro_torch.kernels.resize import resize as rk
     from repro_torch.kernels.rme_gather import rme_gather as rg
     from repro_torch.kernels.tm_affine import chain, tm_affine
@@ -903,7 +1204,10 @@ def _wrappers() -> dict:
             "rme_assemble": rg.rme_assemble,
             "img2col": ik.img2col,
             "conv2d": ik.conv2d,
-            "resize": rk.resize_bilinear}
+            "resize": rk.resize_bilinear,
+            "matmul_tm": mk.matmul_tm,
+            "xchain_commit": xc.xchain_commit,
+            "xchain_prologue": xc.xchain_prologue}
 
 
 def launch_counts() -> dict[str, int]:
@@ -958,7 +1262,8 @@ def main() -> int:
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     with torch.inference_mode():
-        rows = kernel_phase(dev, gen)
+        es = espcn_setup(dev, gen)  # the eager model launches no kernel
+        rows = kernel_phase(dev, gen, es)
         y = yolo_setup(dev, gen)  # the eager model launches no kernel
         unfused = TMExecutor(backend="cuda", device=dev)
         chained = TMExecutor(backend="cuda", device=dev, fuse_chains=True)
@@ -984,11 +1289,19 @@ def main() -> int:
         (_, n_chn), counts2 = run_path(2, slice2)
         e = edsr_setup(dev, gen)  # the eager model launches no kernel
         n_convs, counts3 = run_path(3, slice3)
+        del e
+
+        def slice4():
+            espcn_compiled_check(es)
+            espcn_im2col_check(es)
+            yolo_compiled_check(y, chained)
+
+        _, counts4 = run_path(4, slice4)
     if (n_unf, n_chn, n_convs) != (8, 4, 144):
         raise AssertionError(f"TM launches per forward {n_unf} unfused, "
                              f"{n_chn} chained, EDSR conv launches "
                              f"{n_convs}; expected 8, 4 and 144")
-    by_slice = {1: counts1, 2: counts2, 3: counts3}
+    by_slice = {1: counts1, 2: counts2, 3: counts3, 4: counts4}
     counts = {k: by_slice[s][k] for s, names in KERNELS.items()
               for k in names}
     log(f"main-path launches (each kernel from its slice's path): {counts}")

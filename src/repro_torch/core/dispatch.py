@@ -154,8 +154,17 @@ class ChainRule:
 @dataclasses.dataclass(frozen=True)
 class XEngineRule:
     """One cross-engine registry entry — lowers a compute op plus its
-    adjacent TM chain as ONE launch.  Its lowering needs the compiler's
-    graph nodes, which are not ported yet, so the registry starts empty."""
+    adjacent TM chain as ONE launch.
+
+    ``lower(direction, eqn_node, eqn_srcs, instrs, tm_srcs,
+    segment_bytes=None, reasons=None)`` receives the compiler's compute node
+    (:class:`~repro_torch.compiler.ir.TPUNode`), its tensor operands
+    (``None`` in the crossing slot for ``tm_to_compute``), the TM run and
+    each instruction's resolved sources (``None`` for a streamed buffer).
+    It returns ``(value, path, segments)``, or None to decline (appending
+    why to ``reasons`` when given).  The kernel
+    packages register one: ``matmul_tm.xchain``
+    (:mod:`repro_torch.kernels.matmul_tm.chain`)."""
 
     name: str
     lower: Callable[..., tuple[torch.Tensor, str, int | None] | None]
@@ -199,6 +208,7 @@ def _ensure_registered() -> None:
     if _REGISTERED:
         return
     import repro_torch.kernels.img2col.ops  # noqa: F401
+    import repro_torch.kernels.matmul_tm.chain  # noqa: F401
     import repro_torch.kernels.resize.ops  # noqa: F401
     import repro_torch.kernels.rme_gather.ops  # noqa: F401
     import repro_torch.kernels.tm_affine.ops  # noqa: F401
@@ -330,4 +340,56 @@ def lower_chain(instrs: Sequence[TMInstr],
             return val, Lowering(dst=instrs[-1].dst, opcode="chain",
                                  path=path, kernel=rule.name, segments=seg,
                                  launches=1, instrs=len(instrs))
+    return None
+
+
+def lower_xengine(direction: str, eqn_node, eqn_srcs: Sequence,
+                  instrs: Sequence[TMInstr],
+                  tm_srcs: Sequence[Sequence[torch.Tensor | None]],
+                  segment_bytes: int | None = None,
+                  quarantine: set | None = None,
+                  reasons: list | None = None,
+                  ) -> tuple[torch.Tensor, Lowering] | None:
+    """Lower a cross-engine crossing (compute node + adjacent TM chain)
+    through the cross-engine registry.
+
+    The returned record's ``dst`` is what the ONE launch produces: the
+    chain's final dst for ``compute_to_tm`` (the product streams into the
+    chain and never materializes), the compute node's output for
+    ``tm_to_compute`` (the chain output streams into the op's operand
+    tiles).  ``launches=1`` and ``instrs=len(instrs)+1`` count the compute
+    op, so launch and instruction accounting stays honest against the split
+    path.  Returns None when no rule claims the crossing — the caller then
+    executes op and chain separately; a rule that declines appends why to
+    ``reasons`` (a caller-owned list) when one is given.  ``quarantine``
+    works as in :func:`lower_instr` (a raising rule is quarantined under
+    its shape-class key and skipped on later runs), on CPU tensors only."""
+    _check_ladder(quarantine, list(eqn_srcs)
+                  + [s for row in tm_srcs for s in row])
+    _ensure_registered()
+    dst = (instrs[-1].dst if direction == "compute_to_tm"
+           else eqn_node.dst_names[0])
+    for rule in _XENGINE_RULES:
+        if quarantine is not None:
+            qkey = quarantine_key(rule.name, f"xchain.{direction}", eqn_srcs)
+            if qkey in quarantine:
+                continue
+        try:
+            hook = fault_hook
+            if hook is not None:
+                hook("lowering", f"{rule.name}:xchain:{dst}")
+            lowered = rule.lower(direction, eqn_node, eqn_srcs, instrs,
+                                 tm_srcs, segment_bytes=segment_bytes,
+                                 reasons=reasons)
+        except Exception:
+            if quarantine is None:
+                raise
+            quarantine.add(quarantine_key(rule.name, f"xchain.{direction}",
+                                          eqn_srcs))
+            continue
+        if lowered is not None:
+            val, path, seg = lowered
+            return val, Lowering(dst=dst, opcode="xchain", path=path,
+                                 kernel=rule.name, segments=seg,
+                                 launches=1, instrs=len(instrs) + 1)
     return None

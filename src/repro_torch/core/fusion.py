@@ -90,6 +90,13 @@ class ForwardChain:
 
     instrs: tuple[int, ...]
     buffers: tuple[str, ...]
+    # chains discovered by :func:`cross_engine_chains` span the compute/TM
+    # boundary: "compute_to_tm" (the TM run is a compute kernel's commit
+    # stage) or "tm_to_compute" (the TM run is its consumer's operand-load
+    # prologue).  None — the default, and the only value
+    # :func:`forwarding_chains` produces — keeps the chain TM-internal.
+    # NOTE: crossing chains index *graph nodes*, not TMProgram positions.
+    engine_crossing: str | None = None
 
     def __len__(self) -> int:
         return len(self.instrs)
@@ -127,6 +134,170 @@ def forwarding_chains(prog: TMProgram) -> list[ForwardChain]:
             j = e.consumer
         chains.append(ForwardChain(instrs=tuple(idxs), buffers=tuple(bufs)))
     return chains
+
+
+# ---------------------------------------------------------------------------
+# cross-engine forwarding (paper Fig. 5c across the compute/TM boundary)
+# ---------------------------------------------------------------------------
+
+# compute ops whose kernel can host a TM chain as its commit (epilogue) or
+# operand-load prologue stage — see kernels/matmul_tm/chain.py.  The JAX
+# package's dot_general and conv_general_dilated: a 2D ``@`` traces to
+# aten.mm, and the models' NHWC convolution is one custom op
+XENGINE_PRIMS = ("aten::mm", "repro_torch::conv2d_nhwc")
+
+
+def grids_commensurable(n_a: int, n_b: int) -> bool:
+    """Two block grids are commensurable when one step count divides the
+    other: the fused kernel can then phase its hand-off so every producer
+    block lands on a whole number of consumer segments (or vice versa)."""
+    return n_a > 0 and n_b > 0 and (n_a % n_b == 0 or n_b % n_a == 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class CrossEngineChain:
+    """One engine-boundary crossing: a compute node plus the adjacent COARSE
+    TM run it forwards to (or from), executable as ONE kernel launch.
+
+    ``chain`` holds the TM run as a :class:`ForwardChain` over *graph node
+    indices* with ``engine_crossing`` set; ``eqn_index`` is the compute
+    node; ``buffer`` is the crossing intermediate that never reaches device
+    memory when the lowering realizes."""
+
+    chain: ForwardChain
+    eqn_index: int
+    buffer: str
+
+    @property
+    def direction(self) -> str:
+        return self.chain.engine_crossing or ""
+
+    @property
+    def tm_indices(self) -> tuple[int, ...]:
+        return self.chain.instrs
+
+    @property
+    def span(self) -> tuple[int, ...]:
+        """All claimed graph-node indices, in program order (the compute
+        node and its TM run are adjacent by construction)."""
+        return tuple(sorted((self.eqn_index,) + self.chain.instrs))
+
+
+def _tm_run(graph, start: int, outputs: set) -> tuple[list[int], list[str]]:
+    """Maximal graph-level forwarding run of COARSE TM nodes from ``start``:
+    each link's dst is an intermediate whose sole consumer is the next node,
+    streamed through the next link's primary (srcs[0]) slot — the geometry
+    the chain pullback supports (a multi-band Route may consume it in any
+    band slot)."""
+    nodes = graph.nodes
+    idxs, bufs = [start], []
+    j = start
+    while True:
+        dst = nodes[j].instr.dst
+        if dst in outputs:
+            break
+        cons = graph.consumer_indices(dst)
+        if len(cons) != 1 or cons[0] != j + 1:
+            break
+        nxt = nodes[cons[0]]
+        if nxt.kind != "tmu" or nxt.instr.opcode != TMOpcode.COARSE:
+            break
+        if nxt.instr.map_ is not None and nxt.instr.srcs[0] != dst:
+            break  # dst would land in the EW-operand slot: not streamable
+        bufs.append(dst)
+        idxs.append(cons[0])
+        j = cons[0]
+    return idxs, bufs
+
+
+def _sole_next_consumer(graph, name: str, i: int) -> int | None:
+    cons = graph.consumer_indices(name)
+    return cons[0] if len(cons) == 1 and cons[0] == i + 1 else None
+
+
+def _eqn_grid_steps(graph, node, itemsize: int,
+                    segment_bytes: int | None) -> int:
+    """Block-grid step count of the compute node inside the fused kernel,
+    as the JAX package counts it: the row blocks of a 2D ``(M,K)@(K,N)``
+    product (:func:`plan_segments` on the result); a conv binds as ONE
+    whole-op step."""
+    from repro_torch.core.schedule import plan_segments  # local: avoids cycle
+
+    if node.op_name != "aten::mm":
+        return 1
+    return plan_segments(graph.shape(node.dst_names[0]), itemsize,
+                         segment_bytes).n_segments
+
+
+def cross_engine_chains(graph, itemsize: int = 4,
+                        segment_bytes: int | None = None,
+                        ) -> list[CrossEngineChain]:
+    """Discover legal engine-boundary crossings in a TMGraph.
+
+    compute→TM: a supported single-output compute node whose result's sole
+    consumer is the immediately-following COARSE TM node (primary slot),
+    extended through the maximal TM forwarding run.  TM→compute: a COARSE
+    TM run whose final dst's sole consumer is the immediately-following
+    supported compute node, appearing in exactly one operand slot.  Beyond
+    adjacency the two block grids must be commensurable.  Scanning claims
+    greedily left-to-right — a compute→TM→compute sandwich resolves as
+    compute→TM.  The lowering may still decline a reported crossing
+    (pullback or budget limits); execution then takes the split path."""
+    from repro_torch.core.schedule import plan_segments  # local: cycle
+
+    out: list[CrossEngineChain] = []
+    nodes = graph.nodes
+    n = len(nodes)
+    outputs = set(graph.outputs)
+
+    def n_segs(name: str) -> int:
+        return plan_segments(graph.shape(name), itemsize,
+                             segment_bytes).n_segments
+
+    i = 0
+    while i < n:
+        node = nodes[i]
+        if (node.kind == "tpu" and node.op_name in XENGINE_PRIMS
+                and len(node.dst_names) == 1):
+            y = node.dst_names[0]
+            nxt = None if y in outputs else _sole_next_consumer(graph, y, i)
+            if (nxt is not None and nodes[nxt].kind == "tmu"
+                    and nodes[nxt].instr.opcode == TMOpcode.COARSE
+                    and nodes[nxt].instr.srcs
+                    and nodes[nxt].instr.srcs[0] == y):
+                idxs, bufs = _tm_run(graph, nxt, outputs)
+                final = nodes[idxs[-1]].instr.dst
+                steps = _eqn_grid_steps(graph, node, itemsize, segment_bytes)
+                if grids_commensurable(steps, n_segs(final)):
+                    out.append(CrossEngineChain(
+                        chain=ForwardChain(
+                            instrs=tuple(idxs), buffers=tuple(bufs),
+                            engine_crossing="compute_to_tm"),
+                        eqn_index=i, buffer=y))
+                    i = idxs[-1] + 1
+                    continue
+        if node.kind == "tmu" and node.instr.opcode == TMOpcode.COARSE:
+            idxs, bufs = _tm_run(graph, i, outputs)
+            last = idxs[-1]
+            dst = nodes[last].instr.dst
+            nxt = (None if dst in outputs
+                   else _sole_next_consumer(graph, dst, last))
+            # the prologue binds the compute op as ONE step, so its grid is
+            # commensurable with any chain segment grid by construction
+            if (nxt is not None and nodes[nxt].kind == "tpu"
+                    and nodes[nxt].op_name in XENGINE_PRIMS
+                    and len(nodes[nxt].dst_names) == 1
+                    and sum(1 for s in nodes[nxt].src_names if s == dst) == 1
+                    and grids_commensurable(n_segs(dst), 1)):
+                out.append(CrossEngineChain(
+                    chain=ForwardChain(
+                        instrs=tuple(idxs), buffers=tuple(bufs),
+                        engine_crossing="tm_to_compute"),
+                    eqn_index=nxt, buffer=dst))
+                i = nxt + 1
+                continue
+        i += 1
+    return out
 
 
 def _map_bytes(m: MixedRadixMap, itemsize: int = 4) -> int:

@@ -256,6 +256,16 @@ def instr_segments(ins: TMInstr, out_shape: tuple[int, ...],
     return plan_segments(batch_shape + tuple(out_shape), itemsize, sb).n_segments
 
 
+def ping_pong_shape(shape: tuple[int, ...], itemsize: int = 4,
+                    segment_bytes: int | None = None) -> tuple[int, int, int]:
+    """The two-segment ping-pong slot for a streamed buffer: ``(2,
+    row_block, minor)`` of the buffer's segment plan — what the compiler's
+    scratch allocator (:func:`repro_torch.compiler.allocate.allocate`)
+    charges each streamed slot, as the JAX package charges it."""
+    seg = plan_segments(shape, itemsize, segment_bytes)
+    return (2, seg.row_block, seg.minor)
+
+
 def map_segments(m, itemsize: int = 4, segment_bytes: int | None = None,
                  batch_shape: tuple[int, ...] = ()) -> int:
     """Grid size the tm_affine kernel launches for one map — THE shared
@@ -337,6 +347,45 @@ def chain_timing(instrs: list[TMInstr], shapes: dict,
     return InstrTiming(index=-1, dst=last.dst, opcode="chain",
                        n_segments=n_seg, load=load, compute=compute / n_seg,
                        store=store, launches=1)
+
+
+def xengine_phase_report(prog: TMProgram,
+                         input_shapes: dict[str, tuple[int, ...]],
+                         params: CycleParams | None = None, *,
+                         crossing_shape: tuple[int, ...] = (),
+                         direction: str = "") -> dict:
+    """Price one cross-engine fused phase: its TM run as the adjacent
+    compute kernel's commit/prologue stage vs the split path.
+
+    Split: every TM instruction pays issue + its double-buffered cycles,
+    plus the crossing buffer's full HBM round-trip (the compute kernel
+    stores it, the TM side loads it — or the reverse).  Fused: the chain
+    rides the compute kernel's launch (no TM issue at all) and the crossing
+    never reaches device memory, so its load (compute→TM) or store
+    (TM→compute) leg leaves the chain's memory bill too."""
+    p = params or CycleParams()
+    shapes = infer_shapes(prog, input_shapes)
+    timings = [_timing(i, ins, shapes, p)
+               for i, ins in enumerate(prog.instrs)]
+    ct = chain_timing(list(prog.instrs), shapes, p)
+    crossing_bytes = (math.prod(crossing_shape) * p.itemsize
+                      if crossing_shape else 0)
+    roundtrip = 2.0 * crossing_bytes / p.bandwidth_bytes
+    split = (sum(p.issue_overhead + t.pipelined_cycles for t in timings)
+             + roundtrip)
+    fused = max(0.0, ct.pipelined_cycles
+                - crossing_bytes / p.bandwidth_bytes)
+    return {
+        "direction": direction,
+        "instrs": len(prog.instrs),
+        "segments": ct.n_segments,
+        "crossing_bytes": crossing_bytes,
+        "saved_bytes": crossing_bytes * 2,
+        "split_cycles": split,
+        "fused_cycles": fused,
+        "saved_cycles": split - fused,
+        "launches_removed": sum(t.launches for t in timings),
+    }
 
 
 def schedule(prog: TMProgram, input_shapes: dict[str, tuple[int, ...]],

@@ -18,7 +18,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.core import affine as af
-from repro_torch.core import rme
+from repro_torch.core import rme, tm_primitive
 from repro_torch.core.engine import apply_map, route_gather
 
 
@@ -30,42 +30,50 @@ def _core(x: torch.Tensor, b: int) -> tuple[int, ...]:
     return tuple(x.shape[b:])
 
 
+def _run_map(m: af.MixedRadixMap, x: torch.Tensor, b: int) -> torch.Tensor:
+    """Execute a coarse map — or, under :func:`tag_tm_ops`, leave one tagged
+    ``tm_map`` node in the traced graph for the compiler to match."""
+    if tm_primitive.tagging():
+        return tm_primitive.bind_map(m, x, batch_dims=b)
+    return apply_map(m, x, batch_dims=b)
+
+
 # -- coarse-grained ---------------------------------------------------------
 
 def transpose(x: torch.Tensor) -> torch.Tensor:
     """(…, H, W, C) -> (…, W, H, C) — paper Transpose."""
     b = _bd(x, 3)
-    return apply_map(af.transpose_map(_core(x, b)), x, batch_dims=b)
+    return _run_map(af.transpose_map(_core(x, b)), x, b)
 
 
 def rot90(x: torch.Tensor) -> torch.Tensor:
     """90° CCW rotation of the spatial dims — paper Rot90."""
     b = _bd(x, 3)
-    return apply_map(af.rot90_map(_core(x, b)), x, batch_dims=b)
+    return _run_map(af.rot90_map(_core(x, b)), x, b)
 
 
 def pixel_shuffle(x: torch.Tensor, s: int) -> torch.Tensor:
     """(…, H, W, C·s²) -> (…, H·s, W·s, C) — paper PixelShuffle."""
     b = _bd(x, 3)
-    return apply_map(af.pixel_shuffle_map(_core(x, b), s), x, batch_dims=b)
+    return _run_map(af.pixel_shuffle_map(_core(x, b), s), x, b)
 
 
 def pixel_unshuffle(x: torch.Tensor, s: int) -> torch.Tensor:
     """(…, H·s, W·s, C) -> (…, H, W, C·s²) — paper PixelUnshuffle."""
     b = _bd(x, 3)
-    return apply_map(af.pixel_unshuffle_map(_core(x, b), s), x, batch_dims=b)
+    return _run_map(af.pixel_unshuffle_map(_core(x, b), s), x, b)
 
 
 def upsample(x: torch.Tensor, s: int) -> torch.Tensor:
     """Nearest-neighbour ×s upsample — paper Upsample."""
     b = _bd(x, 3)
-    return apply_map(af.upsample_map(_core(x, b), s), x, batch_dims=b)
+    return _run_map(af.upsample_map(_core(x, b), s), x, b)
 
 
 def split(x: torch.Tensor, n: int) -> list[torch.Tensor]:
     """Channel split into ``n`` equal parts — paper Split."""
     b = _bd(x, 3)
-    return [apply_map(af.split_map(_core(x, b), n, p), x, batch_dims=b)
+    return [_run_map(af.split_map(_core(x, b), n, p), x, b)
             for p in range(n)]
 
 
@@ -74,6 +82,8 @@ def route(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     source; bands are summed (disjoint supports)."""
     b = _bd(xs[0], 3)
     maps = af.route_maps([_core(x, b) for x in xs])
+    if tm_primitive.tagging():
+        return tm_primitive.bind_route(maps, xs, batch_dims=b)
     return route_gather(maps, xs, batch_dims=b)
 
 
@@ -86,22 +96,20 @@ def img2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
             pad: int = 0) -> torch.Tensor:
     """(…, H, W, C) -> (…, OH·OW, KH·KW·C) patch matrix — paper Img2col."""
     b = _bd(x, 3)
-    return apply_map(af.img2col_map(_core(x, b), kh, kw, stride, pad), x,
-                     batch_dims=b)
+    return _run_map(af.img2col_map(_core(x, b), kh, kw, stride, pad), x, b)
 
 
 def rearrange(x: torch.Tensor, group: int, pad_c: int) -> torch.Tensor:
     """RGB-stream -> burst-friendly high-channel fmap — paper Rearrange."""
     b = _bd(x, 3)
-    return apply_map(af.rearrange_map(_core(x, b), group, pad_c), x,
-                     batch_dims=b)
+    return _run_map(af.rearrange_map(_core(x, b), group, pad_c), x, b)
 
 
 # -- generic sequence-model manipulations (same datapath) -------------------
 
 def permute(x: torch.Tensor, perm: Sequence[int]) -> torch.Tensor:
     """Arbitrary axis permutation as a coarse TM op (head-layout transposes)."""
-    return apply_map(af.axis_permutation_map(tuple(x.shape), perm), x)
+    return _run_map(af.axis_permutation_map(tuple(x.shape), perm), x, 0)
 
 
 def repeat_heads(x: torch.Tensor, rep: int, axis: int) -> torch.Tensor:
@@ -122,7 +130,7 @@ def repeat_heads(x: torch.Tensor, rep: int, axis: int) -> torch.Tensor:
         affine=af.AffineMap(tuple(tuple(r) for r in A),
                             tuple(af.Frac(0) for _ in range(n))),
     )
-    return apply_map(m, x)
+    return _run_map(m, x, 0)
 
 
 # -- fine-grained ------------------------------------------------------------
@@ -133,6 +141,13 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     Half-pixel convention (align_corners=False), computed in float32 as the
     JAX package computes it: the four taps are affine gathers, the weights
     their fractional parts."""
+    if tm_primitive.tagging():
+        return tm_primitive.tm_resize(x, out_h, out_w)
+    return _resize_bilinear_impl(x, out_h, out_w)
+
+
+def _resize_bilinear_impl(x: torch.Tensor, out_h: int,
+                          out_w: int) -> torch.Tensor:
     b = _bd(x, 3)
     H, W, _ = x.shape[b:]
     dev = x.device
@@ -177,6 +192,16 @@ def bboxcal_rows(pred: torch.Tensor, conf_threshold: float, capacity: int,
 
     ``pred``: (…, N, D) record streams; returns (…, capacity, D) packed
     survivors per stream (a FINE_EVALUATE instruction's result)."""
+    if tm_primitive.tagging():
+        return tm_primitive.tm_evaluate(pred, float(conf_threshold),
+                                        capacity, cmp, score_index)
+    return _bboxcal_rows_impl(pred, conf_threshold, capacity, cmp,
+                              score_index)
+
+
+def _bboxcal_rows_impl(pred: torch.Tensor, conf_threshold: float,
+                       capacity: int, cmp: str,
+                       score_index: int) -> torch.Tensor:
     lead = tuple(pred.shape[:-2])
     streams = pred.reshape((-1,) + tuple(pred.shape[-2:]))
     rows = [rme.evaluate(s, conf_threshold, capacity, cmp=cmp,

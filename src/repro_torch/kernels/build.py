@@ -4,8 +4,9 @@ Each ``src/repro_torch/csrc/<name>.cu`` compiles with ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface, loaded
 with :mod:`ctypes` — no PyTorch headers, so a build takes seconds.  Builds
 happen at first use, into ``build/repro_torch/<hash>/`` at the repository
-root (listed in ``.gitignore``), keyed by a hash of the source and the
-flags: an edited source rebuilds, an unchanged one loads.  :func:`build`
+root (listed in ``.gitignore``), keyed by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags: an edited source rebuilds, an
+unchanged one loads.  :func:`build`
 starts one ``nvcc`` per missing library, all at once.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -56,6 +57,12 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "resize": {
         "resize_bilinear": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     },
+    "matmul_tm": {
+        "matmul_tm": [_P, _P, _P, _I, _I64, _I64, _I64, _I64, _I64, _I,
+                      _I64, _I64, _I64, _I64, _P],
+        "xchain_commit": [_P, _P, _P, _P, _P, _I, _I64, _I, _I, _P],
+        "xchain_prologue": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -82,6 +89,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the shared headers
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
 

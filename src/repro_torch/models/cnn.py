@@ -4,7 +4,8 @@ These are the models of paper Table IV / Fig. 10 — the system-level
 demonstration that TM ops (Rearrange, PixelShuffle, Upsample, Route, Add,
 Bboxcal) glue the compute-intensive convolutions.  Every TM op routes
 through :mod:`repro_torch.core.tm_ops`; convolutions are torch calls (the
-compute engine's role).
+compute engine's role), each behind one custom op (``conv2d_nhwc``,
+``max_pool_nhwc``) so that a traced forward shows it as one node.
 
 Layouts match the JAX package at every interface: activations NHWC, conv
 weights HWIO, so parameters carried across with
@@ -33,25 +34,57 @@ def _same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv2d(x, w, b=None, *, stride=1, pad="SAME"):
+def conv_out_hw(H: int, W: int, kh: int, kw: int, stride: int,
+                pad: str) -> tuple[int, int, int, int]:
+    """``(OH, OW, pad_top, pad_left)`` of an NHWC conv, SAME or VALID
+    padding as ``lax.conv_general_dilated`` computes it."""
+    if pad == "SAME":
+        (t, _), (le, _) = _same_pad(H, kh, stride), _same_pad(W, kw, stride)
+        return -(-H // stride), -(-W // stride), t, le
+    if pad == "VALID":
+        return (H - kh) // stride + 1, (W - kw) // stride + 1, 0, 0
+    raise ValueError(f"unknown padding {pad!r}")
+
+
+# The convolution and the max pool are custom ops so that each reaches a
+# traced graph (torch.fx make_fx) as ONE node, as conv_general_dilated and
+# reduce_window do in a jaxpr: aten would otherwise show the NCHW permutes
+# and the padding around them, which the compiler would claim as TM work.
+
+@torch.library.custom_op("repro_torch::conv2d_nhwc", mutates_args=())
+def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int,
+                padding: str) -> torch.Tensor:
     """x: (B, H, W, C); w: (kh, kw, C, OC) -> (B, OH, OW, OC)."""
     kh, kw = w.shape[0], w.shape[1]
     xn = x.permute(0, 3, 1, 2)          # NCHW view of NHWC memory
-    if pad == "SAME":
+    if padding == "SAME":
         (t, bo), (le, r) = (_same_pad(x.shape[1], kh, stride),
                             _same_pad(x.shape[2], kw, stride))
         if t or bo or le or r:
             xn = F.pad(xn, (le, r, t, bo))
-    elif pad != "VALID":
-        raise ValueError(f"unknown padding {pad!r}")
+    elif padding != "VALID":
+        raise ValueError(f"unknown padding {padding!r}")
     out = F.conv2d(xn, w.permute(3, 2, 0, 1), stride=stride)
-    out = out.permute(0, 2, 3, 1).contiguous()
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+@conv2d_nhwc.register_fake
+def _(x, w, stride, padding):
+    OH, OW, _, _ = conv_out_hw(x.shape[1], x.shape[2], w.shape[0],
+                               w.shape[1], stride, padding)
+    return x.new_empty((x.shape[0], OH, OW, w.shape[3]))
+
+
+def conv2d(x, w, b=None, *, stride=1, pad="SAME"):
+    """x: (B, H, W, C); w: (kh, kw, C, OC) -> (B, OH, OW, OC)."""
+    out = conv2d_nhwc(x, w, stride, pad)
     if b is not None:
         out = out + b
     return out
 
 
-def max_pool_same(x: torch.Tensor, k: int = 2, stride: int = 2) -> torch.Tensor:
+@torch.library.custom_op("repro_torch::max_pool_nhwc", mutates_args=())
+def max_pool_nhwc(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
     """Max pooling with SAME padding (padded positions never win)."""
     xn = x.permute(0, 3, 1, 2)
     (t, bo), (le, r) = (_same_pad(x.shape[1], k, stride),
@@ -59,6 +92,17 @@ def max_pool_same(x: torch.Tensor, k: int = 2, stride: int = 2) -> torch.Tensor:
     if t or bo or le or r:
         xn = F.pad(xn, (le, r, t, bo), value=-float("inf"))
     return F.max_pool2d(xn, k, stride).permute(0, 2, 3, 1).contiguous()
+
+
+@max_pool_nhwc.register_fake
+def _(x, k, stride):
+    return x.new_empty((x.shape[0], -(-x.shape[1] // stride),
+                        -(-x.shape[2] // stride), x.shape[3]))
+
+
+def max_pool_same(x: torch.Tensor, k: int = 2, stride: int = 2) -> torch.Tensor:
+    """Max pooling with SAME padding (padded positions never win)."""
+    return max_pool_nhwc(x, k, stride)
 
 
 def _w(gen, kh, kw, c, oc, dtype):

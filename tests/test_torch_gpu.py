@@ -415,3 +415,240 @@ def test_slice3_empty_output_launches_nothing_on_card(cuda):
         0, 3, 4)
     assert rk.resize_bilinear(x, 0, 4).shape == (0, 4, 3)
     assert counts() == before
+
+
+# ---------------------------------------------------------------------------
+# slice 4: matmul_tm, the xchain commit and prologue kernels
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def full_f32(monkeypatch):
+    """cuDNN's convolutions in full f32: the plain xchain versions call the
+    conv custom op, which takes TF32 where cuDNN's default allows it."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+def _operand(rng, shape, dtype, device):
+    """Floats in [-1, 1); integers in [-99, 100), whose int8 products
+    overflow, so the wrapped sums are exercised."""
+    if dtype.is_floating_point:
+        a = torch.tensor((rng.rand(*shape) * 2 - 1).astype(np.float32))
+    else:
+        a = torch.tensor(rng.randint(-99, 100, size=shape).astype(np.int32))
+    return a.to(dtype).to(device)
+
+
+def _require_product(got, ref, x, w, dtype, what):
+    """Integers bit-exact; floats within 2 gamma_K sum |x w| (each f32 sum
+    of K products within gamma_K sum |x w| of the exact one) of the plain
+    version, bf16 one more ulp of the output."""
+    from repro_torch.core.fp_bounds import bf16_ulp, gamma
+    assert got.shape == ref.shape and got.dtype == ref.dtype, what
+    if not dtype.is_floating_point:
+        assert torch.equal(got, ref), what
+        return
+    mag = x.double().abs() @ w.double().abs()
+    tol = 2 * gamma(x.shape[1]) * float(mag.max())
+    if dtype == torch.bfloat16:
+        tol = tol + bf16_ulp(ref)
+    err = (got.double() - ref.double()).abs()
+    assert bool((err <= tol).all()), (what, float(err.max()))
+
+
+# (M, K, N): ragged tiles in every direction, K below and above the step
+MM_CASES = [(7, 9, 5), (64, 16, 64), (130, 33, 70), (33, 200, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MM_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_matmul_tm_kernel_matches_plain_on_card(cuda, case):
+    from repro_torch.kernels.matmul_tm import matmul_tm as mk
+    M, K, N = case
+    rng = np.random.RandomState(20)
+    eps = [mk.Epilogue(), mk.Epilogue("transpose"),
+           mk.Epilogue(col0=N // 2, ncols=N - N // 2)]
+    for dtype in DTYPES:
+        x, w = _operand(rng, (M, K), dtype, cuda), \
+            _operand(rng, (K, N), dtype, cuda)
+        for ep in eps:
+            before = mk.matmul_tm.launches
+            got = mk.matmul_tm(x, w, ep)
+            ref = mk.matmul_tm_plain(x, w, ep)
+            torch.cuda.synchronize()
+            assert mk.matmul_tm.launches == before + 1
+            wb = w[:, ep.col0:ep.col0 + (ep.ncols or N)]
+            if ep.mode == "transpose":
+                got, ref = got.T, ref.T
+            _require_product(got, ref, x, wb, dtype, (case, dtype, ep))
+
+
+@pytest.mark.gpu
+def test_matmul_pixel_shuffle_kernel_matches_plain_on_card(cuda):
+    from repro_torch.kernels.matmul_tm import matmul_tm as mk
+    rng = np.random.RandomState(21)
+    for H, W, C, s, K in ((5, 7, 3, 3, 20), (4, 9, 2, 2, 16)):
+        ep = mk.Epilogue("pixel_shuffle", H, W, C, s)
+        for dtype in DTYPES:
+            x = _operand(rng, (H * W, K), dtype, cuda)
+            w = _operand(rng, (K, C * s * s), dtype, cuda)
+            got = mk.matmul_tm(x, w, ep)
+            ref = mk.matmul_tm_plain(x, w, ep)
+            torch.cuda.synchronize()
+            # undo the shuffle on both: the rows of the product
+            flat = lambda t: (t.reshape(H, s, W, s, C)  # noqa: E731
+                              .permute(0, 2, 4, 1, 3).reshape(H * W, -1))
+            _require_product(flat(got), flat(ref), x, w, dtype,
+                             (H, W, C, s, dtype))
+
+
+def _xchain_cases():
+    """(name, Gemm, chain builder) for both directions: the chain's maps
+    from the op's output (commit) or onto its operand (prologue)."""
+    from repro_torch.kernels.matmul_tm.chain import Gemm
+    return {
+        # compute -> TM
+        "mm_transpose": (Gemm("mm", (24, 16), (16, 40)), "commit",
+                         lambda y: [(af.axis_permutation_map(y, (1, 0)),
+                                     None)]),
+        "mm_pad_fill": (Gemm("mm", (7, 9), (9, 5)), "commit",
+                        lambda y: [(af.pad_map(y, (1, 2), (1, 0),
+                                               fill=3.0), None)]),
+        "conv_pixelshuffle": (Gemm("conv", (1, 6, 7, 8), (3, 3, 8, 18), 1,
+                                   "SAME"), "commit",
+                              lambda y: [(af.batch_extend_map(
+                                  af.pixel_shuffle_map(y[1:], 3), (1,)),
+                                  None)]),
+        "conv_stride2_valid": (Gemm("conv", (2, 9, 8, 3), (3, 3, 3, 5), 2,
+                                    "VALID"), "commit",
+                               lambda y: [(af.flip_map(y, (1, 2)), None)]),
+        # TM -> compute
+        "transpose_mm": (Gemm("mm", (9, 7), (7, 5)), "prologue_a",
+                         lambda a: [(af.axis_permutation_map(
+                             (a[1], a[0]), (1, 0)), None)]),
+        "pad_mm": (Gemm("mm", (6, 11), (11, 9)), "prologue_a",
+                   lambda a: [(af.pad_map((a[0], a[1] - 2), (0, 1), (0, 1),
+                                          fill=-2.0), None)]),
+        "mm_weight_chain": (Gemm("mm", (5, 12), (12, 6)), "prologue_b",
+                            lambda b: [(af.axis_permutation_map(
+                                (b[1], b[0]), (1, 0)), None)]),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_xchain_cases()))
+def test_xchain_kernels_match_plain_on_card(cuda, full_f32, name):
+    from repro_torch.kernels.matmul_tm import chain as xc
+    from repro_torch.kernels.tm_affine.chain import ChainSig
+    g, kind, links = _xchain_cases()[name]
+    rng = np.random.RandomState(22)
+    for dtype in DTYPES:
+        dt = str(dtype).removeprefix("torch.")
+        x = _operand(rng, g.x_shape, dtype, cuda)
+        w = _operand(rng, g.w_shape, dtype, cuda)
+        if kind == "commit":
+            sig = ChainSig(links=tuple(links(g.out_shape)), dtype=dt)
+            before = xc.xchain_commit.launches
+            got = xc.xchain_commit(sig, g, x, w)
+            ref = xc.xchain_commit_plain(sig, g, x, w)
+            n_launch = xc.xchain_commit.launches - before
+        else:
+            pos = 0 if kind == "prologue_a" else 1
+            target = (g.x_shape, g.w_shape)[pos]
+            sig = ChainSig(links=tuple(links(target)), dtype=dt)
+            src = _operand(rng, sig.links[0][0].in_shape, dtype, cuda)
+            other = (w, x)[pos]
+            before = xc.xchain_prologue.launches
+            got = xc.xchain_prologue(sig, g, pos, src, other)
+            ref = xc.xchain_prologue_plain(sig, g, pos, src, other)
+            n_launch = xc.xchain_prologue.launches - before
+        torch.cuda.synchronize()
+        assert n_launch == 1
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        if not dtype.is_floating_point:
+            assert torch.equal(got, ref), (name, dtype)
+            continue
+        from repro_torch.core.fp_bounds import bf16_ulp, gamma
+        K = g.words()[3]
+        # |values| < 1 (and fills <= 3), so sum |A B| <= 3 K
+        tol = 2 * gamma(K) * 3 * K
+        if dtype == torch.bfloat16:
+            tol = tol + bf16_ulp(ref)
+        err = (got.double() - ref.double()).abs()
+        assert bool((err <= tol).all()), (name, dtype, float(err.max()))
+
+
+@pytest.mark.gpu
+def test_xchain_with_route_extra_and_epilogue_on_card(cuda, full_f32):
+    """Commit through an upsample into a Route band (one extra band), and a
+    prologue whose chain carries an element-wise epilogue operand."""
+    from repro_torch.core.fp_bounds import bf16_ulp, gamma
+    from repro_torch.kernels.matmul_tm import chain as xc
+    from repro_torch.kernels.tm_affine.chain import ChainSig
+    rng = np.random.RandomState(23)
+    g = xc.Gemm("conv", (2, 4, 5, 6), (1, 1, 6, 4), 1, "SAME")
+    up = af.batch_extend_map(af.upsample_map((4, 5, 4), 2), (2,))
+    route = tuple(af.batch_extend_map(m, (2,)) for m in
+                  af.route_maps([(8, 10, 4), (8, 10, 3)]))
+    g2 = xc.Gemm("mm", (6, 8), (8, 5))
+    tr = af.axis_permutation_map((8, 6), (1, 0))
+    for dtype in DTYPES:
+        dt = str(dtype).removeprefix("torch.")
+        sig = ChainSig(links=((up, None),), route_maps=route, route_band=0,
+                       dtype=dt)
+        skip = _operand(rng, route[1].in_shape, dtype, cuda)
+        x = _operand(rng, g.x_shape, dtype, cuda)
+        w = _operand(rng, g.w_shape, dtype, cuda)
+        got = xc.xchain_commit(sig, g, x, w, (skip,))
+        ref = xc.xchain_commit_plain(sig, g, x, w, (skip,))
+        torch.cuda.synchronize()
+        if not dtype.is_floating_point:
+            assert torch.equal(got, ref), dtype
+        else:
+            # |x|, |w| < 1 over K = 6 products
+            tol = 2 * gamma(6) * 6 + (bf16_ulp(ref) if dtype ==
+                                      torch.bfloat16 else 0)
+            assert bool(((got.double() - ref.double()).abs() <= tol).all())
+        sig2 = ChainSig(links=((tr, "add"),), dtype=dt)
+        src = _operand(rng, (8, 6), dtype, cuda)
+        y = _operand(rng, (6, 8), dtype, cuda)
+        w2 = _operand(rng, g2.w_shape, dtype, cuda)
+        got = xc.xchain_prologue(sig2, g2, 0, src, w2, (y,))
+        ref = xc.xchain_prologue_plain(sig2, g2, 0, src, w2, (y,))
+        torch.cuda.synchronize()
+        if not dtype.is_floating_point:
+            assert torch.equal(got, ref), dtype
+        else:
+            # chain values below 2 in magnitude, |w| < 1, K = 8
+            tol = 2 * gamma(8) * 16 + (bf16_ulp(ref) if dtype ==
+                                       torch.bfloat16 else 0)
+            assert bool(((got.double() - ref.double()).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+def test_slice4_build_failure_raises_and_counts_nothing_on_card(cuda,
+                                                                 monkeypatch):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.matmul_tm import chain as xc
+    from repro_torch.kernels.matmul_tm import matmul_tm as mk
+    from repro_torch.kernels.tm_affine.chain import ChainSig
+
+    def fail(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(build, "library", fail)
+    x = torch.rand((4, 6), device=cuda)
+    w = torch.rand((6, 3), device=cuda)
+    g = xc.Gemm("mm", (4, 6), (6, 3))
+    sig = ChainSig(links=((af.axis_permutation_map((4, 3), (1, 0)), None),))
+    counts = lambda: (mk.matmul_tm.launches,  # noqa: E731
+                      xc.xchain_commit.launches, xc.xchain_prologue.launches)
+    before = counts()
+    for call in (lambda: mk.matmul_tm(x, w),
+                 lambda: xc.xchain_commit(sig, g, x, w),
+                 lambda: xc.xchain_prologue(
+                     ChainSig(links=((af.axis_permutation_map((6, 4), (1, 0)),
+                                      None),)), g, 0, x.T.contiguous(), w)):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+    assert counts() == before
