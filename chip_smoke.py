@@ -12,7 +12,8 @@ phases and fails on any mismatch:
    stated tolerance), with its device time (from a CUDA graph of
    back-to-back launches) and its time per call with the wrapper's host
    work, the plain version's time, its bound (the larger of bytes over
-   3.35 TB/s and f32 operations over 67 TFLOP/s) and, where one PyTorch
+   3.35 TB/s and f32 operations over 67 TFLOP/s; bf16 operations over 989
+   TFLOP/s for the flash kernels) and, where one PyTorch
    call computes the same function, that call's device time;
 2. slice 1, per-instruction lowering: the paper's Table III operators as
    single-instruction ``TMProgram``s through ``TMExecutor(backend="cuda")``
@@ -45,7 +46,18 @@ phases and fails on any mismatch:
    Rearrange crossing declined over the 128 MiB budget kept from the JAX
    package, the neck realized as ``cuda.xchain.prologue``), both heads
    against the eager model and the hand-partitioned chained forward;
-6. the launch counts of each slice's path, read just after it ran with the
+6. slice 5, the LM serving loop: the two flash kernels join the kernel
+   phase at Phi-4-mini's shapes (prefill q (8, 1024, 24, 128) against
+   k/v (8, 1024, 8, 128), causal; decode against a (8, 1088, 8, 128)
+   cache at length 1025; bf16), then ``repro_torch.launch.serve.serve``
+   runs Phi-4-mini 3.8B at its full published width (32 layers, random
+   bf16 weights from seed 0) on batch 8, 1024-token prompts, 64 generated
+   tokens: exactly 32 flash_attention and 32 x 63 flash_decode launches and
+   no other kernel; then the same weights and the served tokens, teacher
+   forced, through the plain attention in bf16 and in f32: the kernel
+   path's logits within 2x the bf16 plain path's distance from the f32
+   run, plus a floor, at every step;
+7. the launch counts of each slice's path, read just after it ran with the
    counts set to 0 just before it: every kernel of the slice > 0.
 
 The last three lines of standard output are the card's name and power
@@ -74,6 +86,7 @@ from repro_torch.models.partitioned import (  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12     # f32 outside the tensor cores, the same sheet
+BF16_FLOP_PER_S = 989e12   # bf16 on the tensor cores, dense, the same sheet
 SECTOR = 32                # bytes: the least a strided load moves from HBM
 SEED = 0
 IMG = (8, 448, 448, 3)     # batch 8, paper Table III input
@@ -89,6 +102,15 @@ ESPCN_IMG = (1, 360, 640, 3)
 # rounding of one conv (about 1e-6 relative): 1e-4 of the output's largest
 # magnitude leaves a factor of 100
 EDSR_RTOL = 1e-4
+# slice 5: Phi-4-mini 3.8B at full width (its published config), batch 8,
+# 1024-token prompts, 64 generated tokens: a 1088-row KV cache
+LM_ARCH = "phi4-mini-3.8b"
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 64
+# the kernel path's logits may be at most 2x as far from the f32 plain run
+# as the bf16 plain run is, plus LM_FLOOR_ULPS bf16 ulps of the step's
+# largest |f32 logit| (two roundings of each logit, and one of its inputs
+# either way)
+LM_FLOOR_ULPS = 4
 
 
 def log(msg: str) -> None:
@@ -276,6 +298,7 @@ def img2col_row(dev, gen) -> dict:
     (site #11, overlapping slabs); the other dtypes are checked beside it,
     the 2x2 stride-2 case (site #10) checked and timed."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.img2col import img2col as ik
 
     x = torch.rand(TABLE3, generator=gen).to(dev)
@@ -336,6 +359,7 @@ def conv2d_row(dev, gen) -> dict:
     """The implicit-GEMM conv at the EDSR body conv: (224, 224, 64) by
     (3, 3, 64, 64), pad 1, f32 (timed) and bf16 (checked)."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.img2col import img2col as ik
 
     H, W, C = EDSR_IMG[1], EDSR_IMG[2], 64
@@ -681,12 +705,167 @@ def kernel_phase(dev, gen, espcn: dict) -> list[dict]:
     rows += [img2col_row(dev, gen), conv2d_row(dev, gen),
              resize_row(dev, gen), matmul_tm_row(espcn),
              xchain_commit_row(espcn), xchain_prologue_row(dev, gen)]
+    rows += flash_rows(dev, gen)
     for r in rows:
         log(f"kernel {r['name']:17s} {r['shape']}: {r['ms']:.4f} ms device "
             f"({r['call_ms']:.4f} per call with host work; plain "
             f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, library "
             f"{r['library_ms']}) max|err| {r['max_abs_err']}")
     return rows
+
+
+def _sdpa(q, k, v, **kw):
+    """One PyTorch call of the same attention (the yardstick only): SDPA
+    on (B, H, S, D) views, the GQA grouping by ``enable_gqa``."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  enable_gqa=True, **kw)
+
+
+def flash_rows(dev, gen) -> list[dict]:
+    """flash_attention (#16) at the slice-5 prefill shape and flash_decode
+    (#17) at its decode shape, bf16 with f32 accumulation, each within
+    fp_bounds.attention_tol of its plain version."""
+    from repro_torch.core.fp_bounds import attention_tol
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    B, S, H, KV, D = LM_BATCH, LM_PROMPT, 24, 8, 128
+    T, length = LM_PROMPT + LM_GEN, LM_PROMPT + 1
+    bf16 = torch.bfloat16
+    q, k, v = (torch.randn((B, S, n, D), generator=gen).to(dev, bf16)
+               for n in (H, KV, KV))
+    got = fa.flash_attention(q, k, v, causal=True)
+    ref = fa.attention_ref(q, k, v, causal=True)
+    require_within(got, ref, attention_tol(q, k, v, causal=True),
+                   "flash_attention")
+    sdpa = _sdpa(q, k, v, is_causal=True)
+    log(f"kernel flash_attention: SDPA vs the kernel "
+        f"{max_abs_err(sdpa().transpose(1, 2), got)}")
+    flops = 4 * B * H * D * (S * S + S) // 2
+    nbytes = (2 * q.numel() + 2 * k.numel()) * 2
+    log(f"kernel flash_attention: {flops / 1e9:.2f} GFLOP, bound "
+        f"{flops / BF16_FLOP_PER_S * 1e3:.4f} ms at 989 TFLOP/s bf16, "
+        f"{flops / F32_FLOP_PER_S * 1e3:.4f} ms at 67 TFLOP/s f32 FMA")
+    rows = [dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:79",
+        max_abs_err=max_abs_err(got, ref),
+        ms=graph_ms(lambda: fa.flash_attention(q, k, v), iters=10),
+        call_ms=cuda_ms(lambda: fa.flash_attention(q, k, v), iters=10),
+        plain_ms=cuda_ms(lambda: fa.attention_ref(q, k, v), iters=3,
+                         warmup=1),
+        bound_ms=max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)
+        * 1e3,
+        bound_by=("operations" if flops / BF16_FLOP_PER_S
+                  > nbytes / HBM_BYTES_PER_S else "bytes"),
+        library_ms=graph_ms(sdpa, iters=10),
+        shape=f"causal q ({B}, {S}, {H}, {D}) k/v ({B}, {S}, {KV}, {D}) "
+              f"bf16")]
+    del q, k, v, got, ref
+
+    q = torch.randn((B, 1, H, D), generator=gen).to(dev, bf16)
+    k, v = (torch.randn((B, T, KV, D), generator=gen).to(dev, bf16)
+            for _ in range(2))
+    n = torch.tensor([length], dtype=torch.int32, device=dev)
+    got = fa.flash_decode(q, k, v, n)
+    ref = fa.decode_ref(q, k, v, length)
+    require_within(got, ref, attention_tol(q, k, v, causal=False,
+                                           length=length), "flash_decode")
+    sdpa = _sdpa(q, k[:, :length], v[:, :length])
+    log(f"kernel flash_decode: SDPA vs the kernel "
+        f"{max_abs_err(sdpa().transpose(1, 2), got)}")
+    nbytes = (2 * B * length * KV * D + 2 * q.numel()) * 2
+    flops = 4 * B * H * D * length
+    rows.append(dict(
+        name="flash_decode", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:144",
+        max_abs_err=max_abs_err(got, ref),
+        ms=graph_ms(lambda: fa.flash_decode(q, k, v, n)),
+        call_ms=cuda_ms(lambda: fa.flash_decode(q, k, v, n)),
+        plain_ms=cuda_ms(lambda: fa.decode_ref(q, k, v, n)),
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
+        * 1e3,
+        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                  >= flops / BF16_FLOP_PER_S else "operations"),
+        library_ms=graph_ms(sdpa),
+        shape=f"q ({B}, 1, {H}, {D}) vs cache ({B}, {T}, {KV}, {D}) bf16 "
+              f"at length {length}"))
+    return rows
+
+
+def _teacher_forced(cfg, params, prompts, toks, attention: str):
+    """Prefill, then the decode steps fed ``toks`` (the kernel path's
+    choices): the last-position logits of every step, (gen, B, V) f32."""
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.runtime.step import make_decode_step, make_prefill_step
+    B, P = prompts.shape
+    caches = init_caches(cfg, B, P + toks.shape[1], dtype=cfg.dtype,
+                         device=prompts.device)
+    lg, caches, _ = make_prefill_step(cfg, attention=attention)(
+        params, prompts, caches, None)
+    out = [lg[:, -1].float()]
+    decode = make_decode_step(cfg, attention=attention)
+    for i, t in enumerate(range(P, P + toks.shape[1] - 1)):
+        _, lg, caches, _ = decode(params, toks[:, i:i + 1], caches, None, t)
+        out.append(lg[:, -1].float())
+    return torch.stack(out)
+
+
+def lm_check(cfg, toks, stats, dev) -> None:
+    """The served tokens against the plain attention on the same weights
+    and the same teacher-forced tokens: the kernel path's logits no further
+    from the f32 plain run than 2x the bf16 plain run's distance plus
+    LM_FLOOR_ULPS bf16 ulps, at the prefill's last position and at every
+    decode step."""
+    import dataclasses
+    from repro_torch.launch.serve import lm_inputs
+
+    B, G = LM_BATCH, LM_GEN
+    if toks.shape != (B, G) or toks.dtype != torch.int32:
+        raise AssertionError(f"served tokens {tuple(toks.shape)} {toks.dtype}")
+    if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError("served tokens outside the vocabulary")
+    params, prompts = lm_inputs(cfg, batch=B, prompt_len=LM_PROMPT,
+                                seed=SEED, device=dev)
+    kern = _teacher_forced(cfg, params, prompts, toks, "flash")
+    plain = _teacher_forced(cfg, params, prompts, toks, "plain")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+
+    def f32(tree):
+        if isinstance(tree, dict):
+            return {k: f32(v) for k, v in tree.items()}
+        return tree.float()
+
+    params = f32(params)  # the bf16 weights, exactly, in f32
+    ref = _teacher_forced(cfg32, params, prompts, toks, "plain")
+    del params
+    for what, lg in (("kernel", kern), ("plain bf16", plain),
+                     ("plain f32", ref)):
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"LM {what}: non-finite logits")
+    d_kern = (kern - ref).abs().flatten(1).amax(dim=1)
+    d_plain = (plain - ref).abs().flatten(1).amax(dim=1)
+    floor = LM_FLOOR_ULPS * bf16_ulp(ref.abs().flatten(1).amax(dim=1)).float()
+    worst = float((d_kern / (2 * d_plain + floor)).max())
+    # logits of step i choose token i: the prefill's token 0, step i's i
+    replay = float((kern.argmax(-1).T == toks).float().mean())
+    agree = float((plain.argmax(-1).T == toks).float().mean())
+    log(f"model {cfg.name} {B}x{LM_PROMPT}+{G}: logits vs the f32 plain run,"
+        f" max over steps: kernel {float(d_kern.max()):.4g}, plain bf16 "
+        f"{float(d_plain.max()):.4g}, floor {float(floor.max()):.4g}; worst "
+        f"step kernel / (2 plain + floor) = {worst:.3f} (must be <= 1); "
+        f"greedy tokens: the kernel replay picks the served token on "
+        f"{replay:.4f}, the plain bf16 path on {agree:.4f} (not gated)")
+    if worst > 1:
+        raise AssertionError(f"LM kernel path too far from the f32 plain "
+                             f"run: {worst:.3f} of its bound")
+    P = LM_PROMPT
+    log(f"model {cfg.name}: prefill {stats['prefill_s'] * 1e3:.3f} ms, "
+        f"decode {stats['decode_s'] * 1e3 / (G - 1):.4f} ms/step, "
+        f"{stats['tokens_per_s']:.1f} tokens/s (batch {B}, prompt {P})")
 
 
 def operator_phase(dev, gen) -> None:
@@ -1186,10 +1365,12 @@ KERNELS = {  # slice -> the kernels its path must launch
     2: ("tm_chain", "rme_evaluate_chained", "rme_assemble"),
     3: ("img2col", "conv2d", "resize"),
     4: ("matmul_tm", "xchain_commit", "xchain_prologue"),
+    5: ("flash_attention", "flash_decode"),
 }
 
 
 def _wrappers() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.img2col import img2col as ik
     from repro_torch.kernels.matmul_tm import chain as xc
     from repro_torch.kernels.matmul_tm import matmul_tm as mk
@@ -1207,7 +1388,9 @@ def _wrappers() -> dict:
             "resize": rk.resize_bilinear,
             "matmul_tm": mk.matmul_tm,
             "xchain_commit": xc.xchain_commit,
-            "xchain_prologue": xc.xchain_prologue}
+            "xchain_prologue": xc.xchain_prologue,
+            "flash_attention": fa.flash_attention,
+            "flash_decode": fa.flash_decode}
 
 
 def launch_counts() -> dict[str, int]:
@@ -1297,11 +1480,30 @@ def main() -> int:
             yolo_compiled_check(y, chained)
 
         _, counts4 = run_path(4, slice4)
+        del es, y, unfused, chained
+        torch.cuda.empty_cache()
+
+        from repro_torch.configs.registry import get_config
+        from repro_torch.launch.serve import serve
+        lm = get_config(LM_ARCH)
+
+        def slice5():
+            return serve(lm, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                         gen=LM_GEN, seed=SEED, device=dev, log=log)
+
+        (toks, stats), counts5 = run_path(5, slice5)
+        want = {k: 0 for k in counts5}
+        want.update(flash_attention=lm.n_layers,
+                    flash_decode=lm.n_layers * (LM_GEN - 1))
+        if counts5 != want:
+            raise AssertionError(f"slice 5 launches {counts5}, expected "
+                                 f"{want}")
+        lm_check(lm, toks, stats, dev)
     if (n_unf, n_chn, n_convs) != (8, 4, 144):
         raise AssertionError(f"TM launches per forward {n_unf} unfused, "
                              f"{n_chn} chained, EDSR conv launches "
                              f"{n_convs}; expected 8, 4 and 144")
-    by_slice = {1: counts1, 2: counts2, 3: counts3, 4: counts4}
+    by_slice = {1: counts1, 2: counts2, 3: counts3, 4: counts4, 5: counts5}
     counts = {k: by_slice[s][k] for s, names in KERNELS.items()
               for k in names}
     log(f"main-path launches (each kernel from its slice's path): {counts}")
@@ -1309,6 +1511,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: ({**r, "launches": counts[r["name"]]})[k] for k in keys}
                for r in rows]
+    log(f"chip_smoke: {time.perf_counter() - t0:.1f} s with the build")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,8 @@ Numerical Algorithms, 2002, eq. 3.5).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core import tm_ops
@@ -41,3 +43,52 @@ def conv_tol(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     OH = (x.shape[0] + 2 * pad - kh) // stride + 1
     OW = (x.shape[1] + 2 * pad - kw) // stride + 1
     return (2 * gamma(K) * mag).reshape(OH, OW, OC)
+
+
+U_BF16 = 2.0 ** -8  # unit roundoff of bfloat16 (8 significand bits)
+
+
+def attention_tol(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, length=None,
+                  scale: float | None = None) -> torch.Tensor:
+    """Elementwise bound on the distance between two evaluations of softmax
+    attention (any summation order, online or not) of the same q, k, v, in
+    the layout of q: (BH, S, D) against (BH, T, D), or (B, S, H, D) against
+    (B, T, KV, D).  Masking as in the flash kernels: causal top-left,
+    ``length`` (decode, an int) masks positions >= length.
+
+    With A = sum_j p_j |v_j| (the exact softmax weights applied to |v|):
+    each score of D products is off by at most gamma_D sum |q k| * scale in
+    either evaluation, the shift s - m and exp add a few roundings relative
+    to |s|, so each p_j is off by a relative delta = 2 gamma_D max sum|q k|
+    scale + u (4 max|s| + 8); numerator and denominator together move the
+    result by 2 delta A, the two sums over T rows by 2 gamma_{T+1} A.  In
+    bf16, p rounded to bf16 before the PV product (the Pallas kernels and
+    full_attention) and the output's rounding add at most 2^-8 A per
+    evaluation each: 2^-6 A for two; in f32 the output rounding 2 u A.
+    Returns float64."""
+    flat = q.ndim == 3
+    if flat:
+        q, k, v = q[:, :, None], k[:, :, None], v[:, :, None]
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qd = q.double().reshape(B, S, KV, H // KV, D)
+    kd = k.double()
+    s = torch.einsum("bskgd,btkd->bkgst", qd, kd) * scale
+    qk = torch.einsum("bskgd,btkd->bkgst", qd.abs(), kd.abs()) * scale
+    pos = torch.arange(max(S, T), device=q.device)
+    masked = torch.zeros((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        masked |= pos[:S, None] < pos[None, :T]
+    if length is not None:
+        masked |= (pos[None, :T] >= length).expand(S, T)
+    p = torch.softmax(s.masked_fill(masked, -1e30), dim=-1)
+    A = torch.einsum("bkgst,btkd->bkgsd", p, v.double().abs())
+    delta = (2 * gamma(D) * qk.masked_fill(masked, 0).amax(dim=-1)
+             + U32 * (4 * s.masked_fill(masked, 0).abs().amax(dim=-1) + 8))
+    r = 2 * U32 if q.dtype == torch.float32 else 4 * U_BF16
+    tol = (2 * delta[..., None] + 2 * gamma(T + 1) + r) * A
+    tol = tol.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+    return tol[:, :, 0] if flat else tol

@@ -63,6 +63,12 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "xchain_commit": [_P, _P, _P, _P, _P, _I, _I64, _I, _I, _P],
         "xchain_prologue": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "flash_attention": {
+        "flash_attention_fwd": [_P, _P, _P, _P, _I] + [_I] * 6 + [_I64] * 12
+        + [_F, _I, _P],
+        "flash_attention_decode": [_P, _P, _P, _P, _P, _I] + [_I] * 5
+        + [_I64] * 10 + [_F, _P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -3,8 +3,9 @@
 :func:`params_from_numpy` turns a ``repro`` parameter pytree whose leaves
 are numpy arrays (``jax.tree.map(np.asarray, p)``) into the port's
 parameters: the same nested dicts and lists with torch tensors as leaves,
-which the model classes in :mod:`repro_torch.models.cnn` take as they are.
-Python scalars (``"s"``, ``"n_classes"``) stay Python scalars.
+which the model classes in :mod:`repro_torch.models.cnn` and the LM of
+:mod:`repro_torch.models.transformer` take as they are (bf16 leaves stay
+bf16).  Python scalars (``"s"``, ``"n_classes"``) stay Python scalars.
 """
 
 from __future__ import annotations
@@ -22,12 +23,14 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.tensor(np.array(a))
 
 
-def params_from_numpy(p):
-    """Convert a pytree of numpy arrays into one of torch tensors."""
+def params_from_numpy(p, device=None):
+    """Convert a pytree of numpy arrays into one of torch tensors, on
+    ``device`` (None: the CPU, where conversion happens)."""
     if isinstance(p, dict):
-        return {k: params_from_numpy(v) for k, v in p.items()}
+        return {k: params_from_numpy(v, device) for k, v in p.items()}
     if isinstance(p, (list, tuple)):
-        return [params_from_numpy(v) for v in p]
+        return [params_from_numpy(v, device) for v in p]
     if isinstance(p, (np.ndarray, np.generic)):
-        return _tensor(np.asarray(p))
+        t = _tensor(np.asarray(p))
+        return t if device is None else t.to(device)
     return p

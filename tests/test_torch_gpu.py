@@ -652,3 +652,124 @@ def test_slice4_build_failure_raises_and_counts_nothing_on_card(cuda,
         with pytest.raises(RuntimeError, match="nvcc failed"):
             call()
     assert counts() == before
+
+
+# ---------------------------------------------------------------------------
+# slice 5: flash attention and flash decode
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = ((100, 100, True), (70, 130, True), (130, 70, True),
+                (100, 100, False), (1, 33, True))  # (S, Sk, causal), ragged
+
+
+def _qkv(rng, B, S, Sk, H, KV, D, dtype, device):
+    mk = lambda *s: torch.tensor(rng.randn(*s).astype(np.float32)  # noqa: E731
+                                 ).to(dtype).to(device)
+    return mk(B, S, H, D), mk(B, Sk, KV, D), mk(B, Sk, KV, D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 3, 8])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_on_card(cuda, full_f32, dtype,
+                                                      D, G):
+    """Within fp_bounds.attention_tol of the plain version: the derived
+    bound on two evaluations in other orders (in bf16 with the kernel's p
+    rounded to bf16 and both outputs' rounding)."""
+    from repro_torch.core.fp_bounds import attention_tol
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    rng = np.random.RandomState(D + G)
+    for S, Sk, causal in FLASH_SHAPES:
+        q, k, v = _qkv(rng, 2, S, Sk, 2 * G, 2, D, dtype, cuda)
+        before = fa.flash_attention.launches
+        got = fa.flash_attention(q, k, v, causal=causal)
+        ref = fa.attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        tol = attention_tol(q, k, v, causal=causal)
+        err = (got.double() - ref.double()).abs()
+        assert bool((err <= tol).all()), (S, Sk, causal, float(err.max()))
+    # the Pallas layout (BH, S, D) and a strided v (a view of a fused tensor)
+    qkv = torch.randn((3, 77, 3, D), device=cuda).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    got = fa.flash_attention(q, k, v)
+    ref = fa.attention_ref(q, k, v)
+    assert bool(((got.double() - ref.double()).abs()
+                 <= attention_tol(q, k, v)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 3, 8])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_matches_plain_on_card(cuda, full_f32, dtype, D,
+                                                   G):
+    """Cache rows < length only; length <= 0 gives the mean of all rows of
+    v, as the Pallas kernel does.  Tolerance: fp_bounds.attention_tol."""
+    from repro_torch.core.fp_bounds import attention_tol
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    rng = np.random.RandomState(2 * D + G)
+    T = 100
+    q, k, v = _qkv(rng, 2, 1, T, 2 * G, 2, D, dtype, cuda)
+    for length in (0, -3, 1, 37, T, T + 5):
+        before = fa.flash_decode.launches
+        got = fa.flash_decode(q, k, v, length)
+        dev_len = fa.flash_decode(q, k, v, torch.tensor(
+            [length], dtype=torch.int32, device=cuda))
+        ref = fa.decode_ref(q, k, v, length)
+        torch.cuda.synchronize()
+        assert fa.flash_decode.launches == before + 2
+        assert torch.equal(got, dev_len)
+        tol = attention_tol(q, k, v, causal=False, length=length)
+        err = (got.double() - ref.double()).abs()
+        assert bool((err <= tol).all()), (length, float(err.max()))
+        if length <= 0:
+            mean = v.double().mean(dim=1, keepdim=True).repeat_interleave(
+                G, dim=2)
+            assert bool(((got.double() - mean).abs() <= tol).all())
+    got = fa.flash_decode(q[:, :, 0], k[:, :, 0], v[:, :, 0], 9)  # Pallas
+    ref = fa.decode_ref(q[:, :, 0], k[:, :, 0], v[:, :, 0], 9)
+    assert bool(((got.double() - ref.double()).abs() <= attention_tol(
+        q[:, :, 0], k[:, :, 0], v[:, :, 0], causal=False, length=9)).all())
+
+
+@pytest.mark.gpu
+def test_flash_kernels_refuse_what_they_do_not_take_on_card(cuda):
+    """An unsupported head dim, mixed dtypes or a misaligned cache raise;
+    nothing falls back to the plain version, nothing is counted."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    before = (fa.flash_attention.launches, fa.flash_decode.launches)
+    for D in (12, 264):
+        x = torch.rand((1, 8, 2, D), device=cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_attention(x, x, x)
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_decode(x[:, :1], x, x, 4)
+    x = torch.rand((1, 8, 2, 16), device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention(x, x.to(torch.bfloat16), x)
+    odd = torch.rand((1, 8 * 2 * 16 + 1), device=cuda)[:, 1:].reshape(
+        1, 8, 2, 16)  # 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_decode(x[:, :1], odd, odd, 4)
+    assert (fa.flash_attention.launches, fa.flash_decode.launches) == before
+
+
+@pytest.mark.gpu
+def test_slice5_serve_launch_counts_on_card(cuda):
+    """phi4-mini's smoke config through serve on the card: one
+    flash_attention launch per layer in the prefill, one flash_decode
+    launch per layer per decode step, no other kernel."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.serve import serve
+    cfg = get_smoke("phi4-mini-3.8b")
+    fa.flash_attention.launches = fa.flash_decode.launches = 0
+    toks, stats = serve(cfg, batch=2, prompt_len=8, gen=5, device=cuda,
+                        log=lambda m: None)
+    assert toks.shape == (2, 5) and toks.is_cuda
+    assert fa.flash_attention.launches == cfg.n_layers
+    assert fa.flash_decode.launches == cfg.n_layers * 4
+    assert stats["tokens_per_s"] > 0
