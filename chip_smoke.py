@@ -49,7 +49,10 @@ phases and fails on any mismatch:
 6. slice 5, the LM serving loop: the two flash kernels join the kernel
    phase at Phi-4-mini's shapes (prefill q (8, 1024, 24, 128) against
    k/v (8, 1024, 8, 128), causal; decode against a (8, 1088, 8, 128)
-   cache at length 1025; bf16), then ``repro_torch.launch.serve.serve``
+   cache at length 1025; bf16), each with its achieved TFLOP/s or TB/s
+   and its ratio to SDPA's time in the same run, and the f32 prefill (the
+   FMA kernel, off the LM's bf16 path: a row of the log's table, not of
+   the ``kernels`` line); then ``repro_torch.launch.serve.serve``
    runs Phi-4-mini 3.8B at its full published width (32 layers, random
    bf16 weights from seed 0) on batch 8, 1024-token prompts, 64 generated
    tokens: exactly 32 flash_attention and 32 x 63 flash_decode launches and
@@ -726,44 +729,53 @@ def _sdpa(q, k, v, **kw):
 def flash_rows(dev, gen) -> list[dict]:
     """flash_attention (#16) at the slice-5 prefill shape and flash_decode
     (#17) at its decode shape, bf16 with f32 accumulation, each within
-    fp_bounds.attention_tol of its plain version."""
+    fp_bounds.attention_tol of its plain version, with its achieved rate
+    and its ratio to SDPA's time in the same run; then the f32 prefill
+    (the FMA kernel, off the LM's bf16 path) as the row
+    flash_attention_f32."""
     from repro_torch.core.fp_bounds import attention_tol
     from repro_torch.kernels.flash_attention import flash_attention as fa
 
     B, S, H, KV, D = LM_BATCH, LM_PROMPT, 24, 8, 128
     T, length = LM_PROMPT + LM_GEN, LM_PROMPT + 1
     bf16 = torch.bfloat16
-    q, k, v = (torch.randn((B, S, n, D), generator=gen).to(dev, bf16)
-               for n in (H, KV, KV))
-    got = fa.flash_attention(q, k, v, causal=True)
-    ref = fa.attention_ref(q, k, v, causal=True)
-    require_within(got, ref, attention_tol(q, k, v, causal=True),
-                   "flash_attention")
-    sdpa = _sdpa(q, k, v, is_causal=True)
-    log(f"kernel flash_attention: SDPA vs the kernel "
-        f"{max_abs_err(sdpa().transpose(1, 2), got)}")
     flops = 4 * B * H * D * (S * S + S) // 2
-    nbytes = (2 * q.numel() + 2 * k.numel()) * 2
-    log(f"kernel flash_attention: {flops / 1e9:.2f} GFLOP, bound "
-        f"{flops / BF16_FLOP_PER_S * 1e3:.4f} ms at 989 TFLOP/s bf16, "
-        f"{flops / F32_FLOP_PER_S * 1e3:.4f} ms at 67 TFLOP/s f32 FMA")
-    rows = [dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/flash_attention.py:79",
-        max_abs_err=max_abs_err(got, ref),
-        ms=graph_ms(lambda: fa.flash_attention(q, k, v), iters=10),
-        call_ms=cuda_ms(lambda: fa.flash_attention(q, k, v), iters=10),
-        plain_ms=cuda_ms(lambda: fa.attention_ref(q, k, v), iters=3,
-                         warmup=1),
-        bound_ms=max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)
-        * 1e3,
-        bound_by=("operations" if flops / BF16_FLOP_PER_S
-                  > nbytes / HBM_BYTES_PER_S else "bytes"),
-        library_ms=graph_ms(sdpa, iters=10),
-        shape=f"causal q ({B}, {S}, {H}, {D}) k/v ({B}, {S}, {KV}, {D}) "
-              f"bf16")]
-    del q, k, v, got, ref
+    rows = []
+    for dtype, name, peak in ((bf16, "flash_attention", BF16_FLOP_PER_S),
+                              (torch.float32, "flash_attention_f32",
+                               F32_FLOP_PER_S)):
+        q, k, v = (torch.randn((B, S, n, D), generator=gen).to(dev, dtype)
+                   for n in (H, KV, KV))
+        got = fa.flash_attention(q, k, v, causal=True)
+        ref = fa.attention_ref(q, k, v, causal=True)
+        require_within(got, ref, attention_tol(q, k, v, causal=True), name)
+        sdpa = _sdpa(q, k, v, is_causal=True)
+        log(f"kernel {name}: SDPA vs the kernel "
+            f"{max_abs_err(sdpa().transpose(1, 2), got)}")
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        iters = 10 if dtype == bf16 else 3
+        ms = graph_ms(lambda: fa.flash_attention(q, k, v), iters=iters)
+        library_ms = graph_ms(sdpa, iters=iters)
+        log(f"kernel {name}: {flops / 1e9:.2f} GFLOP in {ms:.4f} ms = "
+            f"{flops / ms / 1e9:.1f} TFLOP/s (peak {peak / 1e12:.0f}, bound "
+            f"{flops / peak * 1e3:.4f} ms); SDPA {library_ms:.4f} ms, "
+            f"kernel / SDPA {ms / library_ms:.2f}")
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/flash_attention.py:79",
+            max_abs_err=max_abs_err(got, ref), ms=ms,
+            call_ms=cuda_ms(lambda: fa.flash_attention(q, k, v),
+                            iters=iters),
+            plain_ms=cuda_ms(lambda: fa.attention_ref(q, k, v), iters=3,
+                             warmup=1),
+            bound_ms=max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
+            bound_by=("operations" if flops / peak > nbytes / HBM_BYTES_PER_S
+                      else "bytes"),
+            library_ms=library_ms,
+            shape=f"causal q ({B}, {S}, {H}, {D}) k/v ({B}, {S}, {KV}, {D}) "
+                  f"{str(dtype).removeprefix('torch.')}"))
+        del q, k, v, got, ref
 
     q = torch.randn((B, 1, H, D), generator=gen).to(dev, bf16)
     k, v = (torch.randn((B, T, KV, D), generator=gen).to(dev, bf16)
@@ -778,19 +790,26 @@ def flash_rows(dev, gen) -> list[dict]:
         f"{max_abs_err(sdpa().transpose(1, 2), got)}")
     nbytes = (2 * B * length * KV * D + 2 * q.numel()) * 2
     flops = 4 * B * H * D * length
+    ms = graph_ms(lambda: fa.flash_decode(q, k, v, n))
+    library_ms = graph_ms(sdpa)
+    split_rows, splits = fa.decode_plan(B, T, H, KV, dev, bf16)
+    log(f"kernel flash_decode: {nbytes / 1e6:.2f} MB in {ms:.4f} ms = "
+        f"{nbytes / ms / 1e9:.3f} TB/s (peak 3.35, bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {splits} splits of "
+        f"{split_rows} rows); SDPA {library_ms:.4f} ms, kernel / SDPA "
+        f"{ms / library_ms:.2f}")
     rows.append(dict(
         name="flash_decode", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:144",
-        max_abs_err=max_abs_err(got, ref),
-        ms=graph_ms(lambda: fa.flash_decode(q, k, v, n)),
+        max_abs_err=max_abs_err(got, ref), ms=ms,
         call_ms=cuda_ms(lambda: fa.flash_decode(q, k, v, n)),
         plain_ms=cuda_ms(lambda: fa.decode_ref(q, k, v, n)),
         bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
         * 1e3,
         bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                   >= flops / BF16_FLOP_PER_S else "operations"),
-        library_ms=graph_ms(sdpa),
+        library_ms=library_ms,
         shape=f"q ({B}, 1, {H}, {D}) vs cache ({B}, {T}, {KV}, {D}) bf16 "
               f"at length {length}"))
     return rows
@@ -1509,8 +1528,10 @@ def main() -> int:
     log(f"main-path launches (each kernel from its slice's path): {counts}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # the kernels of the main path; flash_attention_f32 (the FMA route) is
+    # off it, since the LM serves bf16, and stays a row of the table above
     kernels = [{k: ({**r, "launches": counts[r["name"]]})[k] for k in keys}
-               for r in rows]
+               for r in rows if r["name"] in counts]
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s with the build")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -9,6 +9,10 @@ headers (``csrc/*.cuh``) and the flags: an edited source rebuilds, an
 unchanged one loads.  :func:`build`
 starts one ``nvcc`` per missing library, all at once.
 
+Only cudart is linked (nvcc's default): the TMA tensor maps of
+``flash_attention.cu`` get ``cuTensorMapEncodeTiled`` through
+``cudaGetDriverEntryPoint``, so no library links ``libcuda``.
+
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception.  A build or launch
 that fails raises — there is no fallback to another implementation.
@@ -66,8 +70,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "flash_attention": {
         "flash_attention_fwd": [_P, _P, _P, _P, _I] + [_I] * 6 + [_I64] * 12
         + [_F, _I, _P],
-        "flash_attention_decode": [_P, _P, _P, _P, _P, _I] + [_I] * 5
-        + [_I64] * 10 + [_F, _P],
+        "flash_attention_decode": [_P] * 6 + [_I] * 8 + [_I64] * 10
+        + [_F, _P],
     },
 }
 

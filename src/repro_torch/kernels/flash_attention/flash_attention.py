@@ -16,11 +16,22 @@ GQA repeat costs no copy and a slice of the fused QKV projection or a
 layer of the stacked KV cache is passed as it lies.
 
 Each wrapper runs the plain version for a CPU tensor and the kernel for a
-CUDA tensor, or raises; ``launches`` counts kernel launches.
+CUDA tensor, or raises; ``launches`` counts wrapper calls that launched.
+
+The prefill kernel is chosen by the element type alone, never by a
+failure: bf16 runs ``fwd_tc_kernel`` on the tensor cores (wgmma, its tiles
+copied by TMA, so q, k and v must be 16-byte aligned with strides a
+multiple of 8 elements, or the call raises); f32 runs ``fwd_kernel``, FMA
+outside the tensor cores (TF32 would break the f32 tolerance).  A decode
+call launches two kernels, counted once: a split kernel over row splits of
+the cache (:func:`decode_split` picks them from T and the grid, never
+from ``length``; bf16 on ``mma.sync``, f32 on FMA) and
+``decode_combine_kernel``, which sums the splits.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -71,6 +82,58 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _require_aligned(name: str, tensors, vec: int) -> None:
+    """16-byte loads (decode) or TMA copies (bf16 prefill) need 16-byte
+    aligned bases and strides a multiple of ``vec`` elements; the stride
+    of a dim of extent 1 is never followed."""
+    for t, what in tensors:
+        if t.data_ptr() % 16 or any(
+                s % vec for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+            raise ValueError(f"{name}: {what} must be 16-byte aligned with "
+                             f"strides a multiple of {vec} elements")
+
+
+def _strides(t: torch.Tensor) -> list[int]:
+    """The first three strides, a dim of extent 1 given the head dim's
+    extent (TMA wants every stride a multiple of 16 bytes)."""
+    return [s if n > 1 else t.shape[3] for s, n in zip(t.stride()[:3],
+                                                         t.shape[:3])]
+
+
+SPLIT_ROWS = 64     # cache rows of a decode split: a multiple of this
+BLOCKS_PER_SM = 3   # decode blocks per SM in the one wave decode_split aims at
+
+
+def decode_split(T: int, blocks: int, sms: int) -> tuple[int, int]:
+    """``(rows, splits)`` of a decode launch over a T-row cache: splits of
+    a multiple of SPLIT_ROWS rows, as many as ``blocks`` (batch x KV heads
+    x head chunks) times the splits keep in one wave of BLOCKS_PER_SM
+    blocks on each of ``sms`` SMs (at the LM's decode shape 6 splits of
+    192 rows measured faster than 9 of 128 or 17 of 64: PERF.md).  A
+    function of the shapes only, so one captured decode serves every
+    length."""
+    want = max(1, BLOCKS_PER_SM * sms // blocks)
+    rows = max(SPLIT_ROWS, -(-T // want))
+    rows = -(-rows // SPLIT_ROWS) * SPLIT_ROWS
+    return rows, -(-T // rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_plan(B: int, T: int, H: int, KV: int, device: torch.device,
+                dtype: torch.dtype) -> tuple[int, int]:
+    """``(rows, splits)`` of :func:`flash_decode` on ``device``: its blocks
+    are (KV head, chunk of query heads, split, batch), the chunk 16 heads
+    in bf16 (mma's M) and 4 in f32."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    chunk = 16 if dtype == torch.bfloat16 else 4
+    return decode_split(T, B * KV * -(-(H // KV) // chunk), _sm_count(index))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: float | None = None) -> torch.Tensor:
@@ -82,10 +145,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q4, k4, v4, flat = _operands("flash_attention", q, k, v)
     B, S, H, D = q4.shape
     Sk, KV = k4.shape[1], k4.shape[2]
+    if q.dtype == torch.bfloat16:  # tensor-core kernel: TMA copies
+        _require_aligned("flash_attention", ((q4, "q"), (k4, "k"), (v4, "v")),
+                         8)
+        if H // KV > 128:  # a block's 128 rows hold every head of a group
+            raise ValueError(f"flash_attention: {H // KV} query heads per "
+                             f"KV head; the bf16 kernel takes at most 128")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     out = torch.empty(q4.shape, dtype=q.dtype, device=q.device)
-    strides = [s for t in (q4, k4, v4, out) for s in t.stride()[:3]]
+    strides = [s for t in (q4, k4, v4, out) for s in _strides(t)]
     rc = lib.flash_attention_fwd(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
         DTYPE_CODES[q.dtype], B, S, Sk, H, KV, D, *strides, scale,
@@ -110,11 +179,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     T, KV = k4.shape[1], k4.shape[2]
     if S != 1:
         raise ValueError(f"flash_decode: one query per head, got S = {S}")
-    vec = 16 // k4.element_size()  # the kernel reads k, v rows 16 bytes at a time
-    for t, what in ((k4, "k"), (v4, "v")):
-        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
-            raise ValueError(f"flash_decode: {what} must be 16-byte aligned "
-                             f"with strides a multiple of {vec} elements")
+    # the kernel reads k, v rows 16 bytes at a time
+    _require_aligned("flash_decode", ((k4, "k"), (v4, "v")),
+                     16 // k4.element_size())
     if isinstance(length, torch.Tensor):
         if length.numel() != 1 or length.dtype.is_floating_point:
             raise ValueError("flash_decode: length must be one integer")
@@ -125,11 +192,14 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     out = torch.empty(q4.shape, dtype=q.dtype, device=q.device)
+    rows, splits = decode_plan(B, T, H, KV, q.device, q.dtype)
+    part = torch.empty((B, H, splits, D + 2), dtype=torch.float32,
+                       device=q.device)  # each split's m, l and acc
     rc = lib.flash_attention_decode(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), length.data_ptr(),
-        out.data_ptr(), DTYPE_CODES[q.dtype], B, T, H, KV, D,
-        q4.stride(0), q4.stride(2), *k4.stride()[:3], *v4.stride()[:3],
-        out.stride(0), out.stride(2), scale, _stream(q))
+        part.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype], B, T, H, KV,
+        D, splits, rows, q4.stride(0), q4.stride(2), *k4.stride()[:3],
+        *v4.stride()[:3], out.stride(0), out.stride(2), scale, _stream(q))
     build.check(rc, "flash_decode")
     flash_decode.launches += 1
     return out[:, :, 0] if flat else out

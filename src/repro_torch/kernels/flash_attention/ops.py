@@ -1,9 +1,9 @@
 """Entry points of the flash-attention kernels, with the JAX signatures.
 
 ``bq`` and ``bk`` are the Pallas kernels' tile sizes; they are accepted and
-not used, because the CUDA kernels tile on their own terms (64 x 64 query
-and key tiles in prefill, interleaved cache rows in decode) and mask the
-ragged edge themselves.
+not used, because the CUDA kernels tile on their own terms (128-query x
+64-key tiles in a bf16 prefill, 64 x 64 in f32, 64-row tiles of cache
+splits in decode) and mask the ragged edge themselves.
 """
 
 from __future__ import annotations

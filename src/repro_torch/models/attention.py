@@ -115,6 +115,15 @@ def full_attention(q, k, v, *, causal: bool, kv_len=None):
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
 
 
+def band_start(cache_index: int, T: int, S: int) -> int:
+    """Where a band of S rows lands in a T-row cache when asked for
+    ``cache_index``: ``lax.dynamic_update_slice``'s rule, which wraps a
+    negative start once (start + T) and then clamps it into [0, T - S], so
+    the band always lies whole inside the cache."""
+    start = cache_index + T if cache_index < 0 else cache_index
+    return min(max(start, 0), T - S)
+
+
 def attention_block(p, x, inv_freq, *, n_heads: int, n_kv: int,
                     head_dim: int, positions=None, cache=None,
                     cache_index: int | None = None, causal: bool = True,
@@ -125,7 +134,10 @@ def attention_block(p, x, inv_freq, *, n_heads: int, n_kv: int,
     The band is written **in place** into the caller's ``cache`` tensors,
     where the JAX package builds a new cache with ``dynamic_update_slice``:
     its serve loop donates the caches, so nothing observable changes, and
-    the returned cache is the same dict.  Returns ``(out, new_cache)``.
+    the returned cache is the same dict.  The band lands at
+    :func:`band_start` (a start past the cache or below 0 is wrapped and
+    clamped as lax does), while the decode length stays ``cache_index +
+    S``, unclamped, as in JAX.  Returns ``(out, new_cache)``.
     """
     if attention not in ATTENTION:
         raise ValueError(f"attention must be one of {ATTENTION}, got "
@@ -142,8 +154,9 @@ def attention_block(p, x, inv_freq, *, n_heads: int, n_kv: int,
     new_cache = None
     if cache is not None:
         # TM Route: write the new band into the KV cache at cache_index
-        cache["k"][:, cache_index:cache_index + S] = k
-        cache["v"][:, cache_index:cache_index + S] = v
+        start = band_start(cache_index, cache["k"].shape[1], S)
+        cache["k"][:, start:start + S] = k
+        cache["v"][:, start:start + S] = v
         new_cache = cache
         if S == 1:
             kv_len = cache_index + S

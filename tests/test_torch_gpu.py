@@ -757,6 +757,129 @@ def test_flash_kernels_refuse_what_they_do_not_take_on_card(cuda):
     assert (fa.flash_attention.launches, fa.flash_decode.launches) == before
 
 
+def _within_attention_tol(got, ref, q, k, v, **kw):
+    from repro_torch.core.fp_bounds import attention_tol
+    err = (got.double() - ref.double()).abs()
+    return bool((err <= attention_tol(q, k, v, **kw)).all()), float(err.max())
+
+
+# (B, S, Sk, H, KV, D, causal): the LM prefill, the padded and the widest
+# head-dim templates, S != Sk both ways, one query row, and head groups
+# G = H / KV whose 128-row tiles (128 / G positions x G heads) leave rows
+TC_SHAPES = {
+    "phi4_prefill": (8, 1024, 1024, 24, 8, 128, True),
+    "d24_padded": (2, 150, 150, 6, 2, 24, True),
+    "d256": (1, 300, 300, 4, 2, 256, True),
+    "d256_noncausal": (1, 200, 130, 2, 1, 256, False),
+    "s_lt_sk": (2, 70, 300, 6, 2, 128, True),
+    "s_gt_sk": (2, 300, 70, 6, 2, 128, True),
+    "s1": (3, 1, 257, 8, 2, 64, True),
+    "g5_noncausal": (2, 150, 90, 5, 1, 128, False),  # 125 of 128 tile rows
+    "g16": (1, 200, 333, 16, 1, 64, True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(TC_SHAPES))
+def test_flash_attention_tensor_core_kernel_on_card(cuda, case):
+    """The bf16 prefill (TMA + wgmma) within fp_bounds.attention_tol of
+    the plain version at the LM's shape and at the head dims and ragged
+    edges its tiles pad."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    B, S, Sk, H, KV, D, causal = TC_SHAPES[case]
+    rng = np.random.RandomState(S + Sk + D)
+    q, k, v = _qkv(rng, B, S, Sk, H, KV, D, torch.bfloat16, cuda)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    ref = fa.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    ok, err = _within_attention_tol(got, ref, q, k, v, causal=causal)
+    assert ok, (case, err)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_what_tma_tiles_cannot_take_on_card(cuda):
+    """TMA copies need 16-byte aligned bases and strides: a bf16 view that
+    breaks either raises "aligned" and launches nothing, as does a group
+    of more than 128 query heads per KV head (a tile's 128 rows hold the
+    whole group); the f32 kernel takes the same views."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    x = torch.randn((2, 40, 2 * 16 + 2), device=cuda)
+    flat = x.to(torch.bfloat16).reshape(-1)
+    before = fa.flash_attention.launches
+    for t in (flat[1:1 + 2 * 40 * 32].view(2, 40, 2, 16),  # base + 2 bytes
+              x.to(torch.bfloat16)[:, :, :32].unflatten(2, (2, 16))):
+        with pytest.raises(ValueError, match="aligned"):  # row: 68 bytes
+            fa.flash_attention(t, t, t)
+    wide = torch.zeros((1, 8, 129, 16), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="at most 128"):
+        fa.flash_attention(wide, wide[:, :, :1], wide[:, :, :1])
+    assert fa.flash_attention.launches == before
+    odd = x[:, :, 1:33].unflatten(2, (2, 16))  # f32: 4 bytes past, 136 B rows
+    got = fa.flash_attention(odd, odd, odd)
+    ok, err = _within_attention_tol(got, fa.attention_ref(odd, odd, odd),
+                                    odd, odd, odd)
+    assert ok, err
+
+
+# (B, T, lengths): a long cache at batch 1, lengths at 1, a split boundary
+# and one past it, T - 1, T, and 0 / -3 (the mean of v)
+DECODE_CASES = {"t4096": (1, 4096), "t32768": (1, 32768)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_split_kernel_on_card(cuda, full_f32, dtype, case):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    B, T = DECODE_CASES[case]
+    H, KV, D = 24, 8, 128
+    rng = np.random.RandomState(T)
+    q, k, v = _qkv(rng, B, 1, T, H, KV, D, dtype, cuda)
+    rows, splits = fa.decode_plan(B, T, H, KV, cuda, dtype)
+    assert splits > 1 and rows * (splits - 1) < T <= rows * splits
+    for length in (1, rows, rows + 1, T - 1, T, 0, -3):
+        got = fa.flash_decode(q, k, v, length)
+        ref = fa.decode_ref(q, k, v, length)
+        torch.cuda.synchronize()
+        ok, err = _within_attention_tol(got, ref, q, k, v, causal=False,
+                                        length=length)
+        assert ok, (length, err)
+        if length <= 0:
+            mean = v.double().mean(dim=1, keepdim=True).repeat_interleave(
+                H // KV, dim=2).to(dtype)
+            ok, err = _within_attention_tol(got, mean, q, k, v,
+                                            causal=False, length=length)
+            assert ok, (length, err)
+    assert torch.equal(fa.flash_decode(q, k, v, 7),
+                       fa.flash_decode(q, k, v, 7))
+
+
+@pytest.mark.gpu
+def test_flash_decode_replays_in_a_cuda_graph_at_every_length_on_card(cuda):
+    """One flash_decode captured in a CUDA graph, replayed after the device
+    length was changed, equals a direct call at that length: the grid
+    depends on T only and the kernels read the length on the device."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    rng = np.random.RandomState(3)
+    T = 1088
+    q, k, v = _qkv(rng, 8, 1, T, 24, 8, 128, torch.bfloat16, cuda)
+    n = torch.tensor([5], dtype=torch.int32, device=cuda)
+    fa.flash_decode(q, k, v, n)  # builds and allocates outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa.flash_decode(q, k, v, n)
+    for length in (1, 64, 65, 1024, 1025, T, 0, -3):
+        n.fill_(length)
+        graph.replay()
+        direct = fa.flash_decode(q, k, v, length)
+        torch.cuda.synchronize()
+        assert torch.equal(out, direct), length
+
+
 @pytest.mark.gpu
 def test_slice5_serve_launch_counts_on_card(cuda):
     """phi4-mini's smoke config through serve on the card: one

@@ -228,6 +228,25 @@ def test_flash_attention_library_is_built_with_the_others():
         "libflash_attention.so"
 
 
+@pytest.mark.parametrize("T,blocks", [(1088, 64), (32768, 2), (100, 4),
+                                      (4096, 24), (1, 1), (10 ** 6, 64)])
+def test_decode_split_covers_the_cache_from_shapes_alone(T, blocks):
+    """flash_decode's row splits: a multiple of 64 rows each, covering the
+    T rows with no split wholly past T, within CUDA's 65535 grid rows,
+    from T and the grid alone (never the length, so one captured decode
+    serves every position), no more blocks than one wave of
+    BLOCKS_PER_SM on each SM unless a split is the whole cache; at the
+    LM's decode shape (T = 1088, 64 blocks) 6 splits of 192 rows: 384
+    blocks on 132 SMs."""
+    rows, splits = fa.decode_split(T, blocks, 132)
+    assert rows % fa.SPLIT_ROWS == 0 and rows >= fa.SPLIT_ROWS
+    assert rows * (splits - 1) < T <= rows * splits <= T + rows
+    assert 1 <= splits <= 65535
+    assert blocks * splits <= fa.BLOCKS_PER_SM * 132 or splits == 1
+    if (T, blocks) == (1088, 64):
+        assert (rows, splits) == (192, 6)
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
@@ -310,7 +329,8 @@ def _block_tol(p, x, *, n_heads, n_kv, hd, positions, cache=None):
     relative to the block's magnitude (A @ |wo|, A the exact softmax weights
     applied to |v|), times the softmax's sensitivity to its scores
     (1 + 2 max|s|).  ``cache``: (k, v, length) of a decode step, attended
-    instead of the fresh keys, causally."""
+    instead of the fresh keys, causally; ``length <= 0`` masks every row
+    alike (uniform weights: the mean of v)."""
     xd = x.double()
     pd = {k: w.double() for k, w in p.items()}
     q, k, v = tattn.qkv_split(pd, xd, n_heads, n_kv, hd)
@@ -320,11 +340,14 @@ def _block_tol(p, x, *, n_heads, n_kv, hd, positions, cache=None):
     B, S = x.shape[:2]
     if cache is not None:
         k, v, length = cache
-        k, v = k[:, :length].double(), v[:, :length].double()
+        rows = slice(None) if length <= 0 else slice(0, length)
+        k, v = k[:, rows].double(), v[:, rows].double()
     T = k.shape[1]
     qg = q.reshape(B, S, n_kv, n_heads // n_kv, hd)
     s = torch.einsum("bskgd,btkd->bkgst", qg, k) / math.sqrt(hd)
-    if cache is None:
+    if cache is not None and cache[2] <= 0:
+        s = torch.zeros_like(s)
+    elif cache is None:
         s = s.masked_fill(positions[:, None] < torch.arange(T)[None, :],
                           -1e30)
     prob = torch.softmax(s, dim=-1)
@@ -415,6 +438,76 @@ def test_attention_block_with_cache_matches(attention):
                          positions=torch.tensor([t]),
                          cache=(cache["k"], cache["v"], t + 1))
         assert_within(got, want, tol, f"decode at {t}")
+
+
+BAND_CASES = {  # (cache_index, S) in an 8-row cache
+    "past_end": (8, 1),    # lax clamps to row 7
+    "negative": (-1, 1),   # lax wraps to row 7; the decode length is 0
+    "overhang": (6, 4),    # lax clamps to rows 4-7
+}
+
+
+@pytest.mark.parametrize("attention", ["flash", "plain"])
+@pytest.mark.parametrize("case", list(BAND_CASES))
+def test_kv_band_write_clamps_as_lax(case, attention):
+    """A band asked for past the cache, below 0 or overhanging its end lands
+    in the rows lax.dynamic_update_slice writes (band_start); every other
+    row of both caches stays bit for bit; the output matches JAX's block,
+    whose decode length is cache_index + S, unclamped (-1 + 1 = 0 masks
+    every row: the mean of v)."""
+    cache_index, S = BAND_CASES[case]
+    d, H, KV, hd, T = 48, 6, 2, 8, 8
+    jp = jattn.init_attention(jax.random.PRNGKey(9), d, H, KV, hd)[0]
+    tp = _port(jp)
+    rng = np.random.RandomState(10)
+    jx, x = _rand(rng, (2, S, d), "float32")
+    (jk, k0), (jv, v0) = (_rand(rng, (2, T, KV, hd), "float32")
+                          for _ in range(2))
+    kw = dict(n_heads=H, n_kv=KV, head_dim=hd)
+    want, jcache = jattn.attention_block(
+        jp, jx, jlayers.rope_freqs(hd), cache={"k": jk, "v": jv},
+        cache_index=cache_index, **kw)
+    cache = {"k": k0.clone(), "v": v0.clone()}
+    got, _ = tattn.attention_block(tp, x, tlayers.rope_freqs(hd),
+                                   cache=cache, cache_index=cache_index,
+                                   attention=attention, **kw)
+    start = tattn.band_start(cache_index, T, S)
+    outside = (torch.arange(T) < start) | (torch.arange(T) >= start + S)
+    for name, before in (("k", k0), ("v", v0)):
+        # JAX wrote exactly the band's rows, and the port nothing else
+        assert torch.equal(_t(jcache[name])[:, outside], before[:, outside])
+        assert torch.equal(cache[name][:, outside], before[:, outside])
+    wv = tp["wqkv"][:, (H + KV) * hd:].double().abs()
+    for r in range(S):
+        row = start + r
+        assert_within(cache["k"][:, row], jcache["k"][:, row],
+                      _band_tol(tp, x[:, r:r + 1], n_heads=H, n_kv=KV,
+                                hd=hd, position=abs(cache_index + r)),
+                      f"k band row {row}")
+        vtol = 2 * gamma(d) * (x[:, r].double().abs() @ wv)
+        assert_within(cache["v"][:, row], jcache["v"][:, row],
+                      vtol.reshape(-1, KV, hd), f"v band row {row}")
+    if S == 1:  # decode: the cache as written, to cache_index + 1 rows
+        tol = _block_tol(tp, x, n_heads=H, n_kv=KV, hd=hd,
+                         positions=torch.tensor([cache_index]),
+                         cache=(cache["k"], cache["v"], cache_index + 1))
+    else:  # prefill: causal within the fresh segment
+        tol = _block_tol(tp, x, n_heads=H, n_kv=KV, hd=hd,
+                         positions=torch.arange(S))
+    assert_within(got, want, tol, f"block at cache_index {cache_index}")
+
+
+@pytest.mark.parametrize("S", [1, 3, 8])
+def test_band_start_is_lax_dynamic_update_slice(S):
+    """band_start against where lax.dynamic_update_slice puts a band of S
+    ones in an 8-row zero cache, for every start from -2T to 2T."""
+    T = 8
+    for cache_index in range(-2 * T, 2 * T + 1):
+        out = np.asarray(jax.lax.dynamic_update_slice(
+            jnp.zeros(T), jnp.ones(S), (cache_index,)))
+        want = int(np.flatnonzero(out)[0])
+        assert tattn.band_start(cache_index, T, S) == want, cache_index
+        assert out.sum() == S
 
 
 def test_full_and_chunked_attention_match_jax():
