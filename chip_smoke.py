@@ -15,6 +15,11 @@ phases and fails on any mismatch:
    3.35 TB/s and f32 operations over 67 TFLOP/s; bf16 operations over 989
    TFLOP/s for the flash kernels) and, where one PyTorch
    call computes the same function, that call's device time;
+   tm_affine_block's path (vector, tile or scalar) and bytes per access are
+   logged on the timed transpose and on HWC -> CHW f32 and the int8
+   transpose at the same size, each bit-exact and timed beside its bound
+   and ``permute().contiguous()``; matmul_tm's plan (A stages by TMA or
+   cp.async, the tile BM x BN) beside its row;
 2. slice 1, per-instruction lowering: the paper's Table III operators as
    single-instruction ``TMProgram``s through ``TMExecutor(backend="cuda")``
    against ``backend="reference"``, bit-exact, with the expected ``cuda.*``
@@ -479,6 +484,12 @@ def matmul_tm_row(e: dict) -> dict:
     mag = _shuffle((patches.double().abs() @ w.double().abs())
                    .reshape(1, H, W, -1), s)[0]
     require_within(got, ref, 2 * gamma(K) * mag, "matmul_tm pixel shuffle")
+    M, N = patches.shape[0], w.shape[1]
+    flops = 2 * M * N * K
+    nbytes = (patches.numel() + w.numel() + got.numel()) * 4
+    plan = mk.mm_plan(M, K, N, patches.dtype, patches.data_ptr() % 16 == 0)
+    log(f"kernel matmul_tm plan: A stages by {plan.path}, tiles BM {plan.BM} "
+        f"x BN {plan.BN} for ({M}, {K}) x ({K}, {N}) f32")
     # the identity and transposed epilogues at the same product
     for mode in ("identity", "transpose"):
         g = mk.matmul_tm(patches, w, mk.Epilogue(mode))
@@ -488,10 +499,8 @@ def matmul_tm_row(e: dict) -> dict:
                        f"matmul_tm {mode}")
         ms = graph_ms(lambda: mk.matmul_tm(patches, w, mk.Epilogue(mode)),
                       iters=10)
-        log(f"kernel matmul_tm {mode} epilogue: {ms:.4f} ms device")
-    M, N = patches.shape[0], w.shape[1]
-    flops = 2 * M * N * K
-    nbytes = (patches.numel() + w.numel() + got.numel()) * 4
+        log(f"kernel matmul_tm {mode} epilogue: {ms:.4f} ms device, bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} (bytes)")
     return dict(
         name="matmul_tm", route="cuda",
         source="src/repro_torch/csrc/matmul_tm.cu",
@@ -590,6 +599,35 @@ def xchain_prologue_row(dev, gen) -> dict:
               "-> head2 1x1 conv (1, 1, 256, 255) f32")
 
 
+def block_maps_log(x: torch.Tensor, m, plan, gen) -> None:
+    """tm_affine_block's path and bytes per access on the timed transpose,
+    and two more maps of the Table III size, each bit-exact against its
+    plain version and timed beside its byte bound and one
+    ``permute(...).contiguous()``: HWC -> CHW in f32 (the tile path) and
+    the transpose in int8 (16-byte vectors of 16 elements)."""
+    from repro_torch.core import affine as af
+    from repro_torch.kernels.tm_affine import tm_affine as ta
+
+    xi = torch.randint(-128, 128, TABLE3, generator=gen,
+                       dtype=torch.int8).to(x.device)
+    chw = af.axis_permutation_map(TABLE3, (2, 0, 1))
+    cases = (("transpose f32", x, m, plan),
+             ("HWC->CHW f32", x, chw, ta.analyze_block_mode(chw)),
+             ("transpose int8", xi, m, plan))
+    for name, xx, mm, pl in cases:
+        regs = ta._block_regs(mm, pl, xx.dtype, xx.device)
+        got = ta.tm_affine_block(xx, mm, pl)
+        require_equal(got, ta.block_plain(xx, mm, pl),
+                      f"tm_affine_block {name}")
+        ms = graph_ms(lambda: ta.tm_affine_block(xx, mm, pl))
+        lib = graph_ms(lambda: xx.permute(*pl.src_axis).contiguous())
+        bound = 2 * xx.numel() * xx.element_size() / HBM_BYTES_PER_S * 1e3
+        log(f"kernel tm_affine_block {name} {TABLE3}: path {regs.path}, "
+            f"{regs.vbytes} B per access; {ms:.4f} ms device, bound "
+            f"{bound:.4f} ({ms / bound:.2f}x), permute().contiguous() "
+            f"{lib:.4f}")
+
+
 def kernel_phase(dev, gen, espcn: dict) -> list[dict]:
     from repro_torch.core import affine as af
     from repro_torch.core.engine import gather_indices
@@ -607,6 +645,7 @@ def kernel_phase(dev, gen, espcn: dict) -> list[dict]:
     ref = ta.block_plain(x, m, plan)
     require_equal(got, ref, "tm_affine_block")
     nbytes = 2 * x.numel() * f32
+    block_maps_log(x, m, plan, gen)
     rows.append(dict(
         name="tm_affine_block", route="cuda",
         source="src/repro_torch/csrc/tm_affine.cu",

@@ -10,10 +10,30 @@
 //
 // Bound on an H100: both kernels only move data, so the bound is the bytes
 // they must move (input read once, epilogue operand read once, output
-// written once) over HBM bandwidth (3.35 TB/s).
+// written once) over HBM bandwidth (3.35 TB/s).  What stands between a
+// kernel and that bound is the work per byte (index arithmetic, one access
+// per element) and uncoalesced accesses.
 //
-// Design against that bound: one thread per output element in a grid-stride
-// loop, so consecutive threads write consecutive output elements (coalesced
+// Block mode: the host decodes the map once (kernels/tm_affine/
+// tm_affine.py: _block_regs, cached per map and dtype) and picks one of
+// three paths, written into the register table beside the map:
+//   * vector — the innermost output axis reads the source's innermost axis
+//     forward (transpose, rot90, split and Add of HWC maps, which keep C
+//     innermost).  Each output row is then one contiguous source run, so
+//     the kernel moves V bytes per access (V the largest power of two <= 16
+//     that divides the run, the base and every other coefficient in bytes:
+//     every vector is aligned), runs the index arithmetic once per vector,
+//     and keeps four vectors in flight per thread;
+//   * tile — the innermost output axis reads with a stride (HWC -> CHW, a
+//     4-d permutation): a 32 x 64 tile of (the output axis that reads the
+//     source's innermost axis, the innermost output axis) is read in the
+//     source's order into padded shared memory and written in the output's
+//     order, so both sides coalesce, 8 loads in flight per thread;
+//   * scalar — what neither takes (a reversed innermost axis, 64-bit
+//     maps): one thread per output element in a grid-stride loop.
+//
+// Gather mode: one thread per output element in a grid-stride loop, so
+// consecutive threads write consecutive output elements (coalesced
 // stores).  Each thread computes its source address from the map itself,
 // the TMU's own address generator: the block kernel from per-axis signed
 // strides, the gather kernel from the mixed-radix digit splits and the
@@ -36,8 +56,7 @@
 //   * on the 32-bit path each thread carries four outputs at once: one
 //     load of each register serves all four, and their four independent
 //     chains of shared-memory loads hide each other's latency.
-// Reads follow the map and are not coalesced for transposes; tiling through
-// shared memory is later work.
+// The gather's reads follow the map and coalesce only where it does.
 //
 // Element types: int8, int32, bf16, f32.  EW epilogue: add, sub, mul, max.
 // Integer arithmetic wraps (computed in unsigned), bf16 goes through f32 and
@@ -147,11 +166,23 @@ __device__ __forceinline__ S floordiv(S a, S b) {
 //
 // regs: [0] ndim  [1] base  [2 + d] out_shape  [14 + d] coef
 //       [26 + d] magic of out_shape[d]  [38 + d] its shifts (sh1 | sh2 << 8)
+//       [50] the host's path (0 scalar, 1 vector, 2 tile)  [51] V, the
+//       bytes each access moves
+//       vector path: [52 + k] words 0-49 again, in units of V bytes
+//       tile path: [52] p  [53] tiles along p  [54] its magic  [55] its
+//       shifts  [56] tiles along the innermost axis  [57] its magic  [58]
+//       its shifts
 // The source flat index of output coordinate o is base + sum_d coef[d]·o[d]
-// (coef[d] = sign[d] * in_stride[src_axis[d]]).
+// (coef[d] = sign[d] * in_stride[src_axis[d]]).  The scalar path
+// (block_kernel) takes any map, 32- or 64-bit; the vector and tile paths
+// only 32-bit ones.
 // ---------------------------------------------------------------------------
 
 constexpr int kBlockRegs = 2 + 4 * kMaxAxes;
+constexpr int kVecTable = kBlockRegs + 2;
+constexpr int kTileWords = kBlockRegs + 2;
+constexpr int kBlockTable = kVecTable + kBlockRegs;
+enum BlockPath { kScalar = 0, kVector = 1, kTiled = 2 };
 
 template <typename T, int EW, bool Narrow>
 __global__ void __launch_bounds__(kBlockThreads)
@@ -187,6 +218,182 @@ block_kernel(const T* __restrict__ x, const T* __restrict__ y,
   }
 }
 
+// ---------------------------------------------------------------------------
+// block mode, vector path: the innermost output axis reads the source's
+// innermost axis forward (coef +1), so every output row is one contiguous
+// source run.  The host's table at kVecTable is the block table in units of
+// V bytes (V divides the run, the base and every other coefficient, so
+// every vector of x, y and out is aligned): the kernel is block_kernel's
+// over V-byte elements, with the index arithmetic once per vector and
+// kVecPer vectors in flight per thread.
+// ---------------------------------------------------------------------------
+
+template <int VB> struct VecOf;
+template <> struct VecOf<2> { using type = uint16_t; };
+template <> struct VecOf<4> { using type = uint32_t; };
+template <> struct VecOf<8> { using type = uint2; };
+template <> struct VecOf<16> { using type = uint4; };
+
+// the EW epilogue on each element of a vector
+template <typename T, int EW, typename V>
+__device__ __forceinline__ V apply_ew_vec(V a, V b) {
+  constexpr int n = sizeof(V) / sizeof(T);
+  T ea[n], eb[n];
+  memcpy(ea, &a, sizeof(V));
+  memcpy(eb, &b, sizeof(V));
+#pragma unroll
+  for (int i = 0; i < n; ++i) ea[i] = apply_ew<T, EW>(ea[i], eb[i]);
+  memcpy(&a, ea, sizeof(V));
+  return a;
+}
+
+constexpr int kVecPer = 4;
+
+template <typename T, int EW, int VB>
+__global__ void __launch_bounds__(kBlockThreads)
+vector_kernel(const typename VecOf<VB>::type* __restrict__ x,
+              const typename VecOf<VB>::type* __restrict__ y,
+              typename VecOf<VB>::type* __restrict__ out,
+              const int64_t* __restrict__ regs, int64_t n_vec) {
+  using V = typename VecOf<VB>::type;
+  using U = uint32_t;
+  using S = int32_t;
+  __shared__ int64_t s_regs[kBlockRegs];
+  for (int k = threadIdx.x; k < kBlockRegs; k += blockDim.x) {
+    s_regs[k] = regs[kVecTable + k];
+  }
+  __syncthreads();
+  const int ndim = static_cast<int>(s_regs[0]);
+  const S base = static_cast<S>(s_regs[1]);
+  const int64_t* shape = s_regs + 2;
+  const int64_t* coef = s_regs + 2 + kMaxAxes;
+  const int64_t* magic = s_regs + 2 + 2 * kMaxAxes;
+  const int64_t* shifts = s_regs + 2 + 3 * kMaxAxes;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x * kVecPer;
+  for (int64_t i0 = static_cast<int64_t>(blockIdx.x) * blockDim.x * kVecPer +
+                    threadIdx.x;
+       i0 < n_vec; i0 += step) {
+    V v[kVecPer];
+#pragma unroll
+    for (int u = 0; u < kVecPer; ++u) {
+      const int64_t i = i0 + u * blockDim.x;
+      if (i >= n_vec) continue;
+      U rem = static_cast<U>(i);
+      S src = base;
+      for (int d = ndim - 1; d > 0; --d) {
+        const U q = Index<true>::div(rem, shape[d], magic[d], shifts[d]);
+        src += static_cast<S>(rem - q * static_cast<U>(shape[d])) *
+               static_cast<S>(coef[d]);
+        rem = q;
+      }
+      src += static_cast<S>(rem) * static_cast<S>(coef[0]);
+      v[u] = x[src];
+    }
+#pragma unroll
+    for (int u = 0; u < kVecPer; ++u) {
+      const int64_t i = i0 + u * blockDim.x;
+      if (i >= n_vec) continue;
+      V o = v[u];
+      if constexpr (EW != kNone) o = apply_ew_vec<T, EW>(o, y[i]);
+      out[i] = o;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// block mode, tile path: the innermost output axis reads with a stride
+// (HWC -> CHW, a 4-d permutation), and output axis p reads the source's
+// innermost axis forward.  A kTileP x kTileL tile of (p, innermost) is
+// read along p (the source's order) into padded shared memory and written
+// along the innermost axis (the output's order): both sides coalesced, 8
+// loads in flight per thread.
+// Words at kTileWords: p, the tiles along p (its magic, its shifts), the
+// tiles along the innermost axis (its magic, its shifts).  A tile's index
+// is ((outer) tiles_p + tp) tiles_last + tl, outer the row-major index of
+// the other output axes.
+// ---------------------------------------------------------------------------
+
+constexpr int kTileP = 32;  // tile extent along p: the lanes of a read
+constexpr int kTileL = 64;  // along the innermost axis: two lanes' worth
+constexpr int kTileRows = kBlockThreads / 32;  // 8
+
+template <typename T, int EW>
+__global__ void __launch_bounds__(kBlockThreads)
+tile_kernel(const T* __restrict__ x, const T* __restrict__ y,
+            T* __restrict__ out, const int64_t* __restrict__ regs,
+            int64_t n_tiles) {
+  using U = uint32_t;
+  using S = int32_t;
+  __shared__ int64_t s_regs[kBlockTable];
+  __shared__ T tile[kTileL][kTileP + 1];
+  for (int k = threadIdx.x; k < kBlockTable; k += blockDim.x) {
+    s_regs[k] = regs[k];
+  }
+  __syncthreads();
+  const int ndim = static_cast<int>(s_regs[0]);
+  const S base = static_cast<S>(s_regs[1]);
+  const int64_t* shape = s_regs + 2;
+  const int64_t* coef = s_regs + 2 + kMaxAxes;
+  const int64_t* magic = s_regs + 2 + 2 * kMaxAxes;
+  const int64_t* shifts = s_regs + 2 + 3 * kMaxAxes;
+  const int64_t* tw = s_regs + kTileWords;
+  const int p = static_cast<int>(tw[0]);
+  const int last = ndim - 1;
+  const S size_p = static_cast<S>(shape[p]);
+  const S size_l = static_cast<S>(shape[last]);
+  const S coef_l = static_cast<S>(coef[last]);
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int64_t tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
+    U rem = static_cast<U>(tile_i);
+    U q = Index<true>::div(rem, tw[4], tw[5], tw[6]);
+    const S l0 = static_cast<S>(rem - q * static_cast<U>(tw[4])) * kTileL;
+    rem = q;
+    q = Index<true>::div(rem, tw[1], tw[2], tw[3]);
+    const S p0 = static_cast<S>(rem - q * static_cast<U>(tw[1])) * kTileP;
+    rem = q;
+    // the other axes: their source offsets, and the output's row-major
+    // strides (stride_p for p)
+    S src = base + p0 + l0 * coef_l, dst = l0, stride = size_l;
+    S stride_p = 0;
+    for (int d = last - 1; d >= 0; --d) {
+      if (d == p) {
+        stride_p = stride;
+      } else {
+        q = Index<true>::div(rem, shape[d], magic[d], shifts[d]);
+        const S od = static_cast<S>(rem - q * static_cast<U>(shape[d]));
+        rem = q;
+        src += od * static_cast<S>(coef[d]);
+        dst += od * stride;
+      }
+      stride *= static_cast<S>(shape[d]);
+    }
+    dst += p0 * stride_p;
+    // read along p (lanes), 8 rows of the innermost axis per pass
+#pragma unroll
+    for (int i = 0; i < kTileL / kTileRows; ++i) {
+      const int li = ty + i * kTileRows;
+      if (p0 + tx < size_p && l0 + li < size_l) {
+        tile[li][tx] = x[src + tx + li * coef_l];
+      }
+    }
+    __syncthreads();
+    // write along the innermost axis (lanes, two halves of 32)
+#pragma unroll
+    for (int i = 0; i < kTileP / kTileRows; ++i) {
+#pragma unroll
+      for (int h = 0; h < kTileL / 32; ++h) {
+        const int pi = ty + i * kTileRows, li = tx + 32 * h;
+        if (p0 + pi < size_p && l0 + li < size_l) {
+          const S o = dst + pi * stride_p + li;
+          T v = tile[li][pi];
+          if constexpr (EW != kNone) v = apply_ew<T, EW>(v, y[o]);
+          out[o] = v;
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
 // ---------------------------------------------------------------------------
 // gather mode
 //
@@ -438,12 +645,93 @@ int launch(const void* x, const void* y, void* out, const void* regs,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// the vector and tile paths of block mode (32-bit index arithmetic only)
+template <typename T, int EW>
+int launch_block_path(int path, int vb, const void* x, const void* y,
+                      void* out, const void* regs, int64_t units,
+                      cudaStream_t stream) {
+  const int64_t* rt = static_cast<const int64_t*>(regs);
+  if (path == kTiled) {
+    const int64_t cap = 132 * 8;
+    tile_kernel<T, EW><<<static_cast<unsigned>(units < cap ? units : cap),
+                         kBlockThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(y),
+        static_cast<T*>(out), rt, units);
+    return 0;
+  }
+  const unsigned grid = grid_for((units + kVecPer - 1) / kVecPer,
+                                 kBlockThreads);
+#define VEC_CASE(b)                                                        \
+  case b:                                                                  \
+    if constexpr (static_cast<size_t>(b) >= 2 * sizeof(T)) {              \
+      using V = typename VecOf<b>::type;                                   \
+      vector_kernel<T, EW, b><<<grid, kBlockThreads, 0, stream>>>(         \
+          static_cast<const V*>(x), static_cast<const V*>(y),              \
+          static_cast<V*>(out), rt, units);                                \
+      return 0;                                                            \
+    }                                                                      \
+    break;
+  switch (vb) {
+    VEC_CASE(2) VEC_CASE(4) VEC_CASE(8) VEC_CASE(16)
+    default: break;
+  }
+#undef VEC_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int block_path_ew(int ew, int path, int vb, const void* x, const void* y,
+                  void* out, const void* regs, int64_t units,
+                  cudaStream_t s) {
+  switch (ew) {
+    case kNone: return launch_block_path<T, kNone>(path, vb, x, y, out, regs, units, s);
+    case kAdd: return launch_block_path<T, kAdd>(path, vb, x, y, out, regs, units, s);
+    case kSub: return launch_block_path<T, kSub>(path, vb, x, y, out, regs, units, s);
+    case kMul: return launch_block_path<T, kMul>(path, vb, x, y, out, regs, units, s);
+    case kMax: return launch_block_path<T, kMax>(path, vb, x, y, out, regs, units, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int block_path(int dtype, int ew, int path, int vb, const void* x,
+               const void* y, void* out, const void* regs, int64_t units,
+               cudaStream_t s) {
+  switch (dtype) {
+    case kInt8: return block_path_ew<int8_t>(ew, path, vb, x, y, out, regs, units, s);
+    case kInt32: return block_path_ew<int32_t>(ew, path, vb, x, y, out, regs, units, s);
+    case kBf16: return block_path_ew<__nv_bfloat16>(ew, path, vb, x, y, out, regs, units, s);
+    case kF32: return block_path_ew<float>(ew, path, vb, x, y, out, regs, units, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
+// Block mode over the host's path (regs [50]): kScalar runs block_kernel
+// over numel elements; kVector runs vector_kernel over `units` vectors of
+// `vbytes` bytes (x, y and out aligned to it); kTiled runs tile_kernel over
+// `units` tiles.  The vector and tile paths need the 32-bit arithmetic.
 extern "C" int tm_affine_block(const void* x, const void* y, void* out,
                                const void* regs, int dtype, int ew,
-                               int64_t numel, int narrow, void* stream) {
-  return launch<false>(x, y, out, regs, dtype, ew, numel, narrow, 0, stream);
+                               int64_t numel, int narrow, int path,
+                               int vbytes, int64_t units, void* stream) {
+  if (path == kScalar) {
+    return launch<false>(x, y, out, regs, dtype, ew, numel, narrow, 0,
+                         stream);
+  }
+  const uintptr_t any = reinterpret_cast<uintptr_t>(x) |
+                        reinterpret_cast<uintptr_t>(y) |
+                        reinterpret_cast<uintptr_t>(out);
+  if (numel <= 0 || units <= 0 || !narrow ||
+      (path != kVector && path != kTiled) ||
+      (path == kVector && (vbytes <= 0 || any % vbytes != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rc = block_path(dtype, ew, path, vbytes, x, y, out, regs, units,
+                            static_cast<cudaStream_t>(stream));
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int tm_affine_gather(const void* x, const void* y, void* out,

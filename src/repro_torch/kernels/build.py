@@ -10,7 +10,7 @@ unchanged one loads.  :func:`build`
 starts one ``nvcc`` per missing library, all at once.
 
 Only cudart is linked (nvcc's default): the TMA tensor maps of
-``flash_attention.cu`` get ``cuTensorMapEncodeTiled`` through
+``flash_attention.cu`` and ``matmul_tm.cu`` get ``cuTensorMapEncodeTiled`` through
 ``cudaGetDriverEntryPoint``, so no library links ``libcuda``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -31,15 +31,18 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# --split-compile=0: optimise a source's kernels on every core (matmul_tm.cu
+# instantiates its product for 8 tile widths x 4 dtypes)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I64, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
 _U64, _F = ctypes.c_uint64, ctypes.c_float
 # argtypes of every C entry point, per source file
 SIGNATURES: dict[str, dict[str, list]] = {
     "tm_affine": {
-        "tm_affine_block": [_P, _P, _P, _P, _I, _I, _I64, _I, _P],
+        "tm_affine_block": [_P, _P, _P, _P, _I, _I, _I64, _I, _I, _I, _I64,
+                            _P],
         "tm_affine_gather": [_P, _P, _P, _P, _I, _I, _I64, _I, _I, _P],
     },
     "tm_chain": {
@@ -63,7 +66,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
     },
     "matmul_tm": {
         "matmul_tm": [_P, _P, _P, _I, _I64, _I64, _I64, _I64, _I64, _I,
-                      _I64, _I64, _I64, _I64, _P],
+                      _I64, _I64, _I64, _I64, _I, _I, _P],
         "xchain_commit": [_P, _P, _P, _P, _P, _I, _I64, _I, _I, _P],
         "xchain_prologue": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },

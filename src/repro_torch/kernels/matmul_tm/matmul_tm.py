@@ -8,13 +8,16 @@ in-tile transform: transpose, pixel shuffle, a split band), so the
 manipulation completes the moment the product does, with no extra round
 trip through device memory.
 
-One hand-written CUDA kernel (``csrc/matmul_tm.cu``, ``matmul_tm``) beside
-its plain PyTorch version :func:`matmul_tm_plain`; the wrapper
-:func:`matmul_tm` runs the plain version for a CPU tensor and the kernel for
-a CUDA tensor, and ``matmul_tm.launches`` counts kernel launches.  Both
-accumulate in f32 (integers: the exact sum, wrapped to the element type)
-and round once to x's dtype, as the JAX package's ``_mm_kernel`` casts its
-f32 accumulator at commit.
+One hand-written CUDA kernel (``csrc/matmul_tm.cu``, ``mm_tm_kernel``: a
+streamed tall-skinny product, A through a ring of shared-memory stages fed
+by TMA or cp.async, B resident in shared memory, the store staged in the
+destination's order) beside its plain PyTorch version
+:func:`matmul_tm_plain`; the wrapper :func:`matmul_tm` runs the plain
+version for a CPU tensor and the kernel for a CUDA tensor, with the plan
+:func:`mm_plan` picks, and ``matmul_tm.launches`` counts kernel launches.
+Both accumulate in f32 (integers: the exact sum, wrapped to the element
+type) and round once to x's dtype, as the JAX package's ``_mm_kernel``
+casts its f32 accumulator at commit.
 """
 
 from __future__ import annotations
@@ -27,6 +30,33 @@ from repro_torch.kernels import build
 from repro_torch.kernels.tm_affine.tm_affine import DTYPE_CODES
 
 MODES = {"identity": 0, "transpose": 1, "pixel_shuffle": 2}
+PATHS = {"tma": 0, "cp.async": 1}  # how the kernel's A stages are filled
+MM_BM = 512     # rows of the kernel's output tile (csrc/matmul_tm.cu kMmBM)
+MM_MAX_BN = 32  # widest column tile
+
+
+@dataclasses.dataclass(frozen=True)
+class MmPlan:
+    """The kernel's launch plan: ``path`` fills the A stages (``tma``, or
+    ``cp.async`` where TMA cannot take the rows), output tiles of ``BM``
+    rows by ``BN`` columns."""
+
+    path: str
+    BM: int
+    BN: int
+
+
+def mm_plan(M: int, K: int, N: int, dtype: torch.dtype,
+            x_aligned: bool = True) -> MmPlan:
+    """TMA where x's row pitch ``K · itemsize`` is a multiple of 16 bytes
+    (and x is 16-byte aligned), as a tensor map requires; ``cp.async``
+    otherwise.  ``BN`` is N rounded up to a multiple of 4 when N <= 32, so
+    a narrow product spends no FMA on padding; wider products take column
+    tiles of 32 (each thread holds 8 rows x BN / 2 columns)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    tma = K >= 1 and (K * itemsize) % 16 == 0 and x_aligned
+    BN = -(-N // 4) * 4 if N <= MM_MAX_BN else MM_MAX_BN
+    return MmPlan("tma" if tma else "cp.async", MM_BM, BN)
 
 
 def block_div(n: int, b: int) -> int:
@@ -133,9 +163,11 @@ def matmul_tm(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty(ep.out_shape(M, ncols), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    plan = mm_plan(M, K, ncols, x.dtype, x.data_ptr() % 16 == 0)
     rc = lib.matmul_tm(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                        DTYPE_CODES[x.dtype], M, ncols, K, w.shape[1],
                        ep.col0, MODES[ep.mode], ep.H, ep.W, ep.C, ep.s,
+                       PATHS[plan.path], plan.BN,
                        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "matmul_tm")
     matmul_tm.launches += 1

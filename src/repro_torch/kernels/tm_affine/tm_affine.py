@@ -205,10 +205,10 @@ def _check_launch(name: str, x: torch.Tensor, m: MixedRadixMap,
 
 
 def _launch(wrapper, x: torch.Tensor, m: MixedRadixMap,
-            regs: Callable[[], tuple[torch.Tensor, bool]],
-            y: torch.Tensor | None, ew: str | None,
-            *extra: int) -> torch.Tensor:
-    """Launch ``wrapper``'s kernel with the register file ``regs()`` and add
+            regs: Callable[[], tuple[torch.Tensor, bool, tuple[int, ...]]],
+            y: torch.Tensor | None, ew: str | None) -> torch.Tensor:
+    """Launch ``wrapper``'s kernel with the register file, the 32-bit flag
+    and the entry point's further arguments that ``regs()`` gives, and add
     one to ``wrapper.launches``.  An empty output launches nothing and
     counts nothing."""
     out = torch.empty(m.out_shape, dtype=x.dtype, device=x.device)
@@ -217,7 +217,7 @@ def _launch(wrapper, x: torch.Tensor, m: MixedRadixMap,
         return out
     name = wrapper.__name__
     fn = getattr(build.library("tm_affine"), name)
-    table, narrow = regs()
+    table, narrow, extra = regs()
     rc = fn(x.data_ptr(), None if y is None else y.data_ptr(), out.data_ptr(),
             table.data_ptr(), DTYPE_CODES[x.dtype], EW_CODES[ew], n,
             int(narrow), *extra,
@@ -259,26 +259,117 @@ def _magic(d: int) -> tuple[int, int]:
     return m, min(ell, 1) | (max(ell - 1, 0) << 8)
 
 
-@functools.lru_cache(maxsize=512)
-def _block_regs(m: MixedRadixMap, plan: BlockPlan,
-                device: torch.device) -> tuple[torch.Tensor, bool]:
-    """The block kernel's register file (layout in csrc/tm_affine.cu):
-    source flat index = base + sum_d coef[d]·out[d]; and whether every
-    partial sum fits the 32-bit path."""
-    in_strides = row_major_strides(m.in_shape)
-    regs = [0] * (2 + 4 * MAX_AXES)
-    regs[0] = len(m.out_shape)
-    regs[1] = sum(off * in_strides[a] for off, a in zip(plan.offset,
-                                                        plan.src_axis))
-    reach = abs(regs[1])
-    for d, (size, s, a) in enumerate(zip(m.out_shape, plan.sign,
-                                         plan.src_axis)):
+BLOCK_PATHS = {"scalar": 0, "vector": 1, "tile": 2}
+BLOCK_WORDS = 2 + 4 * MAX_AXES  # the map's words of the block table
+TILE_P, TILE_L = 32, 64  # the tile path's tile (csrc/tm_affine.cu kTileP/L)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockRegs:
+    """The block kernel's register table and its launch: ``path`` and
+    ``vbytes`` (the bytes each access moves) as the table's words 50-51
+    hold them, and ``units`` (elements, vectors or tiles) of work."""
+
+    table: torch.Tensor
+    narrow: bool
+    path: str
+    vbytes: int
+    units: int
+
+
+def _map_words(base: int, shape, coef) -> list[int]:
+    """Words 0-49 of the table (layout in csrc/tm_affine.cu): source flat
+    index = base + sum_d coef[d]·out[d], and each extent's magic number."""
+    regs = [0] * BLOCK_WORDS
+    regs[0], regs[1] = len(shape), base
+    for d, (size, c) in enumerate(zip(shape, coef)):
         regs[2 + d] = size
-        regs[2 + MAX_AXES + d] = s * in_strides[a]
+        regs[2 + MAX_AXES + d] = c
         regs[2 + 2 * MAX_AXES + d], regs[2 + 3 * MAX_AXES + d] = _magic(size)
-        reach += abs(s * in_strides[a]) * (size - 1)
-    narrow = math.prod(m.out_shape) < _NARROW and reach < _NARROW
-    return torch.tensor(regs, dtype=torch.int64, device=device), narrow
+    return regs
+
+
+def block_path(shape: tuple[int, ...], coef: tuple[int, ...], base: int,
+               itemsize: int, narrow: bool) -> tuple[str, int]:
+    """The block kernel's path and bytes per access for the map
+    ``base + sum_d coef[d]·out[d]`` over ``shape`` (32-bit maps only take
+    the vector and tile paths):
+
+    * ``vector`` where the innermost output axis reads with coefficient +1
+      (each output row one contiguous source run), at the largest power of
+      two V <= 16 bytes dividing the run, the base and every other
+      coefficient in bytes, when V holds at least two elements;
+    * ``tile`` where the innermost output axis reads with a stride other
+      than ±1 and another output axis reads with coefficient +1;
+    * ``scalar`` otherwise (a reversed innermost axis, 64-bit maps)."""
+    if not narrow or not shape:
+        return "scalar", itemsize
+    if coef[-1] == 1:
+        v = 16
+        for b in (shape[-1], base, *coef[:-1]):
+            while (b * itemsize) % v:
+                v //= 2
+        return ("vector", v) if v >= 2 * itemsize else ("scalar", itemsize)
+    if abs(coef[-1]) != 1 and shape[-1] > 1 and _tile_axis(shape, coef) >= 0:
+        return "tile", itemsize
+    return "scalar", itemsize
+
+
+def _tile_axis(shape, coef) -> int:
+    """The output axis (not the innermost) that reads the source's
+    innermost axis forward, or -1."""
+    for d in range(len(shape) - 1):
+        if coef[d] == 1 and shape[d] > 1:
+            return d
+    return -1
+
+
+@functools.lru_cache(maxsize=512)
+def _block_regs(m: MixedRadixMap, plan: BlockPlan, dtype: torch.dtype,
+                device: torch.device) -> BlockRegs:
+    """The block kernel's register table (layout in csrc/tm_affine.cu):
+    the map's words (source flat index = base + sum_d coef[d]·out[d]), the
+    path and bytes per access :func:`block_path` picks for ``dtype``, and
+    the path's own words; and whether every partial sum fits the 32-bit
+    path."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    in_strides = row_major_strides(m.in_shape)
+    shape = tuple(m.out_shape)
+    coef = tuple(s * in_strides[a] for s, a in zip(plan.sign, plan.src_axis))
+    base = sum(off * in_strides[a] for off, a in zip(plan.offset,
+                                                     plan.src_axis))
+    reach = abs(base) + sum(abs(c) * (n - 1) for c, n in zip(coef, shape))
+    numel = math.prod(shape)
+    narrow = numel < _NARROW and reach < _NARROW
+    path, vbytes = block_path(shape, coef, base, itemsize, narrow)
+    extra = [0] * (2 + BLOCK_WORDS)
+    extra[0], extra[1] = BLOCK_PATHS[path], vbytes
+    units = numel
+    if path == "vector":  # the same map over V-byte elements
+        ve = vbytes // itemsize
+        extra[2:] = _map_words(base // ve, shape[:-1] + (shape[-1] // ve,),
+                               tuple(c // ve for c in coef[:-1]) + (1,))
+        units = numel // ve
+    elif path == "tile":
+        p = _tile_axis(shape, coef)
+        tp, tl = -(-shape[p] // TILE_P), -(-shape[-1] // TILE_L)
+        extra[2:9] = [p, tp, *_magic(tp), tl, *_magic(tl)]
+        units = numel // (shape[p] * shape[-1]) * tp * tl
+    table = torch.tensor(_map_words(base, shape, coef) + extra,
+                         dtype=torch.int64, device=device)
+    return BlockRegs(table, narrow, path, vbytes, units)
+
+
+def _block_launch(m: MixedRadixMap, plan: BlockPlan, x: torch.Tensor,
+                  y: torch.Tensor | None):
+    """The table and the entry point's (path, vbytes, units); a vector path
+    whose x or y is not aligned to V runs the scalar path instead."""
+    r = _block_regs(m, plan, x.dtype, x.device)
+    path, vbytes, units = r.path, r.vbytes, r.units
+    if path == "vector" and any(t is not None and t.data_ptr() % vbytes
+                                for t in (x, y)):
+        path, vbytes, units = "scalar", x.element_size(), math.prod(m.out_shape)
+    return r.table, r.narrow, (BLOCK_PATHS[path], vbytes, units)
 
 
 def tm_affine_block(x: torch.Tensor, m: MixedRadixMap, plan: BlockPlan, *,
@@ -286,13 +377,14 @@ def tm_affine_block(x: torch.Tensor, m: MixedRadixMap, plan: BlockPlan, *,
                     ew: str | None = None) -> torch.Tensor:
     """Block-mode map ``m`` (decoded into ``plan``) with an optional fused
     element-wise epilogue ``ew(map(x), y)``.  CPU tensor: the plain
-    version; CUDA tensor: the kernel, or an exception."""
+    version; CUDA tensor: the kernel (its vector, tile or scalar path), or
+    an exception."""
     if x.device.type == "cpu":
         return block_plain(x, m, plan, y=y, ew=ew)
     build.library("tm_affine")  # a kernel that cannot be built raises here
     _check_launch("tm_affine_block", x, m, y, ew)
     return _launch(tm_affine_block, x, m,
-                   functools.partial(_block_regs, m, plan, x.device), y, ew)
+                   functools.partial(_block_launch, m, plan, x, y), y, ew)
 
 
 tm_affine_block.launches = 0
@@ -407,9 +499,10 @@ def tm_affine_gather(x: torch.Tensor, m: MixedRadixMap, *,
         return gather_plain(x, m, y=y, ew=ew)
     build.library("tm_affine")  # a kernel that cannot be built raises here
     _check_launch("tm_affine_gather", x, m, y, ew)
+    n_digits = len(m.out_shape) + len(m.splits)
     return _launch(tm_affine_gather, x, m,
-                   functools.partial(_gather_regs, m, x.dtype, x.device),
-                   y, ew, len(m.out_shape) + len(m.splits))
+                   lambda: (*_gather_regs(m, x.dtype, x.device), (n_digits,)),
+                   y, ew)
 
 
 tm_affine_gather.launches = 0

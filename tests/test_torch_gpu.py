@@ -89,6 +89,62 @@ def test_block_kernel_matches_plain_on_card(cuda, name):
             assert torch.equal(got, ref), (name, dtype, ew)
 
 
+# maps that take each path of the block kernel: (map, dtypes, path)
+BLOCK_PATH_CASES = {
+    # a band at an offset of 3 channels: V of 4 bytes in f32 is one element
+    "misaligned_band": (af.split_map((6, 10, 6), 2, 1), DTYPES, None),
+    # a band of 2 channels at an offset of 2: vectors of two elements
+    "narrow_vector": (af.split_map((6, 10, 8), 4, 1), DTYPES, "vector"),
+    # int8 rows of 3 bytes: one element per access
+    "int8_runs_of_3": (af.transpose_map((12, 20, 3)), (torch.int8,),
+                       "scalar"),
+    "int8_transpose": (af.transpose_map((12, 20, 64)), (torch.int8,),
+                       "vector"),
+    "hwc_to_chw": (af.axis_permutation_map((64, 96, 48), (2, 0, 1)), DTYPES,
+                   "tile"),
+    "chw_to_hwc_ragged": (af.axis_permutation_map((5, 33, 70), (1, 2, 0)),
+                          DTYPES, "tile"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(BLOCK_PATH_CASES))
+def test_block_kernel_paths_on_card(cuda, name):
+    rng = np.random.RandomState(6)
+    m, dtypes, path = BLOCK_PATH_CASES[name]
+    plan = ta.analyze_block_mode(m)
+    for dtype in dtypes:
+        regs = ta._block_regs(m, plan, dtype, cuda)
+        assert path is None or regs.path == path, (name, dtype, regs.path)
+        for ew in EW_OPS:
+            x = _rand(rng, m.in_shape, dtype, cuda)
+            y = None if ew is None else _rand(rng, m.out_shape, dtype, cuda)
+            before = ta.tm_affine_block.launches
+            got = ta.tm_affine_block(x, m, plan, y=y, ew=ew)
+            ref = ta.block_plain(x, m, plan, y=y, ew=ew)
+            torch.cuda.synchronize()
+            assert ta.tm_affine_block.launches == before + 1
+            assert torch.equal(got, ref), (name, dtype, ew)
+
+
+@pytest.mark.gpu
+def test_block_vector_path_on_misaligned_operands_on_card(cuda):
+    """An x (or y) off the vector width runs the scalar path, bit-exact."""
+    rng = np.random.RandomState(7)
+    m = af.transpose_map((8, 12, 16))
+    plan = ta.analyze_block_mode(m)
+    n = int(np.prod(m.in_shape))
+    for dtype in DTYPES:
+        assert ta._block_regs(m, plan, dtype, cuda).path == "vector"
+        x = _rand(rng, (n + 1,), dtype, cuda)[1:].view(m.in_shape)
+        y = _rand(rng, (n + 1,), dtype, cuda)[1:].view(m.out_shape)
+        for yy, ew in ((None, None), (y, "add")):
+            got = ta.tm_affine_block(x, m, plan, y=yy, ew=ew)
+            ref = ta.block_plain(x, m, plan, y=yy, ew=ew)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (dtype, ew)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", list(GATHER_MAPS))
 def test_gather_kernel_matches_plain_on_card(cuda, name):
@@ -456,8 +512,11 @@ def _require_product(got, ref, x, w, dtype, what):
     assert bool((err <= tol).all()), (what, float(err.max()))
 
 
-# (M, K, N): ragged tiles in every direction, K below and above the step
-MM_CASES = [(7, 9, 5), (64, 16, 64), (130, 33, 70), (33, 200, 3)]
+# (M, K, N): ragged tiles in every direction, K below and above the step;
+# tall and skinny: a TMA row pitch (K 288), a cp.async one (K 33, and K 9
+# in bf16: an 18-byte pitch), N = 255 in eight column tiles, K = 1
+MM_CASES = [(7, 9, 5), (64, 16, 64), (130, 33, 70), (33, 200, 3),
+            (1000, 288, 27), (517, 33, 28), (300, 9, 255), (70, 1, 5)]
 
 
 @pytest.mark.gpu
@@ -487,7 +546,12 @@ def test_matmul_tm_kernel_matches_plain_on_card(cuda, case):
 def test_matmul_pixel_shuffle_kernel_matches_plain_on_card(cuda):
     from repro_torch.kernels.matmul_tm import matmul_tm as mk
     rng = np.random.RandomState(21)
-    for H, W, C, s, K in ((5, 7, 3, 3, 20), (4, 9, 2, 2, 16)):
+    # W = 130: the 512-row tiles cross image rows mid-row; W = 1: more runs
+    # than a store pass has rows (stored element by element); C s^2 = 80: a
+    # shuffle in three column tiles
+    for H, W, C, s, K in ((5, 7, 3, 3, 20), (4, 9, 2, 2, 16),
+                          (3, 130, 3, 3, 288), (300, 1, 2, 2, 8),
+                          (6, 11, 5, 4, 16)):
         ep = mk.Epilogue("pixel_shuffle", H, W, C, s)
         for dtype in DTYPES:
             x = _operand(rng, (H * W, K), dtype, cuda)
@@ -500,6 +564,31 @@ def test_matmul_pixel_shuffle_kernel_matches_plain_on_card(cuda):
                               .permute(0, 2, 4, 1, 3).reshape(H * W, -1))
             _require_product(flat(got), flat(ref), x, w, dtype,
                              (H, W, C, s, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["tma", "cp.async"])
+def test_matmul_tm_paths_on_card(cuda, path):
+    """The same product through each way of filling the A stages: an x the
+    plan sends to TMA, and the same rows one element off 16 bytes (a view
+    into a larger buffer), which it sends to cp.async."""
+    from repro_torch.kernels.matmul_tm import matmul_tm as mk
+    rng = np.random.RandomState(22)
+    M, K, N = 600, 64, 27
+    for dtype in DTYPES:
+        buf = _operand(rng, (M * K + 1,), dtype, cuda)
+        x = (buf[:M * K] if path == "tma" else buf[1:]).view(M, K)
+        w = _operand(rng, (K, N), dtype, cuda)
+        assert mk.mm_plan(M, K, N, dtype, x.data_ptr() % 16 == 0).path == path
+        for ep in (mk.Epilogue(), mk.Epilogue("transpose")):
+            before = mk.matmul_tm.launches
+            got = mk.matmul_tm(x, w, ep)
+            ref = mk.matmul_tm_plain(x, w, ep)
+            torch.cuda.synchronize()
+            assert mk.matmul_tm.launches == before + 1
+            if ep.mode == "transpose":
+                got, ref = got.T, ref.T
+            _require_product(got, ref, x, w, dtype, (path, dtype, ep))
 
 
 def _xchain_cases():
