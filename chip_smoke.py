@@ -19,7 +19,10 @@ phases and fails on any mismatch:
    logged on the timed transpose and on HWC -> CHW f32 and the int8
    transpose at the same size, each bit-exact and timed beside its bound
    and ``permute().contiguous()``; matmul_tm's plan (A stages by TMA or
-   cp.async, the tile BM x BN) beside its row;
+   cp.async, the tile BM x BN) beside its row; the conv's plan and its
+   FMA loop alone, with EDSR's head (C = 3) and up (N = 12) convs checked
+   and timed beside ``F.conv2d``; the commit's plan and each of its two
+   phases timed alone;
 2. slice 1, per-instruction lowering: the paper's Table III operators as
    single-instruction ``TMProgram``s through ``TMExecutor(backend="cuda")``
    against ``backend="reference"``, bit-exact, with the expected ``cuda.*``
@@ -363,31 +366,65 @@ def img2col_row(dev, gen) -> dict:
         shape="3x3 stride 1 (448, 448, 64) -> (198916, 576) f32")
 
 
-def conv2d_row(dev, gen) -> dict:
-    """The implicit-GEMM conv at the EDSR body conv: (224, 224, 64) by
-    (3, 3, 64, 64), pad 1, f32 (timed) and bf16 (checked)."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention as fa
+def _conv_check(x, w, what: str) -> float:
+    """conv2d of x by w (pad 1) against its plain version: f32 within
+    2 gamma_K sum |x w|, bf16 one bf16 ulp more; returns the f32 max
+    |err|."""
     from repro_torch.kernels.img2col import img2col as ik
-
-    H, W, C = EDSR_IMG[1], EDSR_IMG[2], 64
-    x = torch.rand((H, W, C), generator=gen).to(dev)
-    w = ((torch.rand((3, 3, C, C), generator=gen) - 0.5) * 0.1).to(dev)
-    got = ik.conv2d(x, w, 1, 1)
-    ref = ik.conv2d_plain(x, w, 1, 1)
-    tol = conv_tol(x, w, 1, 1)
-    require_within(got, ref, tol, "conv2d f32")
-    err = max_abs_err(got, ref)
+    got, ref = ik.conv2d(x, w, 1, 1), ik.conv2d_plain(x, w, 1, 1)
+    require_within(got, ref, conv_tol(x, w, 1, 1), f"{what} f32")
     xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
     gb, rb = ik.conv2d(xb, wb, 1, 1), ik.conv2d_plain(xb, wb, 1, 1)
     require_within(gb, rb, conv_tol(xb, wb, 1, 1) + bf16_ulp(rb),
-                   "conv2d bf16")
-    log(f"kernel conv2d: f32 max |err| {err} (tolerance 2 gamma_576 sum|xw|,"
-        f" max {float(tol.max()):.3g}); bf16 max |err| "
-        f"{max_abs_err(gb, rb)} within one bf16 ulp")
-    M, K = H * W, 9 * C
-    flops = 2 * M * C * K
-    nbytes = (x.numel() + w.numel() + got.numel()) * 4
+                   f"{what} bf16")
+    return max_abs_err(got, ref)
+
+
+def _conv_bound(x, w, out_numel: int) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, GFLOP) of a conv of x by w, f32."""
+    H, W, C = x.shape
+    flops = 2 * H * W * w.shape[3] * w.shape[0] * w.shape[1] * C
+    nbytes = (x.numel() + w.numel() + out_numel) * 4
+    t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes", flops / 1e9)
+
+
+def conv2d_row(dev, gen) -> dict:
+    """The implicit-GEMM conv at the EDSR body conv: (224, 224, 64) by
+    (3, 3, 64, 64), pad 1, f32 (timed) and bf16 (checked); its plan and
+    its FMA loop alone are logged, and EDSR's head (C = 3 -> 64, the
+    cp.async path) and up conv (64 -> 12) are checked and timed beside it,
+    each with its bound and F.conv2d."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.img2col import img2col as ik
+
+    H, W, C = EDSR_IMG[1], EDSR_IMG[2], 64
+    for name, cin, cout in (("head", 3, 64), ("up", 64, 12)):
+        xs = torch.rand((H, W, cin), generator=gen).to(dev)
+        ws = ((torch.rand((3, 3, cin, cout), generator=gen) - 0.5)
+              * 0.1).to(dev)
+        err = _conv_check(xs, ws, f"conv2d EDSR {name}")
+        plan = ik.conv2d_plan(xs, ws, 1, 1)
+        bound, by, gflop = _conv_bound(xs, ws, H * W * cout)
+        xn, wn = xs.permute(2, 0, 1)[None], ws.permute(3, 2, 0, 1)
+        log(f"kernel conv2d EDSR {name} ({H}, {W}, {cin}) x (3, 3, {cin}, "
+            f"{cout}) f32, {gflop:.3f} GFLOP: {plan}; max |err| {err}; "
+            f"{graph_ms(lambda: ik.conv2d(xs, ws, 1, 1)):.4f} ms device, "
+            f"bound {bound:.4f} ({by}), F.conv2d "
+            f"{graph_ms(lambda: F.conv2d(xn, wn, padding=1)):.4f}")
+    x = torch.rand((H, W, C), generator=gen).to(dev)
+    w = ((torch.rand((3, 3, C, C), generator=gen) - 0.5) * 0.1).to(dev)
+    err = _conv_check(x, w, "conv2d")
+    got = ik.conv2d(x, w, 1, 1)
+    bound, by, gflop = _conv_bound(x, w, got.numel())
+    plan = ik.conv2d_plan(x, w, 1, 1)
+    fma = graph_ms(lambda: ik.conv2d_fma_probe(x, w, 1, 1))
+    log(f"kernel conv2d plan: {plan} (rounds {plan.rounds}, last round "
+        f"{plan.last_fill:.3f} full); the FMA loop alone (no loads) "
+        f"{fma:.4f} ms = {gflop / fma:.1f} TFLOP/s, "
+        f"{gflop / fma / (F32_FLOP_PER_S / 1e12):.3f} of 67; f32 max |err| "
+        f"{err} (tolerance 2 gamma_576 sum|xw|)")
     xn, wn = x.permute(2, 0, 1)[None], w.permute(3, 2, 0, 1)
     return dict(
         name="conv2d", route="cuda",
@@ -397,12 +434,10 @@ def conv2d_row(dev, gen) -> dict:
         ms=graph_ms(lambda: ik.conv2d(x, w, 1, 1)),
         call_ms=cuda_ms(lambda: ik.conv2d(x, w, 1, 1)),
         plain_ms=cuda_ms(lambda: ik.conv2d_plain(x, w, 1, 1)),
-        bound_ms=max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
-        bound_by=("operations" if flops / F32_FLOP_PER_S
-                  > nbytes / HBM_BYTES_PER_S else "bytes"),
+        bound_ms=bound, bound_by=by,
         library_ms=graph_ms(lambda: F.conv2d(xn, wn, padding=1)),
         shape="EDSR body conv (224, 224, 64) x (3, 3, 64, 64) pad 1 f32, "
-              f"{flops / 1e9:.3f} GFLOP")
+              f"{gflop:.3f} GFLOP")
 
 
 def resize_row(dev, gen) -> dict:
@@ -537,12 +572,20 @@ def xchain_commit_row(e: dict) -> dict:
     require_within(got, ref, tol, "xchain_commit")
     flops = g.flops()
     nbytes = (h.numel() + w.numel() + got.numel()) * 4
+    ms = graph_ms(lambda: xc.xchain_commit(sig, g, h, w), iters=10)
+    product, walk = (graph_ms(lambda: xc.xchain_commit_phase(
+        sig, g, h, w, phase), iters=10) for phase in ("product", "chain"))
+    plan = xc.xchain_commit_card_plan(g, h)
+    log(f"kernel xchain_commit plan: {plan} (rounds {plan.rounds}, last "
+        f"round {plan.last_fill:.3f} full), scratch {g.out_shape} f32; "
+        f"{ms:.4f} ms; the kernel with one phase: product {product:.4f}, "
+        f"chain {walk:.4f}")
     return dict(
         name="xchain_commit", route="cuda",
-        source="src/repro_torch/csrc/matmul_tm.cu",
+        source="src/repro_torch/csrc/xchain_commit.cu",
         replaces="src/repro/kernels/matmul_tm/chain.py:222",
         max_abs_err=max_abs_err(got, ref),
-        ms=graph_ms(lambda: xc.xchain_commit(sig, g, h, w), iters=10),
+        ms=ms,
         call_ms=cuda_ms(lambda: xc.xchain_commit(sig, g, h, w), iters=10),
         plain_ms=cuda_ms(lambda: xc.xchain_commit_plain(sig, g, h, w),
                          iters=10),

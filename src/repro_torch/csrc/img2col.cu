@@ -29,14 +29,15 @@
 // N = OC columns and K = kh*kw*C, accumulated in f32 (bf16 read as f32) and
 // rounded once to x's dtype at the store.  At the EDSR body conv (224x224x64
 // -> 64, K = 576) it is bound by its f32 operations (2*M*N*K over 67 TFLOP/s
-// without tensor cores), not by bytes.  Design: a shared-memory tiled FMA
-// GEMM, 128x64 output tile per block of 256 threads, 8x4 outputs per
-// thread, K in steps of 16.  The A tile is gathered straight from x: each
-// thread keeps one output row's (oy, ox) for the whole K loop and walks its
-// columns' (ky, kx, c) incrementally, so no division sits in the loop; taps
-// outside x read zero (the JAX package pads with jnp.pad).  The next K tile
-// is loaded into registers while the current one is multiplied.  No tensor
-// cores, no TMA: wgmma and a TMA pipeline are later work.
+// without tensor cores: 0.0552 ms), not by bytes.  Design: the implicit-GEMM
+// core of igemm.cuh (shared with xchain_commit.cu): persistent blocks of
+// (BM / 8) x NCT threads, 8 x 8 outputs a thread at BN = 64, the patch rows
+// fetched by TMA in im2col mode one filter tap at a time (cp.async where
+// C sizeof(T) is not a multiple of 16 bytes or x is off 16 bytes) through
+// a ring of mbarrier stages beside the weights' K rows, and the rows
+// stored with 16-byte stores where N allows.  Taps outside x read zero (the
+// JAX package pads with jnp.pad).  The host plan (conv_plan) picks the
+// path, BM, BN, the stages and the grid; the entry point checks it.
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
@@ -45,6 +46,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "igemm.cuh"
 
 namespace {
 
@@ -149,165 +152,50 @@ void launch_img2col(const void* x, void* out, const Img2colArgs& a,
 }
 
 // ---------------------------------------------------------------------------
-// conv2d: implicit GEMM
+// conv2d: the implicit-GEMM core of igemm.cuh over one (H, W, C) image
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 128, kBN = 64, kBK = 16;
-constexpr int kConvThreads = 256;
-constexpr int kTM = 8, kTN = 4;     // outputs per thread: rows x columns
-constexpr int kALoads = kBM * kBK / kConvThreads;  // 8 A elements a thread
-constexpr int kBLoads = kBK * kBN / kConvThreads;  // 4 B elements a thread
+template <typename T, int TN, int NCT>
+__global__ void __launch_bounds__(igemm::kIgMaxThreads, igemm::kIgMinBlocks)
+conv2d_kernel(const __grid_constant__ CUtensorMap amap,
+              const __grid_constant__ CUtensorMap bmap,
+              const __grid_constant__ igemm::Args a) {
+  igemm::run_tiles<T, TN, NCT>(&amap, &bmap, a);
+}
 
-struct ConvArgs {
-  int H, W, C, kw, stride, pad, OW;
-  int M, N, K;
-};
-
-template <typename T>
-__device__ __forceinline__ float as_f32(T v) {
-  if constexpr (std::is_same<T, float>::value) {
-    return v;
-  } else {
-    return __bfloat162float(v);
-  }
+template <typename T, int TN, int NCT>
+int launch_conv(igemm::Args a, int path, int bm, int stages, int blocks,
+                int grid, cudaStream_t s) {
+  CUtensorMap map, bmap;
+  size_t smem = 0;
+  const void* fn = reinterpret_cast<const void*>(conv2d_kernel<T, TN, NCT>);
+  const int rc = igemm::prepare<T, TN, NCT>(&a, &map, &bmap, fn, path, bm,
+                                            stages, blocks, grid, &smem);
+  if (rc != 0) return rc;
+  conv2d_kernel<T, TN, NCT>
+      <<<grid, bm / igemm::kIgRows * NCT, smem, s>>>(map, bmap, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-__device__ __forceinline__ T from_f32(float v) {
-  if constexpr (std::is_same<T, float>::value) {
-    return v;
-  } else {
-    return __float2bfloat16_rn(v);
-  }
+int dispatch_conv(const igemm::Args& a, int path, int bm, int bn, int stages,
+                  int blocks, int grid, cudaStream_t s) {
+#define CONV_CASE(tn, nct)                                               \
+  case tn * nct:                                                         \
+    return launch_conv<T, tn, nct>(a, path, bm, stages, blocks, grid, s);
+  IGEMM_DISPATCH_BN(bn, CONV_CASE)
+#undef CONV_CASE
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kConvThreads)
-conv2d_kernel(const T* __restrict__ x, const T* __restrict__ w,
-              T* __restrict__ out, const ConvArgs a) {
-  __shared__ __align__(16) float As[kBK][kBM];
-  __shared__ __align__(16) float Bs[kBK][kBN];
-  const int t = threadIdx.x;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-
-  // A loads: this thread's row of the tile and its 8 consecutive columns
-  const int a_row = t / 2;
-  const int a_col = (t % 2) * kALoads;
-  const int p = m0 + a_row;
-  const bool row_ok = p < a.M;
-  const int oy = row_ok ? p / a.OW : 0;
-  const int ox = row_ok ? p - oy * a.OW : 0;
-  const int y_base = oy * a.stride - a.pad;
-  const int x_base = ox * a.stride - a.pad;
-  // (ky, kx, c) of column k = a_col, walked forward one column at a time
-  int k_next = a_col;
-  int c = a.C > 0 ? a_col % a.C : 0;
-  int tap = a.C > 0 ? a_col / a.C : 0;
-  int kx = tap % a.kw;
-  int ky = tap / a.kw;
-
-  // B loads: row b_row of the tile, 4 consecutive output channels
-  const int b_row = t / (kBN / kBLoads);
-  const int b_col = (t % (kBN / kBLoads)) * kBLoads;
-
-  float a_reg[kALoads];
-  float b_reg[kBLoads];
-
-  auto load_tile = [&](int k0) {
-    // A: walk k from k0 + a_col; the walk state already stands there
-#pragma unroll
-    for (int j = 0; j < kALoads; ++j) {
-      float v = 0.0f;
-      const int y = y_base + ky;
-      const int xx = x_base + kx;
-      if (row_ok && k_next < a.K && y >= 0 && y < a.H && xx >= 0 &&
-          xx < a.W) {
-        v = as_f32(x[(static_cast<int64_t>(y) * a.W + xx) * a.C + c]);
-      }
-      a_reg[j] = v;
-      ++k_next;
-      if (++c == a.C) {
-        c = 0;
-        if (++kx == a.kw) {
-          kx = 0;
-          ++ky;
-        }
-      }
-    }
-    // skip the other thread's half of the tile: BK - kALoads columns
-#pragma unroll
-    for (int j = 0; j < kBK - kALoads; ++j) {
-      ++k_next;
-      if (++c == a.C) {
-        c = 0;
-        if (++kx == a.kw) {
-          kx = 0;
-          ++ky;
-        }
-      }
-    }
-    const int k = k0 + b_row;
-#pragma unroll
-    for (int j = 0; j < kBLoads; ++j) {
-      const int n = n0 + b_col + j;
-      b_reg[j] = (k < a.K && n < a.N)
-                     ? as_f32(w[static_cast<int64_t>(k) * a.N + n])
-                     : 0.0f;
-    }
-  };
-  auto store_tile = [&]() {
-#pragma unroll
-    for (int j = 0; j < kALoads; ++j) As[a_col + j][a_row] = a_reg[j];
-#pragma unroll
-    for (int j = 0; j < kBLoads; ++j) Bs[b_row][b_col + j] = b_reg[j];
-  };
-
-  // compute layout: 16 x 16 threads, rows ty*8.., columns tx*4..
-  const int tx = t % (kBN / kTN);
-  const int ty = t / (kBN / kTN);
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
-
-  load_tile(0);
-  store_tile();
-  __syncthreads();
-  for (int k0 = 0; k0 < a.K; k0 += kBK) {
-    const bool more = k0 + kBK < a.K;
-    if (more) load_tile(k0 + kBK);  // in flight while this tile multiplies
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a_lo = *reinterpret_cast<const float4*>(&As[kk][ty * kTM]);
-      const float4 a_hi =
-          *reinterpret_cast<const float4*>(&As[kk][ty * kTM + 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * kTN]);
-      const float av[kTM] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w,
-                             a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-      const float bw[kTN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
-    }
-    __syncthreads();
-    if (more) {
-      store_tile();
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int m = m0 + ty * kTM + i;
-    if (m >= a.M) break;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int n = n0 + tx * kTN + j;
-      if (n < a.N) out[static_cast<int64_t>(m) * a.N + n] = from_f32<T>(acc[i][j]);
-    }
-  }
+int blocks_per_sm(int bn, int threads, int smem) {
+#define BLOCKS_CASE(tn, nct)                                              \
+  case tn * nct:                                                          \
+    return igemm::kernel_blocks(                                          \
+        reinterpret_cast<const void*>(conv2d_kernel<T, tn, nct>), threads, \
+        smem);
+  IGEMM_DISPATCH_BN(bn, BLOCKS_CASE)
+#undef BLOCKS_CASE
 }
 
 }  // namespace
@@ -348,27 +236,45 @@ extern "C" int img2col(const void* x, void* out, int unit_bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
+// x (H, W, C) conv w (kh, kw, C, N) -> out (OH, OW, N), through the host's
+// plan (kernels/img2col/img2col.py: conv_plan): `path` (TMA im2col or
+// cp.async), `bm` tile rows, `bn` tile columns, `stages`, the `blocks` an
+// SM must hold and the persistent `grid`.  `probe` 1 runs the FMA loop
+// alone (no loads; the output is then not the conv).
 extern "C" int conv2d(const void* x, const void* w, void* out, int dtype,
-                      int H, int W, int C, int kw, int stride, int pad,
-                      int OW, int M, int N, int K, void* stream) {
+                      int H, int W, int C, int kh, int kw, int stride,
+                      int pad, int OH, int OW, int N, int path, int bm,
+                      int bn, int stages, int blocks, int grid, int probe,
+                      void* stream) {
   // K == 0 (no input channels) is an empty sum: the kernel stores zeros
-  if (M <= 0 || N <= 0 || K < 0) return static_cast<int>(cudaErrorInvalidValue);
-  ConvArgs a{H, W, C, kw, stride, pad, OW, M, N, K};
-  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
+  if (OH <= 0 || OW <= 0 || N <= 0 || C < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  igemm::Args a = {};
+  a.g = {1, static_cast<int64_t>(OH) * OW, N, static_cast<int64_t>(kh) * kw * C,
+         N, 0, 1, H, W, C, OH, OW, kh, kw, stride, pad, pad};
+  a.x = x;
+  a.w = w;
+  a.out = out;
+  a.probe = probe;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      conv2d_kernel<float><<<grid, kConvThreads, 0, s>>>(
-          static_cast<const float*>(x), static_cast<const float*>(w),
-          static_cast<float*>(out), a);
-      break;
+      return dispatch_conv<float>(a, path, bm, bn, stages, blocks, grid, s);
     case kBf16:
-      conv2d_kernel<__nv_bfloat16><<<grid, kConvThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x),
-          static_cast<const __nv_bfloat16*>(w),
-          static_cast<__nv_bfloat16*>(out), a);
-      break;
+      return dispatch_conv<__nv_bfloat16>(a, path, bm, bn, stages, blocks,
+                                          grid, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks an SM holds of the conv kernel for (dtype, bn) at `threads`
+// threads and `smem` bytes of dynamic shared memory, or the negated CUDA
+// error: the host plan's occupancy input.
+extern "C" int conv2d_blocks(int dtype, int bn, int threads, int smem) {
+  switch (dtype) {
+    case kF32: return blocks_per_sm<float>(bn, threads, smem);
+    case kBf16: return blocks_per_sm<__nv_bfloat16>(bn, threads, smem);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
 }

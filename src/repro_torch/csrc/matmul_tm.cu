@@ -1,14 +1,12 @@
 // Cross-engine kernels for Hopper (sm_90a): a product with a data-movement
 // store or load around it, in ONE launch each.
 //
-// Replaces three Pallas kernels of the JAX package:
+// Replaces two Pallas kernels of the JAX package (the third cross-engine
+// one, _commit_executable, is xchain_commit.cu):
 //   matmul_tm       src/repro/kernels/matmul_tm/matmul_tm.py: matmul_tm
 //                   (body _mm_kernel): a tiled x @ w whose store writes each
 //                   tile to its TM destination (identity, transpose, pixel
 //                   shuffle, a split band);
-//   xchain_commit   src/repro/kernels/matmul_tm/chain.py: _commit_executable:
-//                   a 2D product or an NHWC conv feeding a forwarding chain
-//                   (compute -> TM), the product never stored;
 //   xchain_prologue src/repro/kernels/matmul_tm/chain.py:
 //                   _prologue_executable: a forwarding chain feeding one
 //                   operand of a 2D product or an NHWC conv (TM -> compute),
@@ -71,22 +69,16 @@
 //     runs than a pass has rows, stores element by element.
 // No tensor cores: the operands are f32 and TF32 keeps about three digits.
 //
-// xchain_prologue (gemm_kernel) and xchain_commit (commit_kernel) are
-// simple kernels, bounded by operations (2 M N K f32 over 67 TFLOP/s) or
-// bytes, whichever is larger:
-//   xchain_prologue — a 64x64 output tile per block of 256 threads, 4x4
-//   outputs per thread, the K loop in steps of 16 staged in shared memory.
-//   It loads its crossing operand's tile THROUGH the chain's pullback
-//   (chain_desc.cuh) from the chain's sources, element by element, so no
-//   TMA can feed it: the tile staged in shared memory is the chain's
-//   output, which never reaches device memory.
-//   xchain_commit — driven from the chain's output side, so that it needs
-//   no grid-wide barrier: each thread takes one output element, follows
-//   the chain's pullback j to the product element it reads, computes that
-//   element's K-term sum in place, and walks the chain's levels.  A COARSE
-//   chain reads each product element at most a few times, so the
-//   recomputation is bounded; an element some level masks out skips the
-//   product (its fill overwrites it).
+// xchain_prologue (gemm_kernel) is a simple kernel, bounded by operations
+// (2 M N K f32 over 67 TFLOP/s) or bytes, whichever is larger: a 64x64
+// output tile per block of 256 threads, 4x4 outputs per thread, the K loop
+// in steps of 16 staged in shared memory.  It loads its crossing operand's
+// tile THROUGH the chain's pullback (chain_desc.cuh) from the chain's
+// sources, element by element, so no TMA can feed it: the tile staged in
+// shared memory is the chain's output, which never reaches device memory.
+//
+// The accumulator types, the geometry table (Gemm) and the mbarrier and
+// TMA helpers are igemm.cuh's.
 //
 // Element types: int8, int32, bf16, f32.  Each entry point returns
 // cudaGetLastError() after its launch.
@@ -100,6 +92,7 @@
 #include <type_traits>
 
 #include "chain_desc.cuh"
+#include "igemm.cuh"
 
 namespace {
 
@@ -110,55 +103,26 @@ constexpr int kBK = 16;  // K step staged in shared memory
 constexpr int kTM = 4;   // outputs per thread along m
 constexpr int kTN = 4;   // outputs per thread along n
 
-// ---------------------------------------------------------------------------
-// accumulation: f32 for floats, wrapping uint32 for integers
-// ---------------------------------------------------------------------------
-
-template <typename T> struct Acc { using type = float; };
-template <> struct Acc<int8_t> { using type = uint32_t; };
-template <> struct Acc<int32_t> { using type = uint32_t; };
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ uint32_t widen(int8_t v) {
-  return static_cast<uint32_t>(static_cast<int32_t>(v));
-}
-__device__ __forceinline__ uint32_t widen(int32_t v) {
-  return static_cast<uint32_t>(v);
-}
-
-__device__ __forceinline__ float mac(float a, float b, float acc) {
-  return fmaf(a, b, acc);
-}
-__device__ __forceinline__ uint32_t mac(uint32_t a, uint32_t b,
-                                        uint32_t acc) {
-  return a * b + acc;
-}
-
-template <typename T>
-__device__ __forceinline__ T narrow(typename Acc<T>::type acc) {
-  if constexpr (std::is_same<T, float>::value) {
-    return acc;
-  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return __float2bfloat16_rn(acc);
-  } else {
-    return static_cast<T>(static_cast<int32_t>(acc));  // two's complement
-  }
-}
+using igemm::Acc;
+using igemm::Gemm;
+using igemm::align_up;
+using igemm::elem;
+using igemm::from_word;
+using igemm::mac;
+using igemm::mbar_expect_tx;
+using igemm::mbar_init;
+using igemm::mbar_wait;
+using igemm::narrow;
+using igemm::parse_gemm;
+using igemm::smem_u32;
+using igemm::tma_load_2d;
+using igemm::tma_type;
+using igemm::widen;
+using igemm::word;
 
 // ---------------------------------------------------------------------------
-// the product's geometry
+// the product's geometry (igemm::Gemm)
 // ---------------------------------------------------------------------------
-
-struct Gemm {
-  int64_t kind;  // 0: mm, 1: NHWC conv with HWIO weights
-  int64_t M, N, K;
-  int64_t ldb, col0;  // B(k, n) = w[k ldb + col0 + n]
-  int64_t B, H, W, C, OH, OW, kh, kw, stride, pt, pl;  // conv only
-};
-constexpr int kGemmWords = 17;
 
 // Flat index of A(m, k) in x, or -1 for a conv tap outside x.
 __device__ __forceinline__ int64_t a_index(const Gemm& g, int64_t m,
@@ -174,62 +138,6 @@ __device__ __forceinline__ int64_t a_index(const Gemm& g, int64_t m,
   const int64_t iw = ow * g.stride + tap % g.kw - g.pl;
   if (ih < 0 || ih >= g.H || iw < 0 || iw >= g.W) return -1;
   return ((b * g.H + ih) * g.W + iw) * g.C + ci;
-}
-
-// out[m, n] in place: K products summed in ascending k (xchain_commit).
-template <typename T>
-__device__ typename Acc<T>::type product(const T* __restrict__ x,
-                                         const T* __restrict__ w,
-                                         const Gemm& g, int64_t m,
-                                         int64_t n) {
-  typename Acc<T>::type acc = 0;
-  if (g.kind == 0) {
-    const T* xr = x + m * g.K;
-    const T* wc = w + g.col0 + n;
-    for (int64_t k = 0; k < g.K; ++k) {
-      acc = mac(widen(xr[k]), widen(wc[k * g.ldb]), acc);
-    }
-    return acc;
-  }
-  const int64_t ow = m % g.OW;
-  const int64_t t = m / g.OW;
-  const int64_t oh = t % g.OH;
-  const int64_t b = t / g.OH;
-  for (int64_t ky = 0; ky < g.kh; ++ky) {
-    const int64_t ih = oh * g.stride + ky - g.pt;
-    if (ih < 0 || ih >= g.H) continue;
-    for (int64_t kx = 0; kx < g.kw; ++kx) {
-      const int64_t iw = ow * g.stride + kx - g.pl;
-      if (iw < 0 || iw >= g.W) continue;
-      const T* xp = x + ((b * g.H + ih) * g.W + iw) * g.C;
-      const T* wp = w + (ky * g.kw + kx) * g.C * g.ldb + g.col0 + n;
-      for (int64_t ci = 0; ci < g.C; ++ci) {
-        acc = mac(widen(xp[ci]), widen(wp[ci * g.ldb]), acc);
-      }
-    }
-  }
-  return acc;
-}
-
-// ---------------------------------------------------------------------------
-// xchain_commit: one thread per chain output element
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-commit_kernel(const T* __restrict__ x, const T* __restrict__ w,
-              T* __restrict__ out, const __grid_constant__ chain::Chain c,
-              const __grid_constant__ Gemm g, int64_t numel) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < numel; i += stride) {
-    T v = chain::from_bits<T>(0);
-    if (chain::source_needed(c, i)) {
-      const int64_t f = c.j[i];  // the product element this output reads
-      v = narrow<T>(product<T>(x, w, g, f / g.N, f % g.N));
-    }
-    out[i] = chain::apply<T>(c, v, i);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -336,18 +244,6 @@ gemm_kernel(const T* __restrict__ xa, const T* __restrict__ wb,
   }
 }
 
-inline unsigned grid_for(int64_t numel) {
-  const int64_t blocks = (numel + kThreads - 1) / kThreads;
-  const int64_t cap = 132 * 32;  // enough blocks in flight; the loop strides
-  return static_cast<unsigned>(blocks < cap ? blocks : cap);
-}
-
-bool parse_gemm(const int64_t* words, Gemm* g) {
-  int64_t* dst = reinterpret_cast<int64_t*>(g);
-  for (int i = 0; i < kGemmWords; ++i) dst[i] = words[i];
-  return g->M > 0 && g->N > 0 && g->K >= 0 && (g->kind == 0 || g->kind == 1);
-}
-
 template <typename T, int kSrc>
 void launch_gemm(const void* xa, const void* wb, void* out,
                  const chain::Chain& c, const Gemm& g, const Store& st,
@@ -357,15 +253,6 @@ void launch_gemm(const void* xa, const void* wb, void* out,
   gemm_kernel<T, kSrc><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(xa), static_cast<const T*>(wb),
       static_cast<T*>(out), c, g, st);
-}
-
-template <typename T>
-void launch_commit(const void* x, const void* w, void* out,
-                   const chain::Chain& c, const Gemm& g, int64_t numel,
-                   cudaStream_t s) {
-  commit_kernel<T><<<grid_for(numel), kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<T*>(out), c, g, numel);
 }
 
 template <int kSrc>
@@ -424,52 +311,6 @@ struct MmArgs {
   uint32_t off_bars, off_runs, off_cols, off_stage, off_b;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// until the phase of parity `parity` has completed; a pipeline that stalls
-// for 2^24 polls (seconds) traps, failing the launch instead of hanging it
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 24)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one box of a 2-d tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // the 4 bytes at src, of which only the first `n` (1-4) are read; the rest
 // of the word is zero
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
@@ -484,30 +325,6 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
 // at one q hit 8 different bank groups.
 __device__ __forceinline__ uint32_t swz(int r, int q) {
   return static_cast<uint32_t>(r * kMmChunk + ((q ^ ((r >> 1) & 3)) << 4));
-}
-
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-template <typename A>
-__device__ __forceinline__ A from_word(uint32_t u) {
-  if constexpr (std::is_same<A, float>::value) return __uint_as_float(u);
-  else return u;
-}
-
-// element e of a 32-bit word of T, widened to the accumulator type
-template <typename T>
-__device__ __forceinline__ typename Acc<T>::type elem(uint32_t u, int e) {
-  if constexpr (std::is_same<T, float>::value) {
-    return __uint_as_float(u);
-  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return __uint_as_float(e ? (u & 0xffff0000u) : (u << 16));
-  } else if constexpr (std::is_same<T, int8_t>::value) {
-    return static_cast<uint32_t>(static_cast<int32_t>(u << (24 - 8 * e)) >> 24);
-  } else {
-    return u;
-  }
 }
 
 // One B panel row of a thread's BN / 2 columns into registers (16-byte
@@ -971,52 +788,10 @@ mm_tm_kernel(const __grid_constant__ CUtensorMap amap,
   }
 }
 
-// cuTensorMapEncodeTiled through cudart's driver entry point, so that the
-// library links no libcuda
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-template <typename T> constexpr CUtensorMapDataType tma_type();
-template <> constexpr CUtensorMapDataType tma_type<int8_t>() {
-  return CU_TENSOR_MAP_DATA_TYPE_UINT8;
-}
-template <> constexpr CUtensorMapDataType tma_type<int32_t>() {
-  return CU_TENSOR_MAP_DATA_TYPE_INT32;
-}
-template <> constexpr CUtensorMapDataType tma_type<__nv_bfloat16>() {
-  return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-}
-template <> constexpr CUtensorMapDataType tma_type<float>() {
-  return CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-}
-
 // x (M, K) in boxes of kMmBox rows x 64 bytes, 64-byte swizzle, zero fill
 template <typename T>
 bool a_tensor_map(CUtensorMap* map, const MmArgs& a) {
-  const EncodeTiledFn encode = encode_tiled();
+  const igemm::EncodeTiledFn encode = igemm::encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(a.K),
                               static_cast<cuuint64_t>(a.M)};
@@ -1027,10 +802,6 @@ bool a_tensor_map(CUtensorMap* map, const MmArgs& a) {
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-inline uint32_t align_up(size_t v, size_t a) {
-  return static_cast<uint32_t>((v + a - 1) / a * a);
 }
 
 // Shared-memory layout of one block (one per SM: 256 threads, so that each
@@ -1151,32 +922,6 @@ extern "C" int matmul_tm(const void* x, const void* w, void* out, int dtype,
     case chain::kF32: return dispatch_mm<float>(a, bn, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// The product of x and w (geometry in `gemm`, kGemmWords int64 words)
-// through the chain in `desc` (chain_desc.cuh) into out (numel elements).
-extern "C" int xchain_commit(const void* x, const void* w, void* out,
-                             const int64_t* desc, const int64_t* gemm,
-                             int dtype, int64_t numel, int n_levels,
-                             int n_extras, void* stream) {
-  chain::Chain c;
-  Gemm g;
-  if (numel <= 0 || !chain::parse(desc, n_levels, n_extras, &c) ||
-      !parse_gemm(gemm, &g)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case chain::kInt8: launch_commit<int8_t>(x, w, out, c, g, numel, s); break;
-    case chain::kInt32: launch_commit<int32_t>(x, w, out, c, g, numel, s);
-      break;
-    case chain::kBf16:
-      launch_commit<__nv_bfloat16>(x, w, out, c, g, numel, s);
-      break;
-    case chain::kF32: launch_commit<float>(x, w, out, c, g, numel, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The product (geometry in `gemm`) whose operand `cross_pos` (0: x, 1: w)

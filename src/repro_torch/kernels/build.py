@@ -10,7 +10,8 @@ unchanged one loads.  :func:`build`
 starts one ``nvcc`` per missing library, all at once.
 
 Only cudart is linked (nvcc's default): the TMA tensor maps of
-``flash_attention.cu`` and ``matmul_tm.cu`` get ``cuTensorMapEncodeTiled`` through
+``flash_attention.cu``, ``matmul_tm.cu`` and ``igemm.cuh`` get
+``cuTensorMapEncodeTiled`` and ``cuTensorMapEncodeIm2col`` through
 ``cudaGetDriverEntryPoint``, so no library links ``libcuda``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -59,7 +60,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "img2col": {
         "img2col": [_P, _P, _I, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                     _I64, _I64, _P, _U64, _U64, _I, _P],
-        "conv2d": [_P, _P, _P, _I] + [_I] * 10 + [_P],
+        "conv2d": [_P, _P, _P, _I] + [_I] * 17 + [_P],
+        "conv2d_blocks": [_I, _I, _I, _I],
     },
     "resize": {
         "resize_bilinear": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
@@ -67,8 +69,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "matmul_tm": {
         "matmul_tm": [_P, _P, _P, _I, _I64, _I64, _I64, _I64, _I64, _I,
                       _I64, _I64, _I64, _I64, _I, _I, _P],
-        "xchain_commit": [_P, _P, _P, _P, _P, _I, _I64, _I, _I, _P],
         "xchain_prologue": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "xchain_commit": {
+        "xchain_commit": [_P] * 6 + [_I, _I64] + [_I] * 9 + [_P],
+        "xchain_commit_blocks": [_I, _I, _I, _I],
     },
     "flash_attention": {
         "flash_attention_fwd": [_P, _P, _P, _P, _I] + [_I] * 6 + [_I64] * 12

@@ -7,16 +7,19 @@ pullback plan of :mod:`repro_torch.kernels.tm_affine.chain` expresses, in
 both directions, for a 2D product (``aten.mm``) or the models' NHWC
 convolution (``repro_torch::conv2d_nhwc``):
 
-* **compute→TM** (``cuda.xchain.commit``, :func:`xchain_commit`): the chain
-  walks its pullback from each of its output elements to the product
-  element it reads and computes that element in place; the product never
-  exists as a tensor;
+* **compute→TM** (``cuda.xchain.commit``, :func:`xchain_commit`): the
+  implicit-GEMM core of ``csrc/igemm.cuh`` computes the product's tiles,
+  rounded once to the element type, into a scratch tensor (the Pallas
+  kernel's VMEM slab), a grid-wide barrier follows, and then the chain
+  walks its pullback from each of its output elements into that scratch
+  (``csrc/xchain_commit.cu``, one cooperative launch);
 * **TM→compute** (``cuda.xchain.prologue``, :func:`xchain_prologue`): the
   product's blocks load the crossing operand's tiles through the chain's
   pullback, from the chain's sources; the chain's output never exists as a
   tensor.
 
-Both are ONE launch of ``csrc/matmul_tm.cu``, each beside its plain
+Both are ONE launch (the prologue's in ``csrc/matmul_tm.cu``), each
+beside its plain
 PyTorch version (:func:`xchain_commit_plain`, :func:`xchain_prologue_plain`:
 the op, then the chain's plain walk, or the reverse).  The registry rule
 :func:`_xengine_lower` declines what the plan cannot take, and — for
@@ -38,6 +41,8 @@ from repro_torch.core.dispatch import register_xengine_rule
 from repro_torch.core.fusion import XENGINE_PRIMS
 from repro_torch.core.schedule import plan_segments
 from repro_torch.kernels import build
+from repro_torch.kernels.img2col.img2col import (CONV_PATHS, ConvPlan,
+                                                 card_plan, conv_tma_ok)
 from repro_torch.kernels.matmul_tm.matmul_tm import _product
 from repro_torch.kernels.tm_affine.chain import (CHAIN_VMEM_BUDGET,
                                                  MAX_EXTRAS, MAX_LEVELS,
@@ -51,7 +56,7 @@ from repro_torch.models.cnn import conv2d_nhwc, conv_out_hw
 @dataclasses.dataclass(frozen=True)
 class Gemm:
     """The compute op as an implicit GEMM, out[m, n] = sum_k A(m, k) B(k, n)
-    (``csrc/matmul_tm.cu``): ``mm`` of x (M, K) by w (K, N), or ``conv`` of
+    (``csrc/igemm.cuh``): ``mm`` of x (M, K) by w (K, N), or ``conv`` of
     an NHWC x by HWIO w with ``stride`` and ``padding`` (SAME or VALID)."""
 
     kind: str
@@ -167,6 +172,27 @@ def _check(name: str, sig: ChainSig, g: Gemm, ops, slabs) -> None:
                              f"{ops[0].dtype} tensors on {dev}")
 
 
+def _commit_geometry(g: Gemm) -> tuple[int, int, int, int | None, int]:
+    """(M, N, K, C, taps) of the product: C None for an mm."""
+    w = g.words()
+    if g.kind == "mm":
+        return w[1], w[2], w[3], None, 1
+    return w[1], w[2], w[3], w[9], w[12] * w[13]
+
+
+def _commit_tma_ok(g: Gemm, x: torch.Tensor) -> bool:
+    """Whether TMA can fetch the product's A: 2-d boxes of an mm's rows
+    (a 16-byte aligned x with rows a multiple of 16 bytes), or a conv's
+    patches in im2col mode (:func:`conv_tma_ok`)."""
+    w = g.words()
+    if g.kind == "mm":
+        K = w[3]
+        return (K >= 1 and (K * x.element_size()) % 16 == 0
+                and x.data_ptr() % 16 == 0)
+    _, _, _, _, _, _, _, H, W, C, OH, OW, _, _, stride, pt, pl = w
+    return conv_tma_ok(x, C, H, W, OH, OW, stride, pt, pl)
+
+
 def xchain_commit(sig: ChainSig, g: Gemm, x: torch.Tensor, w: torch.Tensor,
                   slabs: tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
     """The op ``g`` of x and w through the chain ``sig`` (the chain's
@@ -174,7 +200,7 @@ def xchain_commit(sig: ChainSig, g: Gemm, x: torch.Tensor, w: torch.Tensor,
     version; CUDA tensor: the kernel, or an exception."""
     if x.device.type == "cpu":
         return xchain_commit_plain(sig, g, x, w, slabs)
-    lib = build.library("matmul_tm")  # a kernel that cannot be built raises
+    lib = build.library("xchain_commit")  # a kernel that cannot be built raises
     _check("xchain_commit", sig, g, (x, w), slabs)
     if (tuple(x.shape), tuple(w.shape)) != (g.x_shape, g.w_shape) \
             or tuple(sig.links[0][0].in_shape) != g.out_shape:
@@ -183,15 +209,52 @@ def xchain_commit(sig: ChainSig, g: Gemm, x: torch.Tensor, w: torch.Tensor,
     out = torch.empty(sig.out_shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    table, n_levels, n_extras = _table(sig, x.device, slabs)
-    gemm = (ctypes.c_int64 * 17)(*g.words())
-    rc = lib.xchain_commit(x.data_ptr(), w.data_ptr(), out.data_ptr(), table,
-                           gemm, DTYPE_CODES[x.dtype], out.numel(), n_levels,
-                           n_extras,
-                           torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "xchain_commit")
+    _launch_commit(lib, sig, g, x, w, slabs, out, phases=3)
     xchain_commit.launches += 1
     return out
+
+
+def _launch_commit(lib, sig, g, x, w, slabs, out, *, phases: int) -> None:
+    """One launch of the commit kernel: ``phases`` 3 both, 1 the product
+    phase alone, 2 the chain phase alone.  The product goes to a scratch
+    (M, N) tensor in x's dtype, the Pallas kernel's VMEM slab."""
+    table, n_levels, n_extras = _table(sig, x.device, slabs)
+    gemm = (ctypes.c_int64 * 17)(*g.words())
+    M, N = g.words()[1:3]
+    plan = xchain_commit_card_plan(g, x)
+    scratch = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    rc = lib.xchain_commit(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                           scratch.data_ptr(), table, gemm,
+                           DTYPE_CODES[x.dtype], out.numel(), n_levels,
+                           n_extras, CONV_PATHS[plan.path], plan.BM, plan.BN,
+                           plan.stages, plan.blocks_per_sm, plan.grid, phases,
+                           torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "xchain_commit")
+
+
+def xchain_commit_card_plan(g: Gemm, x: torch.Tensor) -> ConvPlan:
+    """The plan :func:`xchain_commit` launches with for this CUDA x: the
+    product's :func:`conv_plan` on the card.  The launch is cooperative, so
+    its grid, at most the blocks an SM holds times the SMs, is co-resident,
+    which the grid-wide barrier between the phases needs."""
+    lib = build.library("xchain_commit")
+    M, N, K, C, taps = _commit_geometry(g)
+    return card_plan(lib, "xchain_commit", x, M, N, K,
+                     tma=_commit_tma_ok(g, x), C=C, taps=taps)
+
+
+def xchain_commit_phase(sig: ChainSig, g: Gemm, x: torch.Tensor,
+                        w: torch.Tensor, phase: str,
+                        slabs: tuple[torch.Tensor, ...] = ()) -> None:
+    """One phase of the commit kernel, for timing the split between them:
+    ``product`` (the product into the scratch, then the grid-wide barrier)
+    or ``chain`` (the barrier, then the chain over whatever the scratch
+    holds).  Its output is not the commit's, and no launch is counted."""
+    lib = build.library("xchain_commit")
+    _check("xchain_commit", sig, g, (x, w), slabs)
+    out = torch.empty(sig.out_shape, dtype=x.dtype, device=x.device)
+    _launch_commit(lib, sig, g, x, w, slabs, out,
+                   phases={"product": 1, "chain": 2}[phase])
 
 
 xchain_commit.launches = 0

@@ -403,10 +403,15 @@ def test_img2col_wide_index_path_on_card(cuda, monkeypatch):
 
 
 # (H, W, C, OC, k, stride, pad): several row and column tiles, K not a
-# multiple of the tile depth, a 3-channel input, a 1x1 conv
+# multiple of the tile depth, a 3-channel input, a 1x1 conv; EDSR's head
+# (C = 3: the cp.async path) and up conv (N = 12) at full size, and a
+# stride-2 conv on the TMA path (C = 16: 64-byte pixels in f32 and 32 in
+# bf16)
 CONV_CASES = [(16, 16, 8, 16, 3, 1, 1), (13, 11, 3, 7, 3, 2, 1),
               (9, 10, 5, 70, 3, 1, 0), (20, 30, 64, 64, 3, 1, 1),
-              (7, 5, 130, 12, 1, 1, 0), (17, 9, 6, 5, 5, 2, 2)]
+              (7, 5, 130, 12, 1, 1, 0), (17, 9, 6, 5, 5, 2, 2),
+              (224, 224, 3, 64, 3, 1, 1), (224, 224, 64, 12, 3, 1, 1),
+              (33, 30, 16, 20, 3, 2, 1)]
 
 
 @pytest.mark.gpu
@@ -435,6 +440,47 @@ def test_conv2d_kernel_matches_plain_on_card(cuda, case):
             tol = tol + bf16_ulp(ref)
         err = (got.double() - ref.double()).abs()
         assert bool((err <= tol).all()), (case, dtype, float(err.max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["tma", "cp.async"])
+def test_conv2d_kernel_paths_on_card(cuda, path):
+    """The same conv through each way of filling the A stages: an x the
+    plan sends to TMA's im2col mode, and the same pixels one element off
+    16 bytes (a view into a larger buffer), which it sends to cp.async."""
+    from repro_torch.core.fp_bounds import bf16_ulp, conv_tol
+    from repro_torch.kernels.img2col import img2col as ik
+    H, W, C, OC = 40, 36, 32, 27
+    gen = torch.Generator().manual_seed(14)
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = torch.rand((H * W * C + 1,), generator=gen).to(cuda, dtype)
+        x = (buf[:H * W * C] if path == "tma" else buf[1:]).view(H, W, C)
+        w = (torch.rand((3, 3, C, OC), generator=gen) - 0.5).to(cuda, dtype)
+        assert ik.conv2d_plan(x, w, 1, 1).path == path
+        before = ik.conv2d.launches
+        got = ik.conv2d(x, w, 1, 1)
+        ref = ik.conv2d_plain(x, w, 1, 1)
+        torch.cuda.synchronize()
+        assert ik.conv2d.launches == before + 1
+        tol = conv_tol(x, w, 1, 1)
+        if dtype == torch.bfloat16:
+            tol = tol + bf16_ulp(ref)
+        err = (got.double() - ref.double()).abs()
+        assert bool((err <= tol).all()), (path, dtype, float(err.max()))
+
+
+@pytest.mark.gpu
+def test_conv2d_kernel_with_no_input_channels_stores_zeros_on_card(cuda):
+    """K = 0 (C = 0): every output is an empty sum; one launch stores the
+    zeros."""
+    from repro_torch.kernels.img2col import img2col as ik
+    x = torch.zeros((9, 7, 0), device=cuda)
+    w = torch.zeros((3, 3, 0, 5), device=cuda)
+    before = ik.conv2d.launches
+    got = ik.conv2d(torch.full_like(x, 1.0), w, 1, 1)
+    torch.cuda.synchronize()
+    assert ik.conv2d.launches == before + 1
+    assert torch.equal(got, torch.zeros((9, 7, 5), device=cuda))
 
 
 @pytest.mark.gpu
@@ -611,6 +657,20 @@ def _xchain_cases():
         "conv_stride2_valid": (Gemm("conv", (2, 9, 8, 3), (3, 3, 3, 5), 2,
                                     "VALID"), "commit",
                                lambda y: [(af.flip_map(y, (1, 2)), None)]),
+        # ESPCN's conv3 + PixelShuffle x3 at a tenth of the frame: 32
+        # channels (the TMA path), N = 27 (BN 28), several tiles
+        "espcn_pixelshuffle": (Gemm("conv", (1, 36, 64, 32), (3, 3, 32, 27),
+                                    1, "SAME"), "commit",
+                               lambda y: [(af.batch_extend_map(
+                                   af.pixel_shuffle_map(y[1:], 3), (1,)),
+                                   None)]),
+        "conv_batch2": (Gemm("conv", (2, 20, 18, 16), (3, 3, 16, 12), 1,
+                             "SAME"), "commit",
+                        lambda y: [(af.axis_permutation_map(y, (0, 2, 1, 3)),
+                                    None)]),
+        "mm_tall_k288": (Gemm("mm", (700, 288), (288, 27)), "commit",
+                         lambda y: [(af.axis_permutation_map(y, (1, 0)),
+                                     None)]),
         # TM -> compute
         "transpose_mm": (Gemm("mm", (9, 7), (7, 5)), "prologue_a",
                          lambda a: [(af.axis_permutation_map(
@@ -712,6 +772,33 @@ def test_xchain_with_route_extra_and_epilogue_on_card(cuda, full_f32):
             tol = 2 * gamma(8) * 16 + (bf16_ulp(ref) if dtype ==
                                        torch.bfloat16 else 0)
             assert bool(((got.double() - ref.double()).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+def test_xchain_commit_replays_in_a_cuda_graph_on_card(cuda, full_f32):
+    """The cooperative commit captured in a CUDA graph and replayed (as
+    chip_smoke.py times it) equals an eager call, bit for bit; its scratch
+    comes from the graph's pool."""
+    from repro_torch.kernels.matmul_tm import chain as xc
+    from repro_torch.kernels.tm_affine.chain import ChainSig
+    rng = np.random.RandomState(24)
+    g = xc.Gemm("conv", (1, 36, 64, 32), (3, 3, 32, 27), 1, "SAME")
+    m = af.batch_extend_map(af.pixel_shuffle_map(g.out_shape[1:], 3), (1,))
+    for dtype in (torch.float32, torch.int32):
+        sig = ChainSig(links=((m, None),),
+                       dtype=str(dtype).removeprefix("torch."))
+        x = _operand(rng, g.x_shape, dtype, cuda)
+        w = _operand(rng, g.w_shape, dtype, cuda)
+        eager = xc.xchain_commit(sig, g, x, w)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = xc.xchain_commit(sig, g, x, w)
+        for _ in range(3):
+            captured.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(captured, eager), dtype
 
 
 @pytest.mark.gpu
