@@ -22,7 +22,14 @@ phases and fails on any mismatch:
    cp.async, the tile BM x BN) beside its row; the conv's plan and its
    FMA loop alone, with EDSR's head (C = 3) and up (N = 12) convs checked
    and timed beside ``F.conv2d``; the commit's plan and each of its two
-   phases timed alone;
+   phases timed alone; tm_affine_gather's plan (separable or general, the
+   run, bytes per access) on the Table III upsample, pixel shuffle, pixel
+   unshuffle and rearrange, each bit-exact and timed beside its bound, the
+   upsample also beside ``F.interpolate`` (nearest, channels-last: its
+   library call) and ``x.flatten()[index]``; the prologue's plan, each of
+   its two phases alone, and the same work split (``tm_chain``, then
+   ``conv2d``, which the one launch has to beat; ``tm_chain``, then
+   ``torch.mm``);
 2. slice 1, per-instruction lowering: the paper's Table III operators as
    single-instruction ``TMProgram``s through ``TMExecutor(backend="cuda")``
    against ``backend="reference"``, bit-exact, with the expected ``cuda.*``
@@ -600,18 +607,22 @@ def xchain_commit_row(e: dict) -> dict:
 def xchain_prologue_row(dev, gen) -> dict:
     """xchain_prologue (#15) at the YOLOv3-Tiny neck: upsample x2 of u
     (8, 14, 14, 128), Route with the skip map (8, 28, 28, 128), into
-    head 2's 1x1 conv (1, 1, 256, 255)."""
+    head 2's 1x1 conv (1, 1, 256, 255); logged with its plan, each of its
+    two phases alone, and the same work split: the port's own two kernels
+    (tm_chain, then conv2d), which the one launch has to beat, and
+    tm_chain, then torch.mm."""
     from repro_torch.core import affine as af
     from repro_torch.core.fp_bounds import gamma
+    from repro_torch.kernels.img2col import img2col as ik
     from repro_torch.kernels.matmul_tm import chain as xc
-    from repro_torch.kernels.tm_affine.chain import ChainSig
+    from repro_torch.kernels.tm_affine import chain as ch
 
     batch = (IMG[0],)
     up = af.batch_extend_map(af.upsample_map((14, 14, 128), 2), batch)
     route = tuple(af.batch_extend_map(m, batch) for m in
                   af.route_maps([(28, 28, 128), (28, 28, 128)]))
-    sig = ChainSig(links=((up, None),), route_maps=route, route_band=0,
-                   dtype="float32")
+    sig = ch.ChainSig(links=((up, None),), route_maps=route, route_band=0,
+                      dtype="float32")
     u = torch.rand(up.in_shape, generator=gen).to(dev)
     skip = torch.rand(route[1].in_shape, generator=gen).to(dev)
     w = ((torch.rand((1, 1, 256, 255), generator=gen) - 0.5) / 8).to(dev)
@@ -624,12 +635,29 @@ def xchain_prologue_row(dev, gen) -> dict:
                    "xchain_prologue")
     flops = g.flops()
     nbytes = (u.numel() + skip.numel() + w.numel() + got.numel()) * 4
+    ms = graph_ms(lambda: xc.xchain_prologue(sig, g, 0, u, w, (skip,)))
+    walk, product = (graph_ms(lambda: xc.xchain_prologue_phase(
+        sig, g, 0, u, w, phase, (skip,))) for phase in ("chain", "product"))
+    w2 = w.reshape(256, 255)
+    split = graph_ms(lambda: torch.mm(ch.tm_chain(sig, u, (skip,))
+                                      .reshape(-1, 256), w2))
+    mm = graph_ms(lambda: torch.mm(cat.reshape(-1, 256), w2))
+    ported = graph_ms(lambda: ik.conv2d(ch.tm_chain(sig, u, (skip,))
+                                        .reshape(-1, 1, 256), w))
+    plan = xc.xchain_prologue_card_plan(g, cat)
+    log(f"kernel xchain_prologue plan: {plan} (rounds {plan.rounds}, last "
+        f"round {plan.last_fill:.3f} full), scratch {tuple(cat.shape)} f32; "
+        f"{ms:.4f} ms; the kernel with one phase: chain {walk:.4f}, product "
+        f"{product:.4f}; split tm_chain + conv2d {ported:.4f} (the one "
+        f"launch {'beats' if ms < ported else 'does not beat'} it); split "
+        f"tm_chain + torch.mm {split:.4f} (torch.mm alone {mm:.4f}, TF32 "
+        f"off)")
     return dict(
         name="xchain_prologue", route="cuda",
-        source="src/repro_torch/csrc/matmul_tm.cu",
+        source="src/repro_torch/csrc/xchain_prologue.cu",
         replaces="src/repro/kernels/matmul_tm/chain.py:312",
         max_abs_err=max_abs_err(got, ref),
-        ms=graph_ms(lambda: xc.xchain_prologue(sig, g, 0, u, w, (skip,))),
+        ms=ms,
         call_ms=cuda_ms(lambda: xc.xchain_prologue(sig, g, 0, u, w,
                                                    (skip,))),
         plain_ms=cuda_ms(lambda: xc.xchain_prologue_plain(sig, g, 0, u, w,
@@ -640,6 +668,36 @@ def xchain_prologue_row(dev, gen) -> dict:
         library_ms=None,
         shape="YOLO neck upsample (8, 14, 14, 128) + Route (8, 28, 28, 128) "
               "-> head2 1x1 conv (1, 1, 256, 255) f32")
+
+
+def gather_maps_log(x: torch.Tensor) -> None:
+    """tm_affine_gather's plan (path, run R, bytes per access) on the four
+    Table III operator maps that reach gather mode, each bit-exact against
+    its plain version and timed beside its byte bound (input read once,
+    output written once)."""
+    from repro_torch.core import affine as af
+    from repro_torch.kernels.tm_affine import tm_affine as ta
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    xr = torch.rand((448, 448, 3), generator=gen).to(x.device)
+    cases = (("upsample", x, af.upsample_map(TABLE3, 2)),
+             ("pixelshuffle", x, af.pixel_shuffle_map(TABLE3, 2)),
+             ("pixelunshuffle", x, af.pixel_unshuffle_map(TABLE3, 2)),
+             ("rearrange", xr, af.rearrange_map((448, 448, 3), 1, 16)))
+    for name, xx, m in cases:
+        launch = ta.gather_launch(m, xx)
+        plan = ta.separable_plan(m, xx.element_size())
+        got = ta.tm_affine_gather(xx, m)
+        require_equal(got, ta.gather_plain(xx, m), f"tm_affine_gather {name}")
+        ms = graph_ms(lambda: ta.tm_affine_gather(xx, m), iters=10)
+        bound = ((xx.numel() + got.numel()) * xx.element_size()
+                 / HBM_BYTES_PER_S * 1e3)
+        run = (f"run R {plan.R} from axis {plan.suffix}"
+               if plan is not None else "no separable run")
+        log(f"kernel tm_affine_gather {name} {tuple(xx.shape)} -> "
+            f"{tuple(got.shape)} f32: path {launch.path}, {run}, "
+            f"{launch.vbytes} B per access; {ms:.4f} ms device, bound "
+            f"{bound:.4f} ({bound / ms:.2f} of it)")
 
 
 def block_maps_log(x: torch.Tensor, m, plan, gen) -> None:
@@ -672,6 +730,8 @@ def block_maps_log(x: torch.Tensor, m, plan, gen) -> None:
 
 
 def kernel_phase(dev, gen, espcn: dict) -> list[dict]:
+    import torch.nn.functional as F
+
     from repro_torch.core import affine as af
     from repro_torch.core.engine import gather_indices
     from repro_torch.kernels.rme_gather import rme_gather as rg
@@ -710,6 +770,13 @@ def kernel_phase(dev, gen, espcn: dict) -> list[dict]:
     flat = flat.reshape(-1)
     xf = x.reshape(-1)
     require_equal(xf[flat].reshape(m.out_shape), got, "upsample index")
+    # the same upsample in one PyTorch call: x as a channels-last NCHW view
+    xcl = x.permute(2, 0, 1).unsqueeze(0)
+    interp = lambda: F.interpolate(xcl, scale_factor=2,  # noqa: E731
+                                   mode="nearest")
+    require_equal(interp()[0].permute(1, 2, 0), got, "upsample interpolate")
+    index_ms = graph_ms(lambda: xf[flat], iters=10)
+    gather_maps_log(x)
     nbytes = (x.numel() + got.numel()) * f32
     rows.append(dict(
         name="tm_affine_gather", route="cuda",
@@ -720,8 +787,11 @@ def kernel_phase(dev, gen, espcn: dict) -> list[dict]:
         call_ms=cuda_ms(lambda: ta.tm_affine_gather(x, m)),
         plain_ms=cuda_ms(lambda: ta.gather_plain(x, m), iters=5),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=graph_ms(lambda: xf[flat], iters=10),
+        library_ms=graph_ms(interp, iters=10),
         shape="upsample x2 448x448x64 f32"))
+    log(f"kernel tm_affine_gather upsample: library F.interpolate nearest "
+        f"(channels-last) {rows[-1]['library_ms']:.4f} ms, x.flatten()[index] "
+        f"{index_ms:.4f} ms")
     del flat, xf
 
     # RME evaluate: YOLO head-2 record streams (batch 8, 28*28*3 rows of 85)

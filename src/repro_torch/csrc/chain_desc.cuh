@@ -1,6 +1,6 @@
 // The forwarding chain's descriptor table and its per-element walk, shared
 // by the chain megakernel (tm_chain.cu) and the cross-engine kernels
-// (matmul_tm.cu).
+// (xchain_commit.cu, xchain_prologue.cu, through chain_walk.cuh).
 //
 // The host (kernels/tm_affine/chain.py) pulls every link of a chain back
 // onto the final output: a flat index j into the chain's source, and per

@@ -1,7 +1,7 @@
-// The implicit-GEMM core shared by the convolution (img2col.cu: conv2d) and
-// the compute -> TM commit (xchain_commit.cu), and the Hopper helpers the
-// product kernels share (matmul_tm.cu: mbarriers, TMA, cp.async, the
-// accumulator types).
+// The implicit-GEMM core shared by the convolution (img2col.cu: conv2d),
+// the compute -> TM commit (xchain_commit.cu) and the TM -> compute
+// prologue (xchain_prologue.cu), and the Hopper helpers the product kernels
+// share (matmul_tm.cu: mbarriers, TMA, cp.async, the accumulator types).
 //
 // out[m, n] = sum_k A(m, k) B(k, n), stored row-major (M, N) and rounded
 // once to the element type T:
@@ -18,8 +18,9 @@
 // hold for it).  So the design is about feeding the FMA pipes:
 //   * a block of threads = (BM / 8) x NCT owns a BM x BN output tile; each
 //     thread holds 8 rows (tr, tr + BM/8, ...) by TN columns in registers
-//     (BN = TN NCT: 8 x 8 at BN = 64, NCT = 4 column threads where
-//     BN <= 32).  Per k a thread reads its 8 A values as 16-byte loads that
+//     (BN = TN NCT: 8 x 8 at BN = 64, or 8 x 4 with NCT = 16 where the
+//     8 x 8 tiles would leave the card with fewer warps than it holds;
+//     NCT = 4 column threads where BN <= 32).  Per k a thread reads its 8 A values as 16-byte loads that
 //     cover 16 bytes of K (so per k, 2 of them in f32) and ceil(TN / 4)
 //     16-byte B loads: at 8 x 8, 4 loads per 64 FMAs, and a warp's lanes
 //     share all but 384 bytes of a k's reads (0.19 B from the banks per
@@ -307,6 +308,7 @@ struct Args {
   int box_rows, n_boxes;  // TMA boxes of a stage
   int out_vec;     // the output rows allow 4-element vector stores
   int probe;       // 1: the FMA loop alone (no loads and no waits)
+  int spread;      // blocks on each SM where tiles are spread (else 1)
   uint32_t stage_bytes, a_bytes;  // a stage: A (bm x 128 bytes), then B
   uint32_t off_bars;  // the ring's mbarriers: full[kIgMaxStages], empty[...]
 };
@@ -394,6 +396,43 @@ __device__ __forceinline__ void copy_elem(uint32_t dst, uint8_t* dst_p,
   }
 }
 
+// The SM this thread runs on.
+__device__ __forceinline__ int sm_id() {
+  uint32_t id;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+  return static_cast<int>(id);
+}
+
+// This block's place in the tile order (its tiles are place, + gridDim.x,
+// ...).  Where a cooperative kernel has fewer tiles than blocks
+// (a.spread > 1: the grid is exactly a.spread blocks on every SM), each
+// block has written its SM to place_of[blockIdx.x] before a grid barrier;
+// the block that is the r-th of its SM (by block index) among the SMs in
+// order of their ids takes place r SMs + (its SM's rank), so tiles
+// 0 .. SMs - 1 land one on each SM, whatever order the card placed the
+// blocks in.  Else the block index.
+__device__ __forceinline__ int tile_place(const Args& a,
+                                          const int* place_of) {
+  const int b = static_cast<int>(blockIdx.x);
+  if (a.spread <= 1) return b;
+  __shared__ int s_count[2];
+  if (threadIdx.x == 0) s_count[0] = s_count[1] = 0;
+  __syncthreads();
+  const int me = place_of[b];
+  int below = 0, before = 0;  // blocks on lower SMs; earlier ones on mine
+  for (int q = threadIdx.x; q < static_cast<int>(gridDim.x);
+       q += blockDim.x) {
+    const int sm = place_of[q];
+    below += sm < me;
+    before += sm == me && q < b;
+  }
+  if (below) atomicAdd(&s_count[0], below);
+  if (before) atomicAdd(&s_count[1], before);
+  __syncthreads();
+  const int sms = static_cast<int>(gridDim.x) / a.spread;
+  return s_count[1] * sms + s_count[0] / a.spread;
+}
+
 // Stage `st` gets item j of this block, completing on the stage's full
 // barrier: A and B by TMA (thread 0: one arrival with the bytes expected)
 // where the plan says so, the rest by every thread (cp.async, or through
@@ -401,7 +440,7 @@ __device__ __forceinline__ void copy_elem(uint32_t dst, uint8_t* dst_p,
 template <typename T, int TN, int NCT>
 __device__ void load_item(const CUtensorMap* amap, const CUtensorMap* bmap,
                           const Args& a, uint8_t* smem, int st, int j,
-                          int4* coords) {
+                          int4* coords, int place) {
   using AccT = typename Acc<T>::type;
   constexpr int BK = kIgRowBytes / sizeof(T);
   constexpr int EPU = 16 / sizeof(T);
@@ -409,7 +448,7 @@ __device__ void load_item(const CUtensorMap* amap, const CUtensorMap* bmap,
   constexpr int BNP = TNP * NCT;
   constexpr int BN = TN * NCT;
   const int t = threadIdx.x, nt = blockDim.x;
-  const int tile = blockIdx.x + (j / a.n_k) * gridDim.x;
+  const int tile = place + (j / a.n_k) * gridDim.x;
   const int ks = j % a.n_k;
   const int64_t m0 = static_cast<int64_t>(tile / a.n_ntiles) * a.bm;
   const int n0 = (tile % a.n_ntiles) * BN;
@@ -634,7 +673,7 @@ __device__ __forceinline__ void store_tile(
   }
 }
 
-// Every tile of this block (tiles blockIdx.x, + gridDim.x, ...), stored to
+// Every tile of this block (tiles place, + gridDim.x, ...), stored to
 // a.out.  The ring runs across tile boundaries: items (tile, K step) in
 // order, stages - 1 of them in flight ahead of the one computed.  A stage
 // completes on its full barrier; each warp arrives on its empty barrier
@@ -643,7 +682,7 @@ __device__ __forceinline__ void store_tile(
 // warps are bound to one another only through the data.
 template <typename T, int TN, int NCT>
 __device__ void run_tiles(const CUtensorMap* amap, const CUtensorMap* bmap,
-                          const Args& a) {
+                          const Args& a, int place) {
   using AccT = typename Acc<T>::type;
   constexpr int EPU = 16 / sizeof(T);
   constexpr int BN = TN * NCT;
@@ -658,9 +697,7 @@ __device__ void run_tiles(const CUtensorMap* amap, const CUtensorMap* bmap,
   const uint32_t full0 = smem_u32(smem) + a.off_bars;
   const uint32_t empty0 = full0 + 8 * kIgMaxStages;
   const int my_tiles =
-      static_cast<int>(blockIdx.x) < a.n_tiles
-          ? (a.n_tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1
-          : 0;
+      place < a.n_tiles ? (a.n_tiles - 1 - place) / gridDim.x + 1 : 0;
 
   AccT acc[kIgRows][TN];
 #pragma unroll
@@ -670,7 +707,7 @@ __device__ void run_tiles(const CUtensorMap* amap, const CUtensorMap* bmap,
   }
   if (a.n_k == 0) {  // K == 0: empty sums, zeros
     for (int q = 0; q < my_tiles; ++q) {
-      const int tile = blockIdx.x + q * gridDim.x;
+      const int tile = place + q * gridDim.x;
       store_tile<T, TN, NCT>(a, acc,
                              static_cast<int64_t>(tile / a.n_ntiles) * a.bm,
                              (tile % a.n_ntiles) * BN, tr, rt, tc);
@@ -690,7 +727,7 @@ __device__ void run_tiles(const CUtensorMap* amap, const CUtensorMap* bmap,
       compute_stage<T, TN, NCT>(acc, smem, bsm, tr, rt, tc,
                                 kIgRowBytes / 16);
       if (j % a.n_k == a.n_k - 1) {
-        const int tile = blockIdx.x + (j / a.n_k) * gridDim.x;
+        const int tile = place + (j / a.n_k) * gridDim.x;
         store_tile<T, TN, NCT>(a, acc,
                                static_cast<int64_t>(tile / a.n_ntiles) * a.bm,
                                (tile % a.n_ntiles) * BN, tr, rt, tc);
@@ -710,7 +747,9 @@ __device__ void run_tiles(const CUtensorMap* amap, const CUtensorMap* bmap,
   __syncthreads();
   const bool producer = by_all || t == 0;
   for (int j = 0; j < S - 1 && j < n_items; ++j) {
-    if (producer) load_item<T, TN, NCT>(amap, bmap, a, smem, j, j, coords);
+    if (producer) {
+      load_item<T, TN, NCT>(amap, bmap, a, smem, j, j, coords, place);
+    }
   }
   for (int j = 0; j < n_items; ++j) {
     const int jn = j + S - 1;
@@ -718,7 +757,8 @@ __device__ void run_tiles(const CUtensorMap* amap, const CUtensorMap* bmap,
       // every warp is done with the stage item jn - S used
       if (jn >= S) mbar_wait(empty0 + 8 * (jn % S), ((jn / S) - 1) & 1);
       if (t == 0) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      load_item<T, TN, NCT>(amap, bmap, a, smem, jn % S, jn, coords);
+      load_item<T, TN, NCT>(amap, bmap, a, smem, jn % S, jn, coords,
+                            place);
     }
     const int st = j % S;
     mbar_wait(full0 + 8 * st, (j / S) & 1);
@@ -738,7 +778,7 @@ __device__ void run_tiles(const CUtensorMap* amap, const CUtensorMap* bmap,
     __syncwarp();
     if ((t & 31) == 0) mbar_arrive(empty0 + 8 * st);
     if (ks == a.n_k - 1) {
-      const int tile = blockIdx.x + (j / a.n_k) * gridDim.x;
+      const int tile = place + (j / a.n_k) * gridDim.x;
       store_tile<T, TN, NCT>(a, acc,
                              static_cast<int64_t>(tile / a.n_ntiles) * a.bm,
                              (tile % a.n_ntiles) * BN, tr, rt, tc);
@@ -893,11 +933,16 @@ int prepare(Args* a, CUtensorMap* map, CUtensorMap* bmap, const void* kernel,
     return static_cast<int>(err);
   }
   // the plan assumed more blocks an SM than the card holds, or a grid the
-  // card cannot hold at once
-  if (per_sm < blocks || grid > static_cast<int64_t>(blocks) * sms ||
-      grid > a->n_tiles) {
+  // card cannot hold at once (blocks past the tiles have none: a
+  // cooperative kernel may run them for its other phase)
+  if (per_sm < blocks || grid > static_cast<int64_t>(blocks) * sms) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
+  // a cooperative grid of exactly `blocks` on every SM with fewer tiles:
+  // the kernel spreads its tiles over the SMs (tile_place)
+  a->spread =
+      a->n_tiles < grid && grid == blocks * sms && per_sm == blocks ? blocks
+                                                                     : 1;
   return 0;
 }
 
@@ -917,12 +962,15 @@ inline int kernel_blocks(const void* kernel, int threads, int smem) {
 
 }  // namespace igemm
 
-// Dispatch on the plan's tile width BN (4, 8, ..., 32 or 64) to a kernel
+// Dispatch on the plan's tile width BN and column threads NCT to a kernel
 // template K<T, TN, NCT>: NCT = 4 column threads of TN = BN / 4 columns
-// where BN <= 32, else 8 of 8.
-#define IGEMM_DISPATCH_BN(bn, CASE)                                        \
-  switch (bn) {                                                            \
+// where BN <= 32; at BN = 64 either 8 of 8 or 16 of 4 (the plan's nct).
+#define IGEMM_DISPATCH(bn, nct, CASE)                                      \
+  switch ((bn) * 32 + (nct)) {                                             \
     CASE(1, 4) CASE(2, 4) CASE(3, 4) CASE(4, 4) CASE(5, 4) CASE(6, 4)      \
-    CASE(7, 4) CASE(8, 4) CASE(8, 8)                                       \
+    CASE(7, 4) CASE(8, 4) CASE(8, 8) CASE(4, 16)                           \
     default: return static_cast<int>(cudaErrorInvalidValue);               \
   }
+
+// The case label of (TN, NCT) in IGEMM_DISPATCH.
+#define IGEMM_KEY(tn, nct) ((tn) * (nct) * 32 + (nct))

@@ -160,7 +160,7 @@ __global__ void __launch_bounds__(igemm::kIgMaxThreads, igemm::kIgMinBlocks)
 conv2d_kernel(const __grid_constant__ CUtensorMap amap,
               const __grid_constant__ CUtensorMap bmap,
               const __grid_constant__ igemm::Args a) {
-  igemm::run_tiles<T, TN, NCT>(&amap, &bmap, a);
+  igemm::run_tiles<T, TN, NCT>(&amap, &bmap, a, blockIdx.x);
 }
 
 template <typename T, int TN, int NCT>
@@ -178,23 +178,23 @@ int launch_conv(igemm::Args a, int path, int bm, int stages, int blocks,
 }
 
 template <typename T>
-int dispatch_conv(const igemm::Args& a, int path, int bm, int bn, int stages,
-                  int blocks, int grid, cudaStream_t s) {
+int dispatch_conv(const igemm::Args& a, int path, int bm, int bn, int nct,
+                  int stages, int blocks, int grid, cudaStream_t s) {
 #define CONV_CASE(tn, nct)                                               \
-  case tn * nct:                                                         \
+  case IGEMM_KEY(tn, nct):                                                   \
     return launch_conv<T, tn, nct>(a, path, bm, stages, blocks, grid, s);
-  IGEMM_DISPATCH_BN(bn, CONV_CASE)
+  IGEMM_DISPATCH(bn, nct, CONV_CASE)
 #undef CONV_CASE
 }
 
 template <typename T>
-int blocks_per_sm(int bn, int threads, int smem) {
+int blocks_per_sm(int bn, int nct, int threads, int smem) {
 #define BLOCKS_CASE(tn, nct)                                              \
-  case tn * nct:                                                          \
+  case IGEMM_KEY(tn, nct):                                                   \
     return igemm::kernel_blocks(                                          \
         reinterpret_cast<const void*>(conv2d_kernel<T, tn, nct>), threads, \
         smem);
-  IGEMM_DISPATCH_BN(bn, BLOCKS_CASE)
+  IGEMM_DISPATCH(bn, nct, BLOCKS_CASE)
 #undef BLOCKS_CASE
 }
 
@@ -238,14 +238,15 @@ extern "C" int img2col(const void* x, void* out, int unit_bytes,
 
 // x (H, W, C) conv w (kh, kw, C, N) -> out (OH, OW, N), through the host's
 // plan (kernels/img2col/img2col.py: conv_plan): `path` (TMA im2col or
-// cp.async), `bm` tile rows, `bn` tile columns, `stages`, the `blocks` an
-// SM must hold and the persistent `grid`.  `probe` 1 runs the FMA loop
-// alone (no loads; the output is then not the conv).
+// cp.async), `bm` tile rows, `bn` tile columns over `nct` column threads,
+// `stages`, the `blocks` an SM must hold and the persistent `grid`.
+// `probe` 1 runs the FMA loop alone (no loads; the output is then not the
+// conv).
 extern "C" int conv2d(const void* x, const void* w, void* out, int dtype,
                       int H, int W, int C, int kh, int kw, int stride,
                       int pad, int OH, int OW, int N, int path, int bm,
-                      int bn, int stages, int blocks, int grid, int probe,
-                      void* stream) {
+                      int bn, int nct, int stages, int blocks, int grid,
+                      int probe, void* stream) {
   // K == 0 (no input channels) is an empty sum: the kernel stores zeros
   if (OH <= 0 || OW <= 0 || N <= 0 || C < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -260,21 +261,23 @@ extern "C" int conv2d(const void* x, const void* w, void* out, int dtype,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return dispatch_conv<float>(a, path, bm, bn, stages, blocks, grid, s);
+      return dispatch_conv<float>(a, path, bm, bn, nct, stages, blocks, grid,
+                                  s);
     case kBf16:
-      return dispatch_conv<__nv_bfloat16>(a, path, bm, bn, stages, blocks,
-                                          grid, s);
+      return dispatch_conv<__nv_bfloat16>(a, path, bm, bn, nct, stages,
+                                          blocks, grid, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Blocks an SM holds of the conv kernel for (dtype, bn) at `threads`
+// Blocks an SM holds of the conv kernel for (dtype, bn, nct) at `threads`
 // threads and `smem` bytes of dynamic shared memory, or the negated CUDA
 // error: the host plan's occupancy input.
-extern "C" int conv2d_blocks(int dtype, int bn, int threads, int smem) {
+extern "C" int conv2d_blocks(int dtype, int bn, int nct, int threads,
+                             int smem) {
   switch (dtype) {
-    case kF32: return blocks_per_sm<float>(bn, threads, smem);
-    case kBf16: return blocks_per_sm<__nv_bfloat16>(bn, threads, smem);
+    case kF32: return blocks_per_sm<float>(bn, nct, threads, smem);
+    case kBf16: return blocks_per_sm<__nv_bfloat16>(bn, nct, threads, smem);
     default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }

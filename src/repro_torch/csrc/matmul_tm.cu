@@ -1,31 +1,20 @@
-// Cross-engine kernels for Hopper (sm_90a): a product with a data-movement
-// store or load around it, in ONE launch each.
+// The product with a TM store for Hopper (sm_90a), in ONE launch.
 //
-// Replaces two Pallas kernels of the JAX package (the third cross-engine
-// one, _commit_executable, is xchain_commit.cu):
-//   matmul_tm       src/repro/kernels/matmul_tm/matmul_tm.py: matmul_tm
-//                   (body _mm_kernel): a tiled x @ w whose store writes each
-//                   tile to its TM destination (identity, transpose, pixel
-//                   shuffle, a split band);
-//   xchain_prologue src/repro/kernels/matmul_tm/chain.py:
-//                   _prologue_executable: a forwarding chain feeding one
-//                   operand of a 2D product or an NHWC conv (TM -> compute),
-//                   the chain's output never stored.
+// Replaces the JAX package's Pallas kernel in
+// src/repro/kernels/matmul_tm/matmul_tm.py: matmul_tm (body _mm_kernel): a
+// tiled x @ w whose store writes each tile to its TM destination
+// (identity, transpose, pixel shuffle, a split band).  The other two
+// cross-engine kernels are xchain_commit.cu and xchain_prologue.cu.
 //
-// The product is an implicit GEMM, out[m, n] = sum_k A(m, k) B(k, n):
-//   mm    A(m, k) = x[m K + k], B(k, n) = w[k ldb + col0 + n];
-//   conv  m = (b, oh, ow), k = (ky, kx, ci) (the img2col column order),
-//         A(m, k) = x[b, oh s + ky - pt, ow s + kx - pl, ci] (0 outside x),
-//         B(k, n) = w[k N + n] (HWIO weights flattened), out NHWC.
-// Floats accumulate in f32 (bf16 inputs widened) and round to the element
-// type once, as _mm_kernel's f32 accumulator cast at commit; integers
-// accumulate in uint32, which wraps, and truncate to the element type: the
-// exact sum modulo 2^bits, what an integer dot_general or mm gives.
+// out[m, n] = sum_k x[m K + k] w[k ldb + col0 + n].  Floats accumulate in
+// f32 (bf16 inputs widened) and round to the element type once, as
+// _mm_kernel's f32 accumulator cast at commit; integers accumulate in
+// uint32, which wraps, and truncate to the element type: the exact sum
+// modulo 2^bits, what an integer dot_general or mm gives.
 //
 // Summation order, on which the float tolerance depends: every output sums
-// its K products one at a time in ascending k with fmaf (conv: ky, then kx,
-// then ci; a tap outside x contributes nothing).  Two evaluations in other
-// orders lie within 2 gamma_K sum |A B| of each other
+// its K products one at a time in ascending k with fmaf.  Two evaluations
+// in other orders lie within 2 gamma_K sum |A B| of each other
 // (core/fp_bounds.py).
 //
 // matmul_tm (mm_tm_kernel): a streamed tall-skinny product with a staged TM
@@ -69,16 +58,7 @@
 //     runs than a pass has rows, stores element by element.
 // No tensor cores: the operands are f32 and TF32 keeps about three digits.
 //
-// xchain_prologue (gemm_kernel) is a simple kernel, bounded by operations
-// (2 M N K f32 over 67 TFLOP/s) or bytes, whichever is larger: a 64x64
-// output tile per block of 256 threads, 4x4 outputs per thread, the K loop
-// in steps of 16 staged in shared memory.  It loads its crossing operand's
-// tile THROUGH the chain's pullback (chain_desc.cuh) from the chain's
-// sources, element by element, so no TMA can feed it: the tile staged in
-// shared memory is the chain's output, which never reaches device memory.
-//
-// The accumulator types, the geometry table (Gemm) and the mbarrier and
-// TMA helpers are igemm.cuh's.
+// The accumulator types and the mbarrier and TMA helpers are igemm.cuh's.
 //
 // Element types: int8, int32, bf16, f32.  Each entry point returns
 // cudaGetLastError() after its launch.
@@ -96,15 +76,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 64;  // output tile rows
-constexpr int kBN = 64;  // output tile columns
-constexpr int kBK = 16;  // K step staged in shared memory
-constexpr int kTM = 4;   // outputs per thread along m
-constexpr int kTN = 4;   // outputs per thread along n
-
 using igemm::Acc;
-using igemm::Gemm;
 using igemm::align_up;
 using igemm::elem;
 using igemm::from_word;
@@ -113,166 +85,13 @@ using igemm::mbar_expect_tx;
 using igemm::mbar_init;
 using igemm::mbar_wait;
 using igemm::narrow;
-using igemm::parse_gemm;
 using igemm::smem_u32;
 using igemm::tma_load_2d;
 using igemm::tma_type;
 using igemm::widen;
 using igemm::word;
 
-// ---------------------------------------------------------------------------
-// the product's geometry (igemm::Gemm)
-// ---------------------------------------------------------------------------
-
-// Flat index of A(m, k) in x, or -1 for a conv tap outside x.
-__device__ __forceinline__ int64_t a_index(const Gemm& g, int64_t m,
-                                           int64_t k) {
-  if (g.kind == 0) return m * g.K + k;
-  const int64_t ow = m % g.OW;
-  const int64_t t = m / g.OW;
-  const int64_t oh = t % g.OH;
-  const int64_t b = t / g.OH;
-  const int64_t ci = k % g.C;
-  const int64_t tap = k / g.C;
-  const int64_t ih = oh * g.stride + tap / g.kw - g.pt;
-  const int64_t iw = ow * g.stride + tap % g.kw - g.pl;
-  if (ih < 0 || ih >= g.H || iw < 0 || iw >= g.W) return -1;
-  return ((b * g.H + ih) * g.W + iw) * g.C + ci;
-}
-
-// ---------------------------------------------------------------------------
-// tiled product of xchain_prologue (one operand loaded through the chain,
-// a plain store); the store modes are matmul_tm's as well
-// ---------------------------------------------------------------------------
-
-enum Src { kChainA = 1, kChainB = 2 };  // the operand read through the chain
 enum StoreMode { kIdentity = 0, kTranspose = 1, kPixelShuffle = 2 };
-
-struct Store {
-  int64_t mode;
-  int64_t H, W, C, s;  // pixel shuffle: rows are the H x W pixels in raster
-                       // order, columns the C s^2 channels, c-major
-};
-
-// Where out[m, n] lands.  Transpose: out (N, M).  Pixel shuffle: m = y W +
-// x, n = ch s^2 + dy s + dx -> (y s + dy, x s + dx, ch) of (H s, W s, C).
-__device__ __forceinline__ int64_t store_index(const Store& st,
-                                               const Gemm& g, int64_t m,
-                                               int64_t n) {
-  if (st.mode == kTranspose) return n * g.M + m;
-  if (st.mode == kPixelShuffle) {
-    const int64_t y = m / st.W, x = m % st.W;
-    const int64_t ch = n / (st.s * st.s), r = n % (st.s * st.s);
-    const int64_t dy = r / st.s, dx = r % st.s;
-    return ((y * st.s + dy) * (st.W * st.s) + x * st.s + dx) * st.C + ch;
-  }
-  return m * g.N + n;
-}
-
-template <typename T, int kSrc>
-__global__ void __launch_bounds__(kThreads)
-gemm_kernel(const T* __restrict__ xa, const T* __restrict__ wb,
-            T* __restrict__ out, const __grid_constant__ chain::Chain c,
-            const __grid_constant__ Gemm g, const __grid_constant__ Store st) {
-  using A = typename Acc<T>::type;
-  __shared__ A As[kBK][kBM];
-  __shared__ A Bs[kBK][kBN];
-  const int t = threadIdx.x;
-  const int ty = t / (kBN / kTN), tx = t % (kBN / kTN);
-  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kBM;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kBN;
-  A acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0;
-  }
-  for (int64_t k0 = 0; k0 < g.K; k0 += kBK) {
-    // stage the A tile (kBM x kBK) and the B tile (kBK x kBN); neighbouring
-    // threads take neighbouring k (A) and n (B), the operands' minor axes
-#pragma unroll
-    for (int l = 0; l < kBM * kBK / kThreads; ++l) {
-      const int e = t + l * kThreads;
-      const int r = e / kBK, kk = e % kBK;
-      const int64_t m = m0 + r, k = k0 + kk;
-      A v = 0;
-      if (m < g.M && k < g.K) {
-        const int64_t ai = a_index(g, m, k);
-        if (ai >= 0) {
-          v = widen(kSrc == kChainA ? chain::eval<T>(xa, c, ai) : xa[ai]);
-        }
-      }
-      As[kk][r] = v;
-    }
-#pragma unroll
-    for (int l = 0; l < kBK * kBN / kThreads; ++l) {
-      const int e = t + l * kThreads;
-      const int kk = e / kBN, cc = e % kBN;
-      const int64_t k = k0 + kk, n = n0 + cc;
-      A v = 0;
-      if (k < g.K && n < g.N) {
-        const int64_t bi = k * g.ldb + g.col0 + n;
-        v = widen(kSrc == kChainB ? chain::eval<T>(wb, c, bi) : wb[bi]);
-      }
-      Bs[kk][cc] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      A a[kTM], b[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = As[kk][ty + i * (kBM / kTM)];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) b[j] = Bs[kk][tx + j * (kBN / kTN)];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = mac(a[i], b[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int64_t m = m0 + ty + i * (kBM / kTM);
-    if (m >= g.M) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int64_t n = n0 + tx + j * (kBN / kTN);
-      if (n < g.N) out[store_index(st, g, m, n)] = narrow<T>(acc[i][j]);
-    }
-  }
-}
-
-template <typename T, int kSrc>
-void launch_gemm(const void* xa, const void* wb, void* out,
-                 const chain::Chain& c, const Gemm& g, const Store& st,
-                 cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>((g.N + kBN - 1) / kBN),
-                  static_cast<unsigned>((g.M + kBM - 1) / kBM));
-  gemm_kernel<T, kSrc><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(xa), static_cast<const T*>(wb),
-      static_cast<T*>(out), c, g, st);
-}
-
-template <int kSrc>
-int dispatch_gemm(int dtype, const void* xa, const void* wb, void* out,
-                  const chain::Chain& c, const Gemm& g, const Store& st,
-                  cudaStream_t s) {
-  switch (dtype) {
-    case chain::kInt8: launch_gemm<int8_t, kSrc>(xa, wb, out, c, g, st, s);
-      break;
-    case chain::kInt32: launch_gemm<int32_t, kSrc>(xa, wb, out, c, g, st, s);
-      break;
-    case chain::kBf16:
-      launch_gemm<__nv_bfloat16, kSrc>(xa, wb, out, c, g, st, s);
-      break;
-    case chain::kF32: launch_gemm<float, kSrc>(xa, wb, out, c, g, st, s);
-      break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // matmul_tm: the streamed tall-skinny product (mm_tm_kernel)
@@ -300,7 +119,7 @@ struct MmArgs {
   const void* w;
   void* out;
   int64_t M, N, K, ldb, col0;
-  int64_t mode, W, C, s;  // the store (Store, above)
+  int64_t mode, W, C, s;  // the store (StoreMode; pixel shuffle geometry)
   int n_chunks;              // K steps of kMmChunk bytes
   int n_ntiles;              // column tiles
   int n_tiles;               // row tiles x column tiles
@@ -922,24 +741,4 @@ extern "C" int matmul_tm(const void* x, const void* w, void* out, int dtype,
     case chain::kF32: return dispatch_mm<float>(a, bn, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// The product (geometry in `gemm`) whose operand `cross_pos` (0: x, 1: w)
-// is the output of the chain in `desc` over `src`; `other` is the other
-// operand.  out is (M, N) row-major (mm) or NHWC (conv).
-extern "C" int xchain_prologue(const void* src, const void* other, void* out,
-                               const int64_t* desc, const int64_t* gemm,
-                               int dtype, int cross_pos, int n_levels,
-                               int n_extras, void* stream) {
-  chain::Chain c;
-  Gemm g;
-  if (!chain::parse(desc, n_levels, n_extras, &c) || !parse_gemm(gemm, &g) ||
-      (cross_pos != 0 && cross_pos != 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Store st = {kIdentity, 0, 0, 0, 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return cross_pos == 0
-             ? dispatch_gemm<kChainA>(dtype, src, other, out, c, g, st, s)
-             : dispatch_gemm<kChainB>(dtype, other, src, out, c, g, st, s);
 }

@@ -6,7 +6,9 @@
 //     axis permutation with block-aligned offsets; transpose, rot90, split,
 //     the Add epilogue);
 //   * tm_affine_gather <- _gather_call / _gather_kernel (gather mode: any
-//     MixedRadixMap, out-of-bounds elements read the fill register).
+//     MixedRadixMap, out-of-bounds elements read the fill register; a
+//     separable path for maps whose address splits into a run table and a
+//     per-run base, a general path for the rest).
 //
 // Bound on an H100: both kernels only move data, so the bound is the bytes
 // they must move (input read once, epilogue operand read once, output
@@ -32,17 +34,34 @@
 //   * scalar — what neither takes (a reversed innermost axis, 64-bit
 //     maps): one thread per output element in a grid-stride loop.
 //
-// Gather mode: one thread per output element in a grid-stride loop, so
-// consecutive threads write consecutive output elements (coalesced
-// stores).  Each thread computes its source address from the map itself,
-// the TMU's own address generator: the block kernel from per-axis signed
-// strides, the gather kernel from the mixed-radix digit splits and the
-// integer affine rows (numerators, offset numerator, common denominator,
-// floor division), validity against in_shape and the digit bounds.  The
-// Pallas gather kernel instead streams a precomputed int32 index and a bool
-// mask beside the data (5 bytes per element, more than an int8 or bf16
-// element itself); here the only traffic is the data.  So that the address
-// arithmetic stays below the memory time:
+// Gather mode has two paths, chosen by the host's plan
+// (kernels/tm_affine/tm_affine.py: separable_plan, gather_launch):
+//   * separable (sep_kernel) — the maps of the main path (upsample, pixel
+//     shuffle and unshuffle, rearrange, pads, reshapes) have a suffix of
+//     output axes over which the source address separates into base(outer
+//     digits) + off[p]: a run of R consecutive output elements whose
+//     sources are one table of offsets from a base that only the outer
+//     digits decide.  The host builds the table (R int32 entries, fill
+//     marked) and the outer map's words; the kernel stages the table in
+//     shared memory, decodes each run's base once (magic-number divisions,
+//     one thread a run, a step ahead), and moves the run as 16-byte
+//     accesses where the table and every base keep them aligned (upsample:
+//     a whole output pixel's channels from one source pixel), else element
+//     by element;
+//   * general (gather_kernel) — what no suffix within the table's cap
+//     separates (img2col-like maps whose rows mix outer and inner digits
+//     under a bounds check), and 64-bit maps: one thread per output element
+//     in a grid-stride loop, so consecutive threads write consecutive
+//     output elements (coalesced stores).  Each thread computes its source
+//     address from the map itself, the TMU's own address generator: the
+//     mixed-radix digit splits and the integer affine rows (numerators,
+//     offset numerator, common denominator, floor division), validity
+//     against in_shape and the digit bounds.
+// The Pallas gather kernel instead streams a precomputed int32 index and a
+// bool mask beside the data (5 bytes per element, more than an int8 or bf16
+// element itself); here the only traffic is the data (and, on the
+// separable path, a table of at most 32 KB per block).  So that the
+// general kernel's address arithmetic stays below the memory time:
 //   * the map's registers are an int64 array in device memory, staged into
 //     shared memory once per block;
 //   * where the host proves every index fits in 31 bits the arithmetic is
@@ -229,6 +248,7 @@ block_kernel(const T* __restrict__ x, const T* __restrict__ y,
 // ---------------------------------------------------------------------------
 
 template <int VB> struct VecOf;
+template <> struct VecOf<1> { using type = uint8_t; };
 template <> struct VecOf<2> { using type = uint16_t; };
 template <> struct VecOf<4> { using type = uint32_t; };
 template <> struct VecOf<8> { using type = uint2; };
@@ -565,6 +585,189 @@ gather_kernel(const T* __restrict__ x, const T* __restrict__ y,
 }
 
 // ---------------------------------------------------------------------------
+// gather mode, separable path
+//
+// The host (kernels/tm_affine/tm_affine.py: separable_plan) found a suffix
+// of output axes over which the source address separates: output element
+// p of run q (runs of U accesses, each of VB bytes: one element, or 16
+// bytes) reads unit base(q) + off[p] of x where valid(q) and
+// off[p] != kSepInvalid, else the fill.  base and valid(q) depend only on
+// the outer digits (the axes before the suffix and their splits); off is a
+// table of U int32 entries, in units of V bytes.
+//
+// words (int64):
+//   [0] outer axes  [1] outer splits  [2] outer rows  [3] outer bounds
+//   [4] U  [5] its magic  [6] its shifts  [7] fill bits
+//   [12 + a] outer extent  [24 + a] its magic  [36 + a] its shifts
+//   [48 + j] split axis  [60 + j] radix  [72 + j] its magic  [84 + j] shifts
+//   [96 + k] bounded outer digit  [108 + k] its bound
+//   [120 + 5 r + f] row r: f = 0 offset numerator, 1 denominator, 2 the
+//       largest in-range coordinate, 3 stride (units), 4 checked
+//   [180 + 24 r + d] row r's numerator of outer digit d
+// The outer digit vector is (the outer coordinates with quotients in
+// place, the outer splits' remainders in order), as expand_digits.
+// ---------------------------------------------------------------------------
+
+constexpr int kSepThreads = 128;
+constexpr int kSepMaxChunk = 2048;  // accesses of a block step, at most
+constexpr int kSepWords = 180 + kMaxAxes * kMaxDigits;
+constexpr int kSepMaxTable = 8192;  // tm_affine.py SEP_CAP
+constexpr int32_t kSepInvalid = INT32_MIN;  // a table entry: fill
+constexpr int32_t kSepNoRun = INT32_MIN;    // a run's base: the run is fill
+
+// accesses a thread keeps in flight: 8 of 16 bytes, 16 of one element
+template <int VB>
+__host__ __device__ constexpr int sep_per() { return VB >= 8 ? 8 : 16; }
+
+// base of run q from the outer digits, or kSepNoRun where a digit bound or
+// a checked row fails (32-bit: the host proves every partial sum fits and
+// |base| < 2^31, so no base is kSepNoRun)
+__device__ __forceinline__ int32_t sep_run(const int64_t* w, uint32_t q) {
+  const int n_ax = static_cast<int>(w[0]);
+  const int n_sp = static_cast<int>(w[1]);
+  const int n_rows = static_cast<int>(w[2]);
+  const int n_bounds = static_cast<int>(w[3]);
+  uint32_t dig[kMaxDigits];
+  uint32_t rem = q;
+  for (int a = n_ax - 1; a > 0; --a) {
+    const uint32_t d = Index<true>::div(rem, w[12 + a], w[24 + a], w[36 + a]);
+    dig[a] = rem - d * static_cast<uint32_t>(w[12 + a]);
+    rem = d;
+  }
+  if (n_ax > 0) dig[0] = rem;
+  for (int j = 0; j < n_sp; ++j) {
+    const int ax = static_cast<int>(w[48 + j]);
+    const uint32_t v = dig[ax];
+    const uint32_t d = Index<true>::div(v, w[60 + j], w[72 + j], w[84 + j]);
+    dig[ax] = d;
+    dig[n_ax + j] = v - d * static_cast<uint32_t>(w[60 + j]);
+  }
+  bool ok = true;
+  for (int k = 0; k < n_bounds; ++k) {
+    ok = ok && static_cast<int64_t>(dig[w[96 + k]]) < w[108 + k];
+  }
+  int32_t b = 0;
+  for (int r = 0; r < n_rows; ++r) {
+    const int64_t* row = w + 120 + 5 * r;
+    const int64_t* nums = w + 180 + kMaxDigits * r;
+    int32_t acc = static_cast<int32_t>(row[0]);
+    for (int d = 0; d < n_ax + n_sp; ++d) {
+      acc += static_cast<int32_t>(nums[d]) * static_cast<int32_t>(dig[d]);
+    }
+    const int32_t den = static_cast<int32_t>(row[1]);
+    int32_t c = den == 1 ? acc : floordiv<int32_t>(acc, den);
+    if (row[4] != 0) {
+      const int32_t hi = static_cast<int32_t>(row[2]);
+      ok = ok && c >= 0 && c <= hi;
+      c = c < 0 ? 0 : (c > hi ? hi : c);
+    }
+    b += c * static_cast<int32_t>(row[3]);
+  }
+  return ok ? b : kSepNoRun;
+}
+
+// The bases of the runs that accesses [c0, c1) touch, into s_base.
+__device__ __forceinline__ void sep_decode(const int64_t* w, uint32_t c0,
+                                           uint32_t c1, uint32_t U,
+                                           int32_t* s_base) {
+  const uint32_t first = Index<true>::div(c0, U, w[5], w[6]);
+  const uint32_t n_runs = Index<true>::div(c1 - 1, U, w[5], w[6]) - first + 1;
+  for (uint32_t r = threadIdx.x; r < n_runs; r += kSepThreads) {
+    s_base[r] = sep_run(w, first + r);
+  }
+}
+
+// A block step moves P x kSepThreads consecutive accesses of the output,
+// thread t taking accesses t, t + kSepThreads, ... (consecutive threads on
+// consecutive accesses: coalesced stores), its P loads issued before its
+// stores.  The runs a step touches are decoded into shared memory one
+// step ahead, one thread a run, between the step's loads and its stores,
+// so that the decode overlaps the loads in flight; two buffers of bases
+// and one barrier a step.  The run table sits in shared memory for the
+// block's life.
+template <typename T, int EW, int VB>
+__global__ void __launch_bounds__(kSepThreads, 8)
+sep_kernel(const typename VecOf<VB>::type* __restrict__ x,
+           const typename VecOf<VB>::type* __restrict__ y,
+           typename VecOf<VB>::type* __restrict__ out,
+           const int64_t* __restrict__ words,
+           const int32_t* __restrict__ offs, uint32_t n_units) {
+  using V = typename VecOf<VB>::type;
+  constexpr int P = sep_per<VB>();
+  constexpr uint32_t kChunk = kSepThreads * P;
+  static_assert(kChunk <= kSepMaxChunk, "a step's runs overflow s_base");
+  __shared__ int64_t w[kSepWords];
+  __shared__ int32_t s_base[2][kSepMaxChunk + 1];
+  extern __shared__ int32_t s_off[];
+  for (int k = threadIdx.x; k < kSepWords; k += blockDim.x) w[k] = words[k];
+  const uint32_t U = static_cast<uint32_t>(words[4]);
+  for (uint32_t k = threadIdx.x; k < U; k += blockDim.x) s_off[k] = offs[k];
+  V fill;
+  {
+    const int64_t bits = words[7];
+    T f;
+    memcpy(&f, &bits, sizeof(T));
+    T lanes[VB / sizeof(T)];
+#pragma unroll
+    for (int e = 0; e < static_cast<int>(VB / sizeof(T)); ++e) lanes[e] = f;
+    memcpy(&fill, lanes, VB);
+  }
+  __syncthreads();
+  const int64_t umg = w[5], ush = w[6];
+  const int t = threadIdx.x;
+  const uint32_t step = gridDim.x * kChunk;
+  uint32_t c0 = blockIdx.x * kChunk;
+  if (c0 < n_units) {
+    sep_decode(w, c0, n_units - c0 < kChunk ? n_units : c0 + kChunk, U,
+               s_base[0]);
+  }
+  __syncthreads();
+  for (int b = 0; c0 < n_units; c0 += step, b ^= 1) {
+    const uint32_t c1 = n_units - c0 < kChunk ? n_units : c0 + kChunk;
+    const uint32_t first = Index<true>::div(c0, U, umg, ush);
+    const int32_t* bases = s_base[b];
+    V v[P];
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      const uint32_t i = c0 + t + u * kSepThreads;
+      v[u] = fill;
+      if (i < c1) {
+        const uint32_t q = Index<true>::div(i, U, umg, ush);
+        const int32_t o = s_off[i - q * U];
+        const int32_t base = bases[q - first];
+        if (base != kSepNoRun && o != kSepInvalid) v[u] = x[base + o];
+      }
+    }
+    // the next step's runs, while this step's loads are in flight
+    if (c0 + step < n_units) {
+      const uint32_t n0 = c0 + step;
+      sep_decode(w, n0, n_units - n0 < kChunk ? n_units : n0 + kChunk, U,
+                 s_base[b ^ 1]);
+    }
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      const uint32_t i = c0 + t + u * kSepThreads;
+      if (i < c1) {
+        V o = v[u];
+        if constexpr (EW != kNone) {
+          if constexpr (VB == sizeof(T)) {
+            T a, e;
+            memcpy(&a, &o, sizeof(T));
+            memcpy(&e, &y[i], sizeof(T));
+            a = apply_ew<T, EW>(a, e);
+            memcpy(&o, &a, sizeof(T));
+          } else {
+            o = apply_ew_vec<T, EW>(o, y[i]);
+          }
+        }
+        out[i] = o;
+      }
+    }
+    __syncthreads();  // the next step reads s_base[b ^ 1]; b is free again
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side: pick the instantiation and launch
 // ---------------------------------------------------------------------------
 
@@ -706,6 +909,83 @@ int block_path(int dtype, int ew, int path, int vb, const void* x,
   }
 }
 
+// sep_kernel's static shared memory: its words and two steps' run bases
+constexpr size_t kSepStaticSmem =
+    sizeof(int64_t) * kSepWords + sizeof(int32_t) * 2 * (kSepMaxChunk + 1);
+
+template <typename T, int EW, int VB>
+int launch_sep_vec(const void* x, const void* y, void* out,
+                   const int64_t* w, const int32_t* o, int64_t units,
+                   size_t dyn, cudaStream_t stream) {
+  using V = typename VecOf<VB>::type;
+  const int64_t cap = 132 * 16;  // blocks in flight; the loop strides
+  const int64_t chunk = kSepThreads * sep_per<VB>();
+  const int64_t chunks = (units + chunk - 1) / chunk;
+  // a run table past the 48 KB a block gets without asking
+  if (kSepStaticSmem + dyn > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sep_kernel<T, EW, VB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(dyn));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  sep_kernel<T, EW, VB>
+      <<<static_cast<unsigned>(chunks < cap ? chunks : cap), kSepThreads,
+         dyn, stream>>>(static_cast<const V*>(x), static_cast<const V*>(y),
+                        static_cast<V*>(out), w, o,
+                        static_cast<uint32_t>(units));
+  return 0;
+}
+
+// the separable path: the instantiation for (T, EW, vbytes), accesses of
+// one element or of 16 bytes, the run table in dynamic shared memory
+template <typename T, int EW>
+int launch_sep(int vbytes, const void* x, const void* y, void* out,
+               const void* words, const void* offs, int64_t numel,
+               int table_len, cudaStream_t stream) {
+  const int ve = vbytes / static_cast<int>(sizeof(T));
+  if (ve < 1 || vbytes % static_cast<int>(sizeof(T)) != 0 || numel % ve != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t units = numel / ve;
+  const size_t dyn = static_cast<size_t>(table_len) * sizeof(int32_t);
+  const int64_t* w = static_cast<const int64_t*>(words);
+  const int32_t* o = static_cast<const int32_t*>(offs);
+  if (vbytes == static_cast<int>(sizeof(T))) {
+    return launch_sep_vec<T, EW, sizeof(T)>(x, y, out, w, o, units, dyn,
+                                            stream);
+  }
+  if (vbytes == 16) {
+    return launch_sep_vec<T, EW, 16>(x, y, out, w, o, units, dyn, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int sep_ew(int ew, int vbytes, const void* x, const void* y, void* out,
+           const void* words, const void* offs, int64_t numel, int table_len,
+           cudaStream_t s) {
+  switch (ew) {
+    case kNone: return launch_sep<T, kNone>(vbytes, x, y, out, words, offs, numel, table_len, s);
+    case kAdd: return launch_sep<T, kAdd>(vbytes, x, y, out, words, offs, numel, table_len, s);
+    case kSub: return launch_sep<T, kSub>(vbytes, x, y, out, words, offs, numel, table_len, s);
+    case kMul: return launch_sep<T, kMul>(vbytes, x, y, out, words, offs, numel, table_len, s);
+    case kMax: return launch_sep<T, kMax>(vbytes, x, y, out, words, offs, numel, table_len, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int sep_dtype(int dtype, int ew, int vbytes, const void* x, const void* y,
+              void* out, const void* words, const void* offs, int64_t numel,
+              int table_len, cudaStream_t s) {
+  switch (dtype) {
+    case kInt8: return sep_ew<int8_t>(ew, vbytes, x, y, out, words, offs, numel, table_len, s);
+    case kInt32: return sep_ew<int32_t>(ew, vbytes, x, y, out, words, offs, numel, table_len, s);
+    case kBf16: return sep_ew<__nv_bfloat16>(ew, vbytes, x, y, out, words, offs, numel, table_len, s);
+    case kF32: return sep_ew<float>(ew, vbytes, x, y, out, words, offs, numel, table_len, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // Block mode over the host's path (regs [50]): kScalar runs block_kernel
@@ -734,10 +1014,30 @@ extern "C" int tm_affine_block(const void* x, const void* y, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Gather mode over the host's path: 0 runs the general kernel over the
+// register file `regs` (n_digits digits, `narrow` 32-bit); 1 runs the
+// separable kernel over its words `regs` and run table `offs` (table_len
+// entries), moving numel elements as accesses of `vbytes` bytes (x, y and
+// out aligned to it).
 extern "C" int tm_affine_gather(const void* x, const void* y, void* out,
                                 const void* regs, int dtype, int ew,
                                 int64_t numel, int narrow, int n_digits,
-                                void* stream) {
-  return launch<true>(x, y, out, regs, dtype, ew, numel, narrow, n_digits,
-                      stream);
+                                int path, int vbytes, const void* offs,
+                                int table_len, void* stream) {
+  if (path == 0) {
+    return launch<true>(x, y, out, regs, dtype, ew, numel, narrow, n_digits,
+                        stream);
+  }
+  const uintptr_t any = reinterpret_cast<uintptr_t>(x) |
+                        reinterpret_cast<uintptr_t>(y) |
+                        reinterpret_cast<uintptr_t>(out);
+  if (path != 1 || numel <= 0 || numel >= (int64_t{1} << 31) || !narrow ||
+      offs == nullptr || vbytes <= 0 || any % vbytes != 0 ||
+      table_len < 1 || table_len > kSepMaxTable) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rc = sep_dtype(dtype, ew, vbytes, x, y, out, regs, offs, numel,
+                           table_len, static_cast<cudaStream_t>(stream));
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
 }

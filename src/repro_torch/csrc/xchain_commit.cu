@@ -25,10 +25,11 @@
 //   3. The chain phase: every output element i walks the chain of
 //      chain_desc.cuh with the scratch as its source (j[i] the product
 //      element it reads; levels, masks, fills, epilogue operands and extra
-//      Route bands as the chain megakernel, tm_chain.cu, walks them), eight
-//      elements a thread at a time so that their dependent loads (j, then
-//      the scratch) overlap.  The scratch is read through L2
-//      (ld.global.cg): it was written by other SMs in this launch.
+//      Route bands as the chain megakernel, tm_chain.cu, walks them), by
+//      chain_walk.cuh's walk (shared with xchain_prologue.cu): eight
+//      elements a thread at a time, their loads issued in rounds.  The
+//      scratch is read through L2 (ld.global.cg): it was written by other
+//      SMs in this launch.
 // Variants that run one phase (`phases` 1: the product, then the barrier;
 // 2: the barrier, then the chain over whatever the scratch holds) time the
 // two phases apart.  Element types: int8, int32 (bit-exact, the sums wrap),
@@ -42,103 +43,12 @@
 #include <string.h>
 
 #include "chain_desc.cuh"
+#include "chain_walk.cuh"
 #include "igemm.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
-
-constexpr int kChainStep = 8;  // chain-phase elements a thread per step
-
-// the scratch's element i, read at L2
-template <typename T>
-__device__ __forceinline__ T load_cg(const T* p) {
-  if constexpr (sizeof(T) == 4) {
-    const unsigned int u = __ldcg(reinterpret_cast<const unsigned int*>(p));
-    T v;
-    memcpy(&v, &u, 4);
-    return v;
-  } else if constexpr (sizeof(T) == 2) {
-    const unsigned short u =
-        __ldcg(reinterpret_cast<const unsigned short*>(p));
-    T v;
-    memcpy(&v, &u, 2);
-    return v;
-  } else {
-    const signed char u = __ldcg(reinterpret_cast<const signed char*>(p));
-    T v;
-    memcpy(&v, &u, 1);
-    return v;
-  }
-}
-
-// The chain walk over the output, its source the scratch y.  A thread takes
-// kChainStep elements a step, nthreads apart, so that each load of a warp
-// covers 32 consecutive outputs (their j coalesced, their scratch reads as
-// few sectors as the chain's map allows); the loads of the step are issued
-// together (each scratch read depends on its j: one at a time the phase
-// would wait a round trip per element).  A chain with no mask, epilogue or
-// extra band (a pure gather, as ESPCN's PixelShuffle) skips the walk.  One
-// copy per element type, not per tile shape.
-template <typename T>
-__device__ __noinline__ void chain_phase(const chain::Chain& c, const T* y,
-                                         T* out, int64_t numel) {
-  const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                        threadIdx.x;
-  bool gather = c.n_extras == 0;
-  for (int l = 0; l < c.n_levels; ++l) {
-    gather = gather && c.level[l].mask == nullptr &&
-             c.level[l].ew == chain::kNone;
-  }
-  if (gather) {
-    for (int64_t i0 = first; i0 < numel; i0 += nthreads * kChainStep) {
-      int jv[kChainStep];
-#pragma unroll
-      for (int u = 0; u < kChainStep; ++u) {
-        const int64_t i = i0 + u * nthreads;
-        jv[u] = i < numel ? c.j[i] : 0;
-      }
-      T v[kChainStep];
-#pragma unroll
-      for (int u = 0; u < kChainStep; ++u) v[u] = load_cg(y + jv[u]);
-#pragma unroll
-      for (int u = 0; u < kChainStep; ++u) {
-        const int64_t i = i0 + u * nthreads;
-        if (i < numel) out[i] = v[u];
-      }
-    }
-    return;
-  }
-  for (int64_t i0 = first; i0 < numel; i0 += nthreads * kChainStep) {
-    int jv[kChainStep];
-    bool need[kChainStep];
-#pragma unroll
-    for (int u = 0; u < kChainStep; ++u) {
-      const int64_t i = i0 + u * nthreads;
-      jv[u] = i < numel ? c.j[i] : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < kChainStep; ++u) {
-      const int64_t i = i0 + u * nthreads;
-      need[u] = i < numel && chain::source_needed(c, i);
-    }
-    T v[kChainStep];
-    // a read the chain masks out reads y[0] in its place
-#pragma unroll
-    for (int u = 0; u < kChainStep; ++u) {
-      v[u] = load_cg(y + (need[u] ? jv[u] : 0));
-    }
-#pragma unroll
-    for (int u = 0; u < kChainStep; ++u) {
-      const int64_t i = i0 + u * nthreads;
-      if (i < numel) {
-        out[i] = chain::apply<T>(c, need[u] ? v[u] : chain::from_bits<T>(0),
-                                 i);
-      }
-    }
-  }
-}
 
 template <typename T, int TN, int NCT>
 __global__ void __launch_bounds__(igemm::kIgMaxThreads, igemm::kIgMinBlocks)
@@ -147,10 +57,12 @@ commit_kernel(const __grid_constant__ CUtensorMap amap,
               const __grid_constant__ igemm::Args a,
               const __grid_constant__ chain::Chain c, T* __restrict__ out,
               int64_t numel, int phases) {
-  if (phases & 1) igemm::run_tiles<T, TN, NCT>(&amap, &bmap, a);  // to scratch
+  if (phases & 1) {
+    igemm::run_tiles<T, TN, NCT>(&amap, &bmap, a, blockIdx.x);  // to scratch
+  }
   cg::this_grid().sync();
   if (!(phases & 2)) return;
-  chain_phase<T>(c, static_cast<const T*>(a.out), out, numel);
+  chain::walk<T>(c, static_cast<const T*>(a.out), out, numel);
 }
 
 template <typename T, int TN, int NCT>
@@ -183,24 +95,24 @@ int launch_commit(igemm::Args a, const chain::Chain& c, void* out,
 
 template <typename T>
 int dispatch(const igemm::Args& a, const chain::Chain& c, void* out,
-             int64_t numel, int path, int bm, int bn, int stages, int blocks,
-             int grid, int phases, cudaStream_t s) {
+             int64_t numel, int path, int bm, int bn, int nct, int stages,
+             int blocks, int grid, int phases, cudaStream_t s) {
 #define COMMIT_CASE(tn, nct)                                              \
-  case tn * nct:                                                          \
+  case IGEMM_KEY(tn, nct):                                                   \
     return launch_commit<T, tn, nct>(a, c, out, numel, path, bm, stages, \
                                      blocks, grid, phases, s);
-  IGEMM_DISPATCH_BN(bn, COMMIT_CASE)
+  IGEMM_DISPATCH(bn, nct, COMMIT_CASE)
 #undef COMMIT_CASE
 }
 
 template <typename T>
-int blocks_per_sm(int bn, int threads, int smem) {
+int blocks_per_sm(int bn, int nct, int threads, int smem) {
 #define BLOCKS_CASE(tn, nct)                                              \
-  case tn * nct:                                                          \
+  case IGEMM_KEY(tn, nct):                                                   \
     return igemm::kernel_blocks(                                          \
         reinterpret_cast<const void*>(commit_kernel<T, tn, nct>), threads, \
         smem);
-  IGEMM_DISPATCH_BN(bn, BLOCKS_CASE)
+  IGEMM_DISPATCH(bn, nct, BLOCKS_CASE)
 #undef BLOCKS_CASE
 }
 
@@ -209,15 +121,16 @@ int blocks_per_sm(int bn, int threads, int smem) {
 // The product of x and w (geometry in `gemm`, kGemmWords int64 words) into
 // `scratch` ((M, N), T), then the chain in `desc` (chain_desc.cuh) over it
 // into out (numel elements), through the host's plan
-// (kernels/matmul_tm/chain.py: commit_plan): `path`, `bm`, `bn`, `stages`,
-// the `blocks` an SM must hold and the co-resident `grid`.  `phases`: 3
-// both, 1 the product phase alone, 2 the chain phase alone.
+// (kernels/matmul_tm/chain.py: xchain_commit_card_plan): `path`, `bm`,
+// `bn` over `nct` column threads, `stages`, the `blocks` an SM must hold
+// and the co-resident `grid`.  `phases`: 3 both, 1 the product phase
+// alone, 2 the chain phase alone.
 extern "C" int xchain_commit(const void* x, const void* w, void* out,
                              void* scratch, const int64_t* desc,
                              const int64_t* gemm, int dtype, int64_t numel,
                              int n_levels, int n_extras, int path, int bm,
-                             int bn, int stages, int blocks, int grid,
-                             int phases, void* stream) {
+                             int bn, int nct, int stages, int blocks,
+                             int grid, int phases, void* stream) {
   chain::Chain c;
   igemm::Args a = {};
   if (numel <= 0 || !chain::parse(desc, n_levels, n_extras, &c) ||
@@ -230,31 +143,32 @@ extern "C" int xchain_commit(const void* x, const void* w, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case chain::kInt8:
-      return dispatch<int8_t>(a, c, out, numel, path, bm, bn, stages, blocks,
-                              grid, phases, s);
+      return dispatch<int8_t>(a, c, out, numel, path, bm, bn, nct, stages,
+                              blocks, grid, phases, s);
     case chain::kInt32:
-      return dispatch<int32_t>(a, c, out, numel, path, bm, bn, stages, blocks,
-                               grid, phases, s);
+      return dispatch<int32_t>(a, c, out, numel, path, bm, bn, nct, stages,
+                               blocks, grid, phases, s);
     case chain::kBf16:
-      return dispatch<__nv_bfloat16>(a, c, out, numel, path, bm, bn, stages,
-                                     blocks, grid, phases, s);
+      return dispatch<__nv_bfloat16>(a, c, out, numel, path, bm, bn, nct,
+                                     stages, blocks, grid, phases, s);
     case chain::kF32:
-      return dispatch<float>(a, c, out, numel, path, bm, bn, stages, blocks,
-                             grid, phases, s);
+      return dispatch<float>(a, c, out, numel, path, bm, bn, nct, stages,
+                             blocks, grid, phases, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Blocks an SM holds of the commit kernel for (dtype, bn) at `threads`
+// Blocks an SM holds of the commit kernel for (dtype, bn, nct) at `threads`
 // threads and `smem` bytes of dynamic shared memory, or the negated CUDA
 // error: the host plan's occupancy input.
-extern "C" int xchain_commit_blocks(int dtype, int bn, int threads,
+extern "C" int xchain_commit_blocks(int dtype, int bn, int nct, int threads,
                                     int smem) {
   switch (dtype) {
-    case chain::kInt8: return blocks_per_sm<int8_t>(bn, threads, smem);
-    case chain::kInt32: return blocks_per_sm<int32_t>(bn, threads, smem);
-    case chain::kBf16: return blocks_per_sm<__nv_bfloat16>(bn, threads, smem);
-    case chain::kF32: return blocks_per_sm<float>(bn, threads, smem);
+    case chain::kInt8: return blocks_per_sm<int8_t>(bn, nct, threads, smem);
+    case chain::kInt32: return blocks_per_sm<int32_t>(bn, nct, threads, smem);
+    case chain::kBf16:
+      return blocks_per_sm<__nv_bfloat16>(bn, nct, threads, smem);
+    case chain::kF32: return blocks_per_sm<float>(bn, nct, threads, smem);
     default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }

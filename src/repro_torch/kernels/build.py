@@ -44,7 +44,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "tm_affine": {
         "tm_affine_block": [_P, _P, _P, _P, _I, _I, _I64, _I, _I, _I, _I64,
                             _P],
-        "tm_affine_gather": [_P, _P, _P, _P, _I, _I, _I64, _I, _I, _P],
+        "tm_affine_gather": [_P, _P, _P, _P, _I, _I, _I64, _I, _I, _I, _I,
+                             _P, _I, _P],
     },
     "tm_chain": {
         "tm_chain": [_P, _P, _P, _I, _I64, _I, _I, _P],
@@ -60,8 +61,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "img2col": {
         "img2col": [_P, _P, _I, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                     _I64, _I64, _P, _U64, _U64, _I, _P],
-        "conv2d": [_P, _P, _P, _I] + [_I] * 17 + [_P],
-        "conv2d_blocks": [_I, _I, _I, _I],
+        "conv2d": [_P, _P, _P, _I] + [_I] * 18 + [_P],
+        "conv2d_blocks": [_I] * 5,
     },
     "resize": {
         "resize_bilinear": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
@@ -69,11 +70,14 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "matmul_tm": {
         "matmul_tm": [_P, _P, _P, _I, _I64, _I64, _I64, _I64, _I64, _I,
                       _I64, _I64, _I64, _I64, _I, _I, _P],
-        "xchain_prologue": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "xchain_commit": {
-        "xchain_commit": [_P] * 6 + [_I, _I64] + [_I] * 9 + [_P],
-        "xchain_commit_blocks": [_I, _I, _I, _I],
+        "xchain_commit": [_P] * 6 + [_I, _I64] + [_I] * 10 + [_P],
+        "xchain_commit_blocks": [_I] * 5,
+    },
+    "xchain_prologue": {
+        "xchain_prologue": [_P] * 7 + [_I, _I, _I64] + [_I] * 10 + [_P],
+        "xchain_prologue_blocks": [_I] * 5,
     },
     "flash_attention": {
         "flash_attention_fwd": [_P, _P, _P, _P, _I] + [_I] * 6 + [_I64] * 12
@@ -116,7 +120,8 @@ def library_path(name: str) -> Path:
 def build(names=None) -> dict[str, float]:
     """Compile the named sources (default: all) that are not built yet, one
     ``nvcc`` process each, all started together.  Returns the wall seconds
-    of each build that ran; raises with the compiler's output on failure."""
+    from the start to the end of each build that ran; raises with the
+    compiler's output on failure."""
     names = list(SIGNATURES) if names is None else list(names)
     todo = {n: library_path(n) for n in names if not library_path(n).is_file()}
     if not todo:
@@ -128,17 +133,25 @@ def build(names=None) -> dict[str, float]:
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".so.tmp{os.getpid()}")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        log = open(out.with_suffix(f".log{os.getpid()}"), "w+")
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT), tmp, out,
+                       log)
     seconds, errors = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
-            continue
-        os.replace(tmp, out)  # atomic: a concurrent build never loads half
+    while len(seconds) < len(procs):
+        for name, (proc, tmp, out, log) in procs.items():
+            if name in seconds or proc.poll() is None:
+                continue
+            seconds[name] = time.perf_counter() - t0
+            log.seek(0)
+            text = log.read()
+            log.close()
+            os.unlink(log.name)
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name}.cu:\n{text}")
+                continue
+            os.replace(tmp, out)  # atomic: a concurrent build never loads half
+        time.sleep(0.05)
     if errors:
         raise RuntimeError("\n".join(errors))
     return seconds

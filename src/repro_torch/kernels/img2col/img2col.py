@@ -159,25 +159,25 @@ def tile_bn(N: int) -> int:
     return -(-N // 4) * 4 if N <= 32 else 64
 
 
-def col_threads(BN: int) -> int:
-    """Threads across a tile's columns: 8 of 8 columns at BN = 64, else 4
-    of BN / 4."""
-    return 8 if BN == 64 else 4
+def col_threads(BN: int) -> tuple[int, ...]:
+    """The choices of threads across a tile's columns: at BN = 64, 8 of 8
+    columns or 16 of 4; else 4 of BN / 4."""
+    return (8, 16) if BN == 64 else (4,)
 
 
-def stage_bytes(BM: int, BN: int, itemsize: int) -> int:
+def stage_bytes(BM: int, BN: int, itemsize: int, nct: int) -> int:
     """One ring stage: BM rows x 128 bytes of A, then the 128 / itemsize K
     rows of B widened to 4 bytes, column groups padded to 4 (1024-byte
     aligned, as igemm::prepare lays it out)."""
-    nct = col_threads(BN)
     bnp = -(-(BN // nct) // 4) * 4 * nct
     return -(-(BM * ROW_BYTES + ROW_BYTES // itemsize * bnp * 4) // 1024) * 1024
 
 
-def smem_bytes(BM: int, BN: int, itemsize: int, stages: int) -> int:
+def smem_bytes(BM: int, BN: int, itemsize: int, stages: int,
+               nct: int) -> int:
     """A block's dynamic shared memory: the stages, 4 full and 4 empty
     mbarriers and 1024 bytes of alignment slack (igemm::prepare)."""
-    return stages * stage_bytes(BM, BN, itemsize) + 16 * 4 + 1024
+    return stages * stage_bytes(BM, BN, itemsize, nct) + 16 * 4 + 1024
 
 
 def model_occupancy(threads: int, smem: int, regs: int = REGS) -> int:
@@ -193,13 +193,15 @@ def model_occupancy(threads: int, smem: int, regs: int = REGS) -> int:
 class ConvPlan:
     """The core's launch: ``path`` fills the A stages (``tma``: im2col or
     2-d boxes; ``cp.async``), output tiles of ``BM`` x ``BN`` by
-    ``threads`` threads, ``stages`` ring stages of ``smem`` bytes in all,
-    ``blocks_per_sm`` blocks on each of ``sms`` SMs, ``grid`` persistent
-    blocks over ``tiles`` tiles of ``k_steps`` K steps each."""
+    ``threads`` threads, ``nct`` of them across the columns (8 rows by
+    ``BN / nct`` columns a thread), ``stages`` ring stages of ``smem``
+    bytes in all, ``blocks_per_sm`` blocks on each of ``sms`` SMs, ``grid``
+    persistent blocks over ``tiles`` tiles of ``k_steps`` K steps each."""
 
     path: str
     BM: int
     BN: int
+    nct: int
     stages: int
     threads: int
     smem: int
@@ -222,6 +224,13 @@ class ConvPlan:
         return (self.tiles - (self.rounds - 1) * slots) / slots
 
     @property
+    def warps(self) -> int:
+        """Warps on the busiest SM: its blocks (at most what it holds)
+        times each block's warps."""
+        return (min(self.blocks_per_sm, -(-self.grid // self.sms))
+                * self.threads // 32)
+
+    @property
     def sm_rows(self) -> int:
         """Output rows on the busiest SM: its blocks times each block's
         tiles times BM."""
@@ -231,7 +240,7 @@ class ConvPlan:
 
 def conv_plan(M: int, N: int, K: int, dtype: torch.dtype, *, tma: bool,
               C: int | None = None, taps: int = 1, sms: int = SMS,
-              occupancy: Callable[[int, int], int] | None = None
+              occupancy: Callable[[int, int, int], int] | None = None
               ) -> ConvPlan:
     """The launch of an (M, K) x (K, N) implicit GEMM: a conv of C channels
     over ``taps`` filter taps (K = taps C), or an mm (``C`` None).
@@ -239,20 +248,25 @@ def conv_plan(M: int, N: int, K: int, dtype: torch.dtype, *, tma: bool,
     ``tma``: the caller found that TMA can take A (:func:`conv_tma_ok`;
     for the commit's mm, 16-byte rows); then a conv's K steps are the
     filter taps by chunks of 128 bytes of channels, else K runs densely in
-    128-byte steps.  Per candidate BM (threads a multiple of 32, 64 to
-    192) and stage count, the blocks an SM holds come from
-    ``occupancy(threads, smem)`` (the card's own answer on the card;
-    :func:`model_occupancy` otherwise).  The plan
-    takes the most warps an SM up to 12 (3 a scheduler: the FMA loop
-    alone reached 0.62 of 67 TFLOP/s with 12, 0.45 with 8, on the H100),
-    then the fewest output rows on the busiest SM (``ConvPlan.sm_rows``):
-    the last round as full as BM allows (EDSR's body conv, M = 50176: BM
-    192, 262 tiles on 2 x 132 blocks, 99% full).  Ties go to the larger
-    BM, then to more stages."""
-    occupancy = occupancy or model_occupancy
+    128-byte steps.  Per candidate column threads (:func:`col_threads`), BM
+    (threads a multiple of 32, 64 to 192) and stage count, the blocks an SM
+    holds come from ``occupancy(nct, threads, smem)`` (the card's own
+    answer on the card; :func:`model_occupancy` otherwise).  The plan takes
+    the most warps an SM holds up to 12 (3 a scheduler: the FMA loop alone
+    reached 0.62 of 67 TFLOP/s with 12, 0.45 with 8, on the H100), then
+    the fewest output rows on the busiest SM (``ConvPlan.sm_rows``): the
+    last round as full as BM allows (EDSR's body conv, M = 50176: BM 192,
+    262 tiles on 2 x 132 blocks, 99% full), then the most warps the
+    busiest SM runs (``ConvPlan.warps``).  Ties go to the wider thread
+    tile (8 x 8 before 8 x 4: fewer shared loads an FMA), then the larger
+    BM, then more stages.  So 8 x 4 tiles run only where 8 x 8 ones would
+    leave the SMs short of warps on the same rows (the YOLO neck's 1x1
+    conv, M = 6272 by N = 255: 132 tiles of 192 x 64 run 6 warps an SM,
+    264 tiles of 96 x 64 run 12)."""
+    occupancy = occupancy or (lambda nct, threads, smem:
+                              model_occupancy(threads, smem))
     itemsize = torch.empty((), dtype=dtype).element_size()
     BN = tile_bn(N)
-    nct = col_threads(BN)
     bk = ROW_BYTES // itemsize
     if K == 0:
         k_steps = 0
@@ -262,24 +276,28 @@ def conv_plan(M: int, N: int, K: int, dtype: torch.dtype, *, tma: bool,
         k_steps = -(-K // bk)
     n_tiles = -(-N // BN)
     best = None
-    for BM in range(64 * 8 // nct, MAX_THREADS * TM // nct + 1, 256 // nct):
-        threads = BM // TM * nct
-        tiles = -(-M // BM) * n_tiles
-        for stages in STAGES:
-            smem = smem_bytes(BM, BN, itemsize, stages)
-            if smem > BLOCK_SMEM:
-                continue
-            bps = occupancy(threads, smem)
-            if bps < 1:
-                continue
-            plan = ConvPlan("tma" if tma else "cp.async", BM, BN, stages,
-                            threads, smem, bps, sms, tiles,
-                            min(tiles, bps * sms), k_steps)
-            # the FMA loop needs 3 warps a scheduler (12 an SM) to run near
-            # its best: more warps first, then fewer rows on the busiest SM
-            key = (-min(threads * bps // 32, 12), plan.sm_rows, -BM, -stages)
-            if best is None or key < best[0]:
-                best = (key, plan)
+    for nct in col_threads(BN):
+        for BM in range(64 * 8 // nct, MAX_THREADS * TM // nct + 1,
+                        max(32, 256 // nct)):
+            threads = BM // TM * nct
+            tiles = -(-M // BM) * n_tiles
+            for stages in STAGES:
+                smem = smem_bytes(BM, BN, itemsize, stages, nct)
+                if smem > BLOCK_SMEM:
+                    continue
+                bps = occupancy(nct, threads, smem)
+                if bps < 1:
+                    continue
+                plan = ConvPlan("tma" if tma else "cp.async", BM, BN, nct,
+                                stages, threads, smem, bps, sms, tiles,
+                                min(tiles, bps * sms), k_steps)
+                # the FMA loop needs 3 warps a scheduler (12 an SM) to run
+                # near its best: more warps an SM holds first, then fewer
+                # rows on the busiest SM, then more warps on it
+                key = (-min(threads * bps // 32, 12), plan.sm_rows,
+                       -min(plan.warps, 12), nct, -BM, -stages)
+                if best is None or key < best[0]:
+                    best = (key, plan)
     if best is None:
         raise ValueError(f"conv_plan: no tile fits ({M}, {K}) x ({K}, {N}) "
                          f"{dtype}")
@@ -305,15 +323,16 @@ _PLANS: dict = {}
 def card_plan(lib, name: str, x: torch.Tensor, M: int, N: int, K: int, *,
               tma: bool, C: int | None = None, taps: int = 1) -> ConvPlan:
     """:func:`conv_plan` on the card of ``x``, asking the library's
-    ``<name>_blocks(dtype, bn, threads, smem)`` entry point how many blocks
-    of the kernel an SM holds; cached per kernel, geometry and device."""
+    ``<name>_blocks(dtype, bn, nct, threads, smem)`` entry point how many
+    blocks of the kernel an SM holds; cached per kernel, geometry and
+    device."""
     key = (name, x.device, x.dtype, M, N, K, tma, C, taps)
     plan = _PLANS.get(key)
     if plan is None:
         code, bn = DTYPE_CODES[x.dtype], tile_bn(N)
 
-        def occupancy(threads: int, smem: int) -> int:
-            n = getattr(lib, f"{name}_blocks")(code, bn, threads, smem)
+        def occupancy(nct: int, threads: int, smem: int) -> int:
+            n = getattr(lib, f"{name}_blocks")(code, bn, nct, threads, smem)
             if n < 0:
                 raise RuntimeError(f"occupancy query: CUDA error {-n}")
             return n
@@ -378,7 +397,8 @@ def _launch_conv(lib, x, w, out, stride: int, pad: int, *, probe: int
     rc = lib.conv2d(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                     DTYPE_CODES[x.dtype], H, W, C, kh, kw, stride, pad, OH,
                     OW, OC, CONV_PATHS[plan.path], plan.BM, plan.BN,
-                    plan.stages, plan.blocks_per_sm, plan.grid, probe,
+                    plan.nct, plan.stages, plan.blocks_per_sm, plan.grid,
+                    probe,
                     torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "conv2d")
 

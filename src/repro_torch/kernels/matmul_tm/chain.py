@@ -14,12 +14,13 @@ convolution (``repro_torch::conv2d_nhwc``):
   walks its pullback from each of its output elements into that scratch
   (``csrc/xchain_commit.cu``, one cooperative launch);
 * **TM→compute** (``cuda.xchain.prologue``, :func:`xchain_prologue`): the
-  product's blocks load the crossing operand's tiles through the chain's
-  pullback, from the chain's sources; the chain's output never exists as a
-  tensor.
+  same two phases in the other order — the chain walks its pullback from
+  the chain's sources into a scratch tensor in the crossing operand's
+  layout (the Pallas kernel's VMEM buffer), a grid-wide barrier follows,
+  and then the same core computes the product over it
+  (``csrc/xchain_prologue.cu``, one cooperative launch).
 
-Both are ONE launch (the prologue's in ``csrc/matmul_tm.cu``), each
-beside its plain
+Both are ONE launch, each beside its plain
 PyTorch version (:func:`xchain_commit_plain`, :func:`xchain_prologue_plain`:
 the op, then the chain's plain walk, or the reverse).  The registry rule
 :func:`_xengine_lower` declines what the plan cannot take, and — for
@@ -76,13 +77,18 @@ class Gemm:
 
     def words(self) -> list[int]:
         """The kernel's geometry table: kind, M, N, K, ldb, col0, then the
-        conv's B, H, W, C, OH, OW, kh, kw, stride, pad top, pad left."""
+        conv's B, H, W, C, OH, OW, kh, kw, stride, pad top, pad left.  A
+        1x1 conv of stride 1 is its mm, (B H W, C) x (C, OC), the same sums
+        in the same order: TMA then fetches it in 2-d boxes, not in
+        im2col mode."""
         if self.kind == "mm":
             (M, K), N = self.x_shape, self.w_shape[1]
             return [0, M, N, K, N, 0] + [0] * 11
         B, H, W, C = self.x_shape
         kh, kw, _, OC = self.w_shape
         OH, OW, pt, pl = conv_out_hw(H, W, kh, kw, self.stride, self.padding)
+        if (kh, kw, self.stride, OH, OW) == (1, 1, 1, H, W):
+            return [0, B * H * W, OC, C, OC, 0] + [0] * 11
         return [1, B * OH * OW, OC, kh * kw * C, OC, 0, B, H, W, C, OH, OW,
                 kh, kw, self.stride, pt, pl]
 
@@ -119,8 +125,7 @@ def op_plain(g: Gemm, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     from repro_torch.core.engine import apply_map
     B, H, W, C = g.x_shape
     kh, kw, _, OC = g.w_shape
-    words = g.words()
-    OH, OW, pt, pl = words[10], words[11], words[15], words[16]
+    OH, OW, pt, pl = conv_out_hw(H, W, kh, kw, g.stride, g.padding)
     # pad (or crop) the far sides to exactly the windows' extent, then
     # img2col without padding
     hp = (OH - 1) * g.stride + kh - H - pt
@@ -173,9 +178,10 @@ def _check(name: str, sig: ChainSig, g: Gemm, ops, slabs) -> None:
 
 
 def _commit_geometry(g: Gemm) -> tuple[int, int, int, int | None, int]:
-    """(M, N, K, C, taps) of the product: C None for an mm."""
+    """(M, N, K, C, taps) of the product: C None for an mm (or a 1x1
+    conv run as its mm)."""
     w = g.words()
-    if g.kind == "mm":
+    if w[0] == 0:
         return w[1], w[2], w[3], None, 1
     return w[1], w[2], w[3], w[9], w[12] * w[13]
 
@@ -185,7 +191,7 @@ def _commit_tma_ok(g: Gemm, x: torch.Tensor) -> bool:
     (a 16-byte aligned x with rows a multiple of 16 bytes), or a conv's
     patches in im2col mode (:func:`conv_tma_ok`)."""
     w = g.words()
-    if g.kind == "mm":
+    if w[0] == 0:
         K = w[3]
         return (K >= 1 and (K * x.element_size()) % 16 == 0
                 and x.data_ptr() % 16 == 0)
@@ -227,7 +233,8 @@ def _launch_commit(lib, sig, g, x, w, slabs, out, *, phases: int) -> None:
                            scratch.data_ptr(), table, gemm,
                            DTYPE_CODES[x.dtype], out.numel(), n_levels,
                            n_extras, CONV_PATHS[plan.path], plan.BM, plan.BN,
-                           plan.stages, plan.blocks_per_sm, plan.grid, phases,
+                           plan.nct, plan.stages, plan.blocks_per_sm,
+                           plan.grid, phases,
                            torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "xchain_commit")
 
@@ -283,7 +290,18 @@ def xchain_prologue(sig: ChainSig, g: Gemm, cross_pos: int,
     exception."""
     if src.device.type == "cpu":
         return xchain_prologue_plain(sig, g, cross_pos, src, other, slabs)
-    lib = build.library("matmul_tm")  # a kernel that cannot be built raises
+    lib = build.library("xchain_prologue")  # a failed build raises here
+    _check_prologue(sig, g, cross_pos, src, other, slabs)
+    out = torch.empty(g.out_shape, dtype=src.dtype, device=src.device)
+    if out.numel() == 0:
+        return out
+    _launch_prologue(lib, sig, g, cross_pos, src, other, slabs, out,
+                     phases=3)
+    xchain_prologue.launches += 1
+    return out
+
+
+def _check_prologue(sig, g, cross_pos, src, other, slabs) -> None:
     _check("xchain_prologue", sig, g, (src, other), slabs)
     shapes = (g.x_shape, g.w_shape)
     if (cross_pos not in (0, 1)
@@ -292,19 +310,70 @@ def xchain_prologue(sig: ChainSig, g: Gemm, cross_pos: int,
             or tuple(src.shape) != tuple(sig.links[0][0].in_shape)):
         raise ValueError("xchain_prologue: the chain's output is not operand "
                          f"{cross_pos} of the op, or shapes do not match")
-    out = torch.empty(g.out_shape, dtype=src.dtype, device=src.device)
-    if out.numel() == 0:
-        return out
+
+
+def _launch_prologue(lib, sig, g, cross_pos, src, other, slabs, out, *,
+                     phases: int) -> None:
+    """One launch of the prologue kernel: ``phases`` 3 both, 1 the chain
+    phase alone, 2 the product phase alone.  The chain writes a scratch
+    tensor of the crossing operand's shape (the Pallas kernel's VMEM
+    buffer), which the product then reads as that operand; ``place_of``
+    the SM of each block, where the kernel spreads fewer tiles than blocks
+    over the SMs."""
     table, n_levels, n_extras = _table(sig, src.device, slabs)
     gemm = (ctypes.c_int64 * 17)(*g.words())
-    rc = lib.xchain_prologue(src.data_ptr(), other.data_ptr(),
-                             out.data_ptr(), table, gemm,
-                             DTYPE_CODES[src.dtype], cross_pos, n_levels,
-                             n_extras,
+    scratch = torch.empty(sig.out_shape, dtype=src.dtype, device=src.device)
+    plan = xchain_prologue_card_plan(g, scratch if cross_pos == 0 else other)
+    place_of = torch.empty(plan.grid, dtype=torch.int32, device=src.device)
+    rc = lib.xchain_prologue(src.data_ptr(), other.data_ptr(), out.data_ptr(),
+                             scratch.data_ptr(), place_of.data_ptr(), table,
+                             gemm,
+                             DTYPE_CODES[src.dtype], cross_pos,
+                             scratch.numel(), n_levels, n_extras,
+                             CONV_PATHS[plan.path], plan.BM, plan.BN,
+                             plan.nct, plan.stages, plan.blocks_per_sm,
+                             plan.grid, phases,
                              torch.cuda.current_stream(src.device).cuda_stream)
     build.check(rc, "xchain_prologue")
-    xchain_prologue.launches += 1
-    return out
+
+
+def xchain_prologue_card_plan(g: Gemm, a: torch.Tensor) -> ConvPlan:
+    """The plan :func:`xchain_prologue` launches with, ``a`` the product's
+    A operand on the card: the scratch the chain fills (``cross_pos`` 0) or
+    x (1).  It is the product's :func:`conv_plan`, as the commit's
+    (:func:`xchain_commit_card_plan`): TMA where it can take ``a`` and the
+    blocks an SM holds of the prologue kernel; its cooperative grid is
+    :func:`prologue_grid`, as large as the card holds at once, which the
+    grid-wide barrier between the phases needs."""
+    lib = build.library("xchain_prologue")
+    M, N, K, C, taps = _commit_geometry(g)
+    return prologue_grid(card_plan(lib, "xchain_prologue", a, M, N, K,
+                                   tma=_commit_tma_ok(g, a), C=C,
+                                   taps=taps))
+
+
+def prologue_grid(plan: ConvPlan) -> ConvPlan:
+    """The prologue's grid: every block the card holds at once (blocks an
+    SM x SMs), not only one per tile, so that the chain phase runs on all
+    of them; where there are fewer tiles, the kernel gives them to blocks
+    on distinct SMs first (``igemm::tile_place``), and the rest have no
+    product tile."""
+    return dataclasses.replace(plan, grid=plan.blocks_per_sm * plan.sms)
+
+
+def xchain_prologue_phase(sig: ChainSig, g: Gemm, cross_pos: int,
+                          src: torch.Tensor, other: torch.Tensor, phase: str,
+                          slabs: tuple[torch.Tensor, ...] = ()) -> None:
+    """One phase of the prologue kernel, for timing the split between
+    them: ``chain`` (the walk into the scratch, then the grid-wide barrier)
+    or ``product`` (the barrier, then the product over whatever the
+    scratch holds).  Its output is not the prologue's, and no launch is
+    counted."""
+    lib = build.library("xchain_prologue")
+    _check_prologue(sig, g, cross_pos, src, other, slabs)
+    out = torch.empty(g.out_shape, dtype=src.dtype, device=src.device)
+    _launch_prologue(lib, sig, g, cross_pos, src, other, slabs, out,
+                     phases={"chain": 1, "product": 2}[phase])
 
 
 xchain_prologue.launches = 0

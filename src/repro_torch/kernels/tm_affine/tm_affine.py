@@ -28,6 +28,7 @@ import functools
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core.affine import MixedRadixMap
@@ -434,17 +435,59 @@ def _row_reach(nums, offn, dmax) -> tuple[int, int, int]:
     return lo, hi, mag
 
 
+@dataclasses.dataclass(frozen=True)
+class GatherRow:
+    """Affine row ``r`` of a map in integer form: input coordinate
+    ``floor((offn + sum_d nums[d]·digit[d]) / den)`` of extent ``size`` and
+    row-major ``stride``; ``checked`` where the host could not prove it
+    stays inside ``[0, size)`` (a bounded digit counts only below its
+    bound: past it the element reads fill)."""
+
+    nums: tuple[int, ...]
+    offn: int
+    den: int
+    size: int
+    stride: int
+    checked: bool
+
+
+@functools.lru_cache(maxsize=512)
+def gather_rows(m: MixedRadixMap) -> tuple[tuple[GatherRow, ...], bool]:
+    """The map's rows (:class:`GatherRow`) and whether every coordinate,
+    row partial sum and flat index fits the kernels' 32-bit arithmetic."""
+    dmax = _digit_max(m)
+    bounded = list(dmax)
+    for d, bound in m.digit_bounds:
+        bounded[d] = min(bounded[d], bound - 1)
+    strides = row_major_strides(m.in_shape)
+    narrow = (math.prod(m.out_shape) < _NARROW
+              and math.prod(m.in_shape) < _NARROW)
+    flat_reach = 0
+    rows = []
+    for r, (row, off) in enumerate(zip(m.affine.A, m.affine.b)):
+        nums, offn, den = _row_int_form(row, off)
+        lo, hi, _ = _row_reach(nums, offn, bounded)
+        checked = (min(bounded) < 0 or lo // den < 0
+                   or hi // den > m.in_shape[r] - 1)
+        ulo, uhi, mag = _row_reach(nums, offn, dmax)
+        narrow = narrow and mag < _NARROW
+        flat_reach += (m.in_shape[r] - 1 if checked
+                       else max(abs(ulo // den), abs(uhi // den))) * strides[r]
+        rows.append(GatherRow(nums, offn, den, m.in_shape[r], strides[r],
+                              checked))
+    return tuple(rows), narrow and flat_reach < _NARROW
+
+
 @functools.lru_cache(maxsize=512)
 def _gather_regs(m: MixedRadixMap, dtype: torch.dtype,
                  device: torch.device) -> tuple[torch.Tensor, bool]:
-    """The gather kernel's register file (layout in csrc/tm_affine.cu) and
-    whether the 32-bit path is exact for it.
+    """The general gather kernel's register file (layout in
+    csrc/tm_affine.cu) and whether the 32-bit path is exact for it.
 
     Besides the map's own registers (digit splits, integer affine rows as
     non-zero numerators, denominators, in_shape, strides, digit bounds) it
     holds the magic numbers of every divisor and, per row, whether the row
-    can leave in_shape — decided from the digits' ranges, where a bounded
-    digit counts only below its bound (past it the element reads fill)."""
+    can leave in_shape (:func:`gather_rows`)."""
     n_out, n_in, n_sp = len(m.out_shape), len(m.in_shape), len(m.splits)
     nnz = MAX_AXES * 2 * MAX_AXES
     rows_at, bounds_at = 92, 92 + 7 * MAX_AXES
@@ -458,51 +501,275 @@ def _gather_regs(m: MixedRadixMap, dtype: torch.dtype,
     for j, sp in enumerate(m.splits):
         regs[44 + j], regs[56 + j] = sp.axis, sp.radix
         regs[68 + j], regs[80 + j] = _magic(sp.radix)
-    dmax = _digit_max(m)
-    bounded = list(dmax)
     for k, (d, bound) in enumerate(m.digit_bounds):
         regs[bounds_at + k] = d
         regs[bounds_at + MAX_AXES + k] = bound
-        bounded[d] = min(bounded[d], bound - 1)
-    strides = row_major_strides(m.in_shape)
-    narrow = (math.prod(m.out_shape) < _NARROW
-              and math.prod(m.in_shape) < _NARROW)
-    flat_reach = 0
+    rows, narrow = gather_rows(m)
     k = 0
-    for r, (row, off) in enumerate(zip(m.affine.A, m.affine.b)):
-        nums, offn, den = _row_int_form(row, off)
+    for r, row in enumerate(rows):
         start = k
-        for t, v in enumerate(nums):
+        for t, v in enumerate(row.nums):
             if v:
                 regs[nz_at + k], regs[nz_at + nnz + k] = t, v
                 k += 1
-        lo, hi, _ = _row_reach(nums, offn, bounded)
-        checked = (min(bounded) < 0 or lo // den < 0
-                   or hi // den > m.in_shape[r] - 1)
-        ulo, uhi, mag = _row_reach(nums, offn, dmax)
-        narrow = narrow and mag < _NARROW
-        flat_reach += (m.in_shape[r] - 1 if checked
-                       else max(abs(ulo // den), abs(uhi // den))) * strides[r]
         regs[rows_at + 7 * r: rows_at + 7 * r + 7] = [
-            offn, den, m.in_shape[r], strides[r], start, k, int(checked)]
-    narrow = narrow and flat_reach < _NARROW
+            row.offn, row.den, row.size, row.stride, start, k,
+            int(row.checked)]
     return torch.tensor(regs, dtype=torch.int64, device=device), narrow
+
+
+# the separable path (csrc/tm_affine.cu: sep_kernel)
+GATHER_PATHS = {"general": 0, "separable": 1}
+SEP_CAP = 8192            # entries of a run's table (kSepMaxTable)
+SEP_INVALID = -2 ** 31    # a table entry that reads fill
+SEP_WORDS = 180 + MAX_AXES * 2 * MAX_AXES  # the run decoder's table
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SepPlan:
+    """The separable gather path of a map: output axes ``suffix``.. span
+    runs of ``R`` consecutive output elements, and element ``p`` of run
+    ``q`` reads ``base(q) + off[p]`` where both ``valid(q)`` and
+    ``valid[p]`` hold, else ``fill``.  ``base`` and ``valid(q)`` come from
+    the outer digits (the axes before the suffix, ``oshape``, split as the
+    map splits them) through ``rows``: per row the offset numerator,
+    denominator, extent, stride, checked flag and the numerators of the
+    outer digits (the outer axes, then the remainders of ``osplits``);
+    ``obounds`` are
+    the digit bounds on outer digits.  ``vbytes`` is the access the map
+    allows: 16 bytes where the runs read contiguous aligned groups of 16
+    bytes, else the element size."""
+
+    suffix: int
+    R: int
+    vbytes: int
+    itemsize: int
+    off: "np.ndarray"     # int64 (R,)
+    valid: "np.ndarray"   # bool (R,)
+    oshape: tuple[int, ...]
+    osplits: tuple[tuple[int, int], ...]       # (outer axis, radix)
+    obounds: tuple[tuple[int, int], ...]       # (outer digit, bound)
+    rows: tuple[tuple[int, int, int, int, bool, tuple[int, ...]], ...]
+
+
+def _outer_reach(row, dmax) -> int:
+    """The largest |coordinate| an outer row can give, or its extent less
+    one where it is checked (its coordinate is clamped)."""
+    offn, den, size, _, checked, nums = row
+    if checked:
+        return size - 1
+    lo, hi, _ = _row_reach(nums, offn, dmax)
+    return max(abs(lo // den), abs(hi // den))
+
+
+def _sep_build(m: MixedRadixMap, rows, s: int, R: int,
+               itemsize: int) -> SepPlan | None:
+    """The separable plan over the output suffix from axis ``s`` (``R``
+    elements a run), or None where a partial sum would leave 32 bits."""
+    n_out = len(m.out_shape)
+    inner = np.unravel_index(np.arange(R, dtype=np.int64), m.out_shape[s:])
+    digits = {a: np.asarray(inner[a - s], dtype=np.int64)
+              for a in range(s, n_out)}
+    compact = {a: a for a in range(s)}   # original digit -> outer digit
+    oshape = tuple(m.out_shape[:s])
+    osplits = []
+    for j, sp in enumerate(m.splits):
+        if sp.axis >= s:
+            digits[sp.axis], digits[n_out + j] = np.divmod(digits[sp.axis],
+                                                           sp.radix)
+        else:
+            compact[n_out + j] = s + len(osplits)
+            osplits.append((sp.axis, sp.radix))
+    n_odig = s + len(osplits)
+    off = np.zeros(R, dtype=np.int64)
+    valid = np.ones(R, dtype=bool)
+    orows = []
+    for row in rows:
+        part = sum((v * digits[d] for d, v in enumerate(row.nums)
+                    if v and d in digits), np.zeros(R, dtype=np.int64))
+        outer = [0] * n_odig
+        for d, v in enumerate(row.nums):
+            if v and d not in digits:
+                outer[compact[d]] = v
+        if any(outer) or not any(v for d, v in enumerate(row.nums)
+                                 if d in digits):
+            # linear in the inner digits where it mixes: its offset and
+            # outer digits go to the run's base
+            off += part * row.stride
+            orows.append((row.offn, row.den, row.size, row.stride,
+                          row.checked, tuple(outer)))
+            continue
+        c = np.floor_divide(part + row.offn, row.den)
+        if row.checked:
+            valid &= (c >= 0) & (c < row.size)
+            c = np.clip(c, 0, row.size - 1)
+        off += c * row.stride
+    obounds = []
+    for d, bound in m.digit_bounds:
+        if d in digits:
+            valid &= digits[d] < bound
+        else:
+            obounds.append((compact[d], bound))
+    # the outer digits' ranges: quotients, then remainders
+    dmax = [n - 1 for n in oshape]
+    rmax = []
+    for a, radix in osplits:
+        rmax.append(min(radix - 1, dmax[a]))
+        dmax[a] //= radix
+    dmax += rmax
+    reach = sum(_outer_reach(r, dmax) * r[3] for r in orows)
+    if reach >= _NARROW or (R and int(np.abs(off).max()) >= _NARROW):
+        return None
+    vbytes = itemsize
+    if itemsize < 16 and _groups_ok(off, valid, 16 // itemsize, orows):
+        vbytes = 16
+    return SepPlan(s, R, vbytes, itemsize, off, valid, oshape,
+                   tuple(osplits), tuple(obounds), tuple(orows))
+
+
+def _groups_ok(off, valid, ve: int, orows) -> bool:
+    """Whether runs move as aligned groups of ``ve`` elements: every outer
+    stride (so every base) a multiple of ``ve``, and each group of the
+    table wholly fill or ``ve`` consecutive elements from a multiple of
+    ``ve``."""
+    if len(off) % ve or any(r[3] % ve for r in orows):
+        return False
+    g, vg = off.reshape(-1, ve), valid.reshape(-1, ve)
+    if not (vg.all(1) | ~vg.any(1)).all():
+        return False
+    run = ((g - g[:, :1]) == np.arange(ve)).all(1) & (g[:, 0] % ve == 0)
+    return bool((run | ~vg[:, 0]).all())
+
+
+@functools.lru_cache(maxsize=512)
+def separable_plan(m: MixedRadixMap, itemsize: int) -> SepPlan | None:
+    """The separable plan of ``m`` (:class:`SepPlan`) over the shortest
+    suffix of output axes across which the source address separates, or
+    None where no suffix of at most :data:`SEP_CAP` elements does, or the
+    map needs 64-bit arithmetic (the general kernel then runs).
+
+    The address separates over the suffix from axis ``s`` when every row
+    that reads digits of both sides (the suffix's coordinates and their
+    splits; the outer ones) is linear (denominator 1) and proved in range:
+    its inner part then goes to the table and its offset and outer part to
+    the run's base.  A row of one side only, with any denominator and
+    checked or not, goes to that side whole, as does a digit bound."""
+    if not m.out_shape or math.prod(m.out_shape) == 0:
+        return None
+    rows, narrow = gather_rows(m)
+    if not narrow:
+        return None
+    n_out = len(m.out_shape)
+    axis_of = list(range(n_out)) + [sp.axis for sp in m.splits]
+    R = 1
+    for s in range(n_out - 1, -1, -1):
+        R *= m.out_shape[s]
+        if R > SEP_CAP:
+            return None
+        mixed = False
+        for row in rows:
+            sides = {axis_of[d] >= s for d, v in enumerate(row.nums) if v}
+            mixed |= len(sides) == 2 and (row.den != 1 or row.checked)
+        if not mixed:
+            return _sep_build(m, rows, s, R, itemsize)
+    return None
+
+
+def sep_words(plan: SepPlan, fill_bits: int, vbytes: int
+              ) -> tuple[list[int], np.ndarray]:
+    """The separable kernel's table (int64 words, layout in
+    csrc/tm_affine.cu) and its run table (int32: per access of a run the
+    source offset in units of ``vbytes``, or :data:`SEP_INVALID`) for
+    accesses of ``vbytes`` bytes."""
+    ve = vbytes // plan.itemsize
+    U = plan.R // ve
+    w = [0] * SEP_WORDS
+    w[0:5] = [plan.suffix, len(plan.osplits), len(plan.rows),
+              len(plan.obounds), U]
+    w[5], w[6] = _magic(U)
+    w[7] = fill_bits
+    for a, n in enumerate(plan.oshape):
+        w[12 + a] = n
+        w[24 + a], w[36 + a] = _magic(n)
+    for j, (a, radix) in enumerate(plan.osplits):
+        w[48 + j], w[60 + j] = a, radix
+        w[72 + j], w[84 + j] = _magic(radix)
+    for k, (d, bound) in enumerate(plan.obounds):
+        w[96 + k], w[108 + k] = d, bound
+    for r, (offn, den, size, stride, checked, nums) in enumerate(plan.rows):
+        w[120 + 5 * r: 125 + 5 * r] = [offn, den, size - 1, stride // ve,
+                                       int(checked)]
+        w[180 + 2 * MAX_AXES * r: 180 + 2 * MAX_AXES * r + len(nums)] = nums
+    head = plan.off[::ve] // ve
+    table = np.where(plan.valid[::ve], head, SEP_INVALID).astype(np.int32)
+    return w, table
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherLaunch:
+    """How a gather call runs: ``path`` (``separable`` or ``general``),
+    the bytes each access moves, and the device tables."""
+
+    path: str
+    vbytes: int
+    regs: torch.Tensor
+    narrow: bool
+    table: torch.Tensor | None
+
+
+@functools.lru_cache(maxsize=512)
+def _gather_launch(m: MixedRadixMap, dtype: torch.dtype,
+                   device: torch.device, vector: bool) -> GatherLaunch:
+    """The launch of a gather on ``device``: the separable path where the
+    map has one (in the plan's 16-byte accesses if ``vector``, else
+    element by element), else the general kernel's register file."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    plan = separable_plan(m, itemsize)
+    if plan is None:
+        regs, narrow = _gather_regs(m, dtype, device)
+        return GatherLaunch("general", itemsize, regs, narrow, None)
+    vbytes = plan.vbytes if vector else itemsize
+    words, table = sep_words(plan, _fill_bits(m.fill, dtype), vbytes)
+    return GatherLaunch("separable", vbytes,
+                        torch.tensor(words, dtype=torch.int64, device=device),
+                        True, torch.tensor(table, device=device))
+
+
+def gather_launch(m: MixedRadixMap, x: torch.Tensor,
+                  y: torch.Tensor | None = None) -> GatherLaunch:
+    """The path :func:`tm_affine_gather` takes for ``x`` (and ``y``): the
+    map's plan, element by element where x or y is not aligned to its
+    access width."""
+    launch = _gather_launch(m, x.dtype, x.device, True)
+    if launch.vbytes > x.element_size() and any(
+            t is not None and t.data_ptr() % launch.vbytes for t in (x, y)):
+        launch = _gather_launch(m, x.dtype, x.device, False)
+    return launch
+
+
+def _gather_args(g: GatherLaunch, m: MixedRadixMap):
+    """``_launch``'s register file, 32-bit flag and the entry point's
+    further arguments for the launch ``g``."""
+    table = (None, 0) if g.table is None else (g.table.data_ptr(),
+                                               g.table.numel())
+    return g.regs, g.narrow, (len(m.out_shape) + len(m.splits),
+                              GATHER_PATHS[g.path], g.vbytes, *table)
 
 
 def tm_affine_gather(x: torch.Tensor, m: MixedRadixMap, *,
                      y: torch.Tensor | None = None,
                      ew: str | None = None) -> torch.Tensor:
     """Gather-mode map ``m`` with an optional fused element-wise epilogue.
-    CPU tensor: the plain version; CUDA tensor: the kernel, which generates
-    every source address from the map's registers, or an exception."""
+    CPU tensor: the plain version; CUDA tensor: the kernel on the path
+    :func:`gather_launch` plans (separable runs from a table, or the
+    general address generator over the map's registers), or an
+    exception."""
     if x.device.type == "cpu":
         return gather_plain(x, m, y=y, ew=ew)
     build.library("tm_affine")  # a kernel that cannot be built raises here
     _check_launch("tm_affine_gather", x, m, y, ew)
-    n_digits = len(m.out_shape) + len(m.splits)
     return _launch(tm_affine_gather, x, m,
-                   lambda: (*_gather_regs(m, x.dtype, x.device), (n_digits,)),
-                   y, ew)
+                   lambda: _gather_args(gather_launch(m, x, y), m), y, ew)
 
 
 tm_affine_gather.launches = 0

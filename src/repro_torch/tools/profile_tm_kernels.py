@@ -1,8 +1,11 @@
-"""Device times of matmul_tm, tm_affine_block, conv2d and xchain_commit
-across shapes, paths and dtypes, beside their bounds and one PyTorch call
-of the same work.
+"""Device times of matmul_tm, tm_affine_block, tm_affine_gather, conv2d,
+xchain_commit and xchain_prologue across shapes, paths and dtypes, beside
+their bounds and one PyTorch call of the same work.
 
-    PYTHONPATH=src python3 -m repro_torch.tools.profile_tm_kernels
+    PYTHONPATH=src python3 -m repro_torch.tools.profile_tm_kernels [SECTION ...]
+
+SECTION is any of matmul, block, gather, conv, commit, prologue (default:
+all, in that order).
 
 Prints the card's name and power limit, then one line per case: the
 kernel's device ms (a CUDA graph of back-to-back calls, timed with CUDA
@@ -33,7 +36,23 @@ over 67 TFLOP/s where larger) and the PyTorch call's device ms:
   the scratch; the grid-wide barrier between) and the plain version
   (cuDNN's conv or the product, then the chain's gather; timed with CUDA
   events around back-to-back calls, as a masked level's plain version
-  cannot be captured in a graph).
+  cannot be captured in a graph);
+* ``tm_affine_gather`` at Table III size: upsample x2, pixel shuffle,
+  pixel unshuffle (448, 448, 64) and rearrange (448, 448, 3) -> 16 in
+  int8, bf16 and f32, each with its plan (separable path with its run
+  and bytes per access, or the general kernel), then each map again on an
+  x one element off 16 bytes (element by element) and through the general
+  kernel, against its byte bound and, for the upsample, ``F.interpolate``
+  (nearest, channels-last);
+* ``xchain_prologue``: the YOLOv3-Tiny neck (upsample (8, 14, 14, 128) +
+  Route (8, 28, 28, 128)) into head 2's 1x1 conv to 255 in f32 and bf16,
+  and into a 3x3 conv to 255 (SAME), each beside the kernel run with one
+  of its phases (the chain into the scratch, or the product over it) and
+  the same work split: ``tm_chain``, then ``torch.mm`` or ``F.conv2d``
+  (TF32 off); the 1x1 product also as one ``conv2d`` launch and its FMA
+  loop alone, the port's own split (``tm_chain``, then ``conv2d``), and
+  the kernel with its plan held to 8 x 8 thread tiles, on every block the
+  card holds and on one block a tile.
 
 Every kernel result is checked against its plain version first.  Needs a
 CUDA device.
@@ -41,7 +60,10 @@ CUDA device.
 
 from __future__ import annotations
 
+import contextlib
+import math
 import subprocess
+import sys
 
 import torch
 
@@ -49,6 +71,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import affine as af
 from repro_torch.core.fp_bounds import bf16_ulp, conv_tol, gamma
+from repro_torch.kernels import build
 from repro_torch.kernels.img2col import img2col as ik
 from repro_torch.kernels.matmul_tm import chain as xc
 from repro_torch.kernels.matmul_tm import matmul_tm as mk
@@ -185,6 +208,144 @@ def commit(gen, dev, name, g, links, dtype=torch.float32) -> None:
           f"({ms / bound:.2f}x); plain {plain:.4f}", flush=True)
 
 
+def general_gather(x, m):
+    """The general gather kernel on ``x``, whatever path the map's plan
+    takes (the design before the separable path): the library's entry
+    point on the map's register file.  Counts no launch."""
+    out = torch.empty(m.out_shape, dtype=x.dtype, device=x.device)
+    regs, narrow, extra = ta._gather_args(ta.GatherLaunch(
+        "general", x.element_size(), *ta._gather_regs(m, x.dtype, x.device),
+        None), m)
+    rc = build.library("tm_affine").tm_affine_gather(
+        x.data_ptr(), None, out.data_ptr(), regs.data_ptr(),
+        ta.DTYPE_CODES[x.dtype], ta.EW_CODES[None], out.numel(), int(narrow),
+        *extra, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "tm_affine_gather")
+    return out
+
+
+def gather(gen, dev, name, m, dtype, library=None) -> None:
+    n = math.prod(m.in_shape)
+    buf = torch.randint(-100, 100, (n + 16,), generator=gen).to(dev, dtype)
+    lead = (-buf.data_ptr() % 16) // buf.element_size()
+    nbytes = (n + math.prod(m.out_shape)) * buf.element_size()
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    cases = (("aligned", buf[lead:lead + n], False),
+             ("x off 16 B", buf[lead + 1:lead + 1 + n], False),
+             ("general kernel", buf[lead:lead + n], True))
+    for how, flat, general in cases:
+        x = flat.view(m.in_shape)
+        launch = ta.gather_launch(m, x)
+        if general and launch.path == "general":
+            continue
+        run = general_gather if general else ta.tm_affine_gather
+        got = run(x, m)
+        assert torch.equal(got, ta.gather_plain(x, m)), (name, how)
+        ms = graph_ms(lambda: run(x, m), 10)
+        path = "general" if general else launch.path
+        vb = x.element_size() if general else launch.vbytes
+        extra = ""
+        if library is not None and how == "aligned":
+            extra = f", library {graph_ms(lambda: library(x), 10):.4f}"
+        print(f"tm_affine_gather {name} {str(dtype)[6:]} {how}: {path}, "
+              f"{vb} B per access; {ms:.4f} ms, bound {bound:.4f} "
+              f"({bound / ms:.2f} of it){extra}", flush=True)
+
+
+@contextlib.contextmanager
+def plan_held(nct: int, grid_of):
+    """conv_plan held to ``nct`` column threads at BN = 64, and the
+    prologue's grid to ``grid_of(plan)`` (the plans cached before and
+    inside dropped)."""
+    keep = ik.col_threads, xc.prologue_grid
+    ik.col_threads = lambda BN: (nct,) if BN == 64 else keep[0](BN)
+    xc.prologue_grid = grid_of
+    ik._PLANS.clear()
+    try:
+        yield
+    finally:
+        ik.col_threads, xc.prologue_grid = keep
+        ik._PLANS.clear()
+
+
+def prologue(gen, dev, name, k, dtype=torch.float32) -> None:
+    batch = (8,)
+    up = af.batch_extend_map(af.upsample_map((14, 14, 128), 2), batch)
+    route = tuple(af.batch_extend_map(m, batch) for m in
+                  af.route_maps([(28, 28, 128), (28, 28, 128)]))
+    sig = tc.ChainSig(links=((up, None),), route_maps=route, route_band=0,
+                      dtype=str(dtype)[6:])
+    u = torch.rand(up.in_shape, generator=gen).to(dev, dtype)
+    skip = torch.rand(route[1].in_shape, generator=gen).to(dev, dtype)
+    w = ((torch.rand((k, k, 256, 255), generator=gen) - 0.5) / 8).to(
+        dev, dtype)
+    g = xc.Gemm("conv", (8, 28, 28, 256), tuple(w.shape), 1, "SAME")
+    got = xc.xchain_prologue(sig, g, 0, u, w, (skip,))
+    ref = xc.xchain_prologue_plain(sig, g, 0, u, w, (skip,))
+    K = g.words()[3]
+    # |values| <= 1, |w| <= 1/16: sum |x w| <= K / 16
+    tol = 2 * gamma(K) * K / 16
+    if dtype == torch.bfloat16:
+        tol += float(bf16_ulp(ref).max())
+    err = float((got.double() - ref.double()).abs().max())
+    assert err <= tol, (name, err, tol)
+    bound = g.flops() / F32_FLOP_PER_S * 1e3
+    cat = torch.empty(g.x_shape, dtype=dtype, device=dev)
+    plan = xc.xchain_prologue_card_plan(g, cat)
+    ms = graph_ms(lambda: xc.xchain_prologue(sig, g, 0, u, w, (skip,)), 10)
+    walk, product = (graph_ms(lambda: xc.xchain_prologue_phase(
+        sig, g, 0, u, w, phase, (skip,)), 10)
+        for phase in ("chain", "product"))
+    if k == 1:
+        w2 = w.reshape(256, 255)
+        split = graph_ms(lambda: torch.mm(
+            tc.tm_chain(sig, u, (skip,)).reshape(-1, 256), w2), 10)
+        ported = graph_ms(lambda: ik.conv2d(
+            tc.tm_chain(sig, u, (skip,)).reshape(-1, 1, 256), w), 10)
+        print(f"xchain_prologue {name} {str(dtype)[6:]}: split tm_chain + "
+              f"conv2d {ported:.4f} ms", flush=True)
+        # the plan held to 8 x 8 thread tiles (132 tiles at the neck): on
+        # every block the card holds (the tiles spread over the SMs by the
+        # kernel), and on one block a tile
+        for grid_of in (xc.prologue_grid, lambda p: p):
+            with plan_held(8, grid_of):
+                wide = xc.xchain_prologue_card_plan(g, cat)
+                wide_ms = graph_ms(lambda: xc.xchain_prologue(
+                    sig, g, 0, u, w, (skip,)), 10)
+                walk8, product8 = (graph_ms(lambda: xc.xchain_prologue_phase(
+                    sig, g, 0, u, w, phase, (skip,)), 10)
+                    for phase in ("chain", "product"))
+            print(f"xchain_prologue {name} {str(dtype)[6:]}: held to 8 x 8 "
+                  f"tiles (BM {wide.BM}, {wide.tiles} tiles on {wide.grid} "
+                  f"blocks) {wide_ms:.4f} ms; chain {walk8:.4f}, product "
+                  f"{product8:.4f}", flush=True)
+        # the same product as one conv2d launch of the (6272, 1, 256) map,
+        # and its FMA loop alone
+        xs = torch.rand((8 * 28 * 28, 1, 256), generator=gen).to(dev, dtype)
+        alone = graph_ms(lambda: ik.conv2d(xs, w), 10)
+        fma = graph_ms(lambda: ik.conv2d_fma_probe(xs, w), 10)
+        cplan = ik.conv2d_plan(xs, w)
+        print(f"xchain_prologue {name} {str(dtype)[6:]}: the product as "
+              f"conv2d (BM {cplan.BM}, nct {cplan.nct}, {cplan.tiles} "
+              f"tiles) {alone:.4f} ms, its FMA loop alone {fma:.4f} ms = "
+              f"{g.flops() / fma / 1e9 / 67:.3f} of 67 TFLOP/s", flush=True)
+    else:
+        wn = w.permute(3, 2, 0, 1)
+        split = graph_ms(lambda: F.conv2d(
+            tc.tm_chain(sig, u, (skip,)).permute(0, 3, 1, 2), wn,
+            padding=k // 2), 10)
+    print(f"xchain_prologue {name} {str(dtype)[6:]}: {plan.path} BM "
+          f"{plan.BM} BN {plan.BN} stages {plan.stages} threads "
+          f"{plan.threads} x {plan.blocks_per_sm}/SM, {plan.tiles} tiles on "
+          f"{plan.grid} blocks; {ms:.4f} ms; the kernel with one phase: "
+          f"chain {walk:.4f}, product {product:.4f}; bound {bound:.4f} "
+          f"({ms / bound:.2f}x); split tm_chain + library {split:.4f}",
+          flush=True)
+
+
+SECTIONS = ("matmul", "block", "gather", "conv", "commit", "prologue")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_tm_kernels: needs a CUDA device")
@@ -195,52 +356,99 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
+    want = set(sys.argv[1:]) or set(SECTIONS)
+    if want - set(SECTIONS):
+        raise SystemExit(f"profile_tm_kernels: sections are {SECTIONS}")
     with torch.inference_mode():
-        M = 360 * 640
-        for ep in (mk.Epilogue(), mk.Epilogue("transpose"),
-                   mk.Epilogue("pixel_shuffle", 360, 640, 3, 3)):
-            matmul(gen, dev, M, 288, 27, ep)
-        matmul(gen, dev, M, 288, 27, mk.Epilogue(), torch.bfloat16)
-        matmul(gen, dev, M, 287, 27, mk.Epilogue())
-        for N in (12, 64, 255):
-            matmul(gen, dev, M, 288, N, mk.Epilogue())
-        matmul(gen, dev, M, 32, 27, mk.Epilogue())
-        shape = (448, 448, 64)
-        x = torch.rand(shape, generator=gen).to(dev)
-        copy = graph_ms(lambda: x.clone())
-        print(f"copy {shape} float32 (x.clone(), the yardstick of a plain "
-              f"copy): {copy:.4f} ms, bound "
-              f"{2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3:.4f}", flush=True)
-        del x
-        for dtype in (torch.int8, torch.bfloat16, torch.float32):
-            block(gen, dev, "transpose", af.transpose_map(shape), dtype,
-                  lambda x: x.permute(1, 0, 2).contiguous())
-            block(gen, dev, "band 32:64", af.split_map(shape, 2, 1), dtype,
-                  lambda x: x[..., 32:].contiguous())
-            block(gen, dev, "HWC->CHW", af.axis_permutation_map(
-                shape, (2, 0, 1)), dtype,
-                lambda x: x.permute(2, 0, 1).contiguous())
-        block(gen, dev, "flip W, C", af.flip_map(shape, (1, 2)),
-              torch.float32, lambda x: x.flip(1, 2).contiguous())
-        conv(gen, dev, "EDSR body", 224, 224, 64, 64)
-        conv(gen, dev, "EDSR head", 224, 224, 3, 64)
-        conv(gen, dev, "EDSR up", 224, 224, 64, 12)
-        conv(gen, dev, "EDSR body", 224, 224, 64, 64, dtype=torch.bfloat16)
-        conv(gen, dev, "EDSR body stride 2", 224, 224, 64, 64, stride=2)
-        conv(gen, dev, "EDSR body off 16 B (cp.async)", 224, 224, 64, 64,
-             offset=1)
-        g = xc.Gemm("conv", (1, 360, 640, 32), (3, 3, 32, 27), 1, "SAME")
-        shuffle = ((af.batch_extend_map(
-            af.pixel_shuffle_map(g.out_shape[1:], 3), (1,)), None),)
-        commit(gen, dev, "ESPCN conv3 -> PixelShuffle x3", g, shuffle)
-        commit(gen, dev, "ESPCN conv3 -> PixelShuffle x3", g, shuffle,
-               torch.bfloat16)
-        pad = ((af.batch_extend_map(af.pad_map(
-            g.out_shape[1:], (1, 1, 0), (1, 1, 0), fill=3.0), (1,)), None),)
-        commit(gen, dev, "ESPCN conv3 -> pad with fill", g, pad)
-        g = xc.Gemm("mm", (230400, 288), (288, 27))
-        commit(gen, dev, "mm (230400, 288) x (288, 27) -> transpose", g,
-               ((af.axis_permutation_map(g.out_shape, (1, 0)), None),))
+        if "matmul" in want:
+            sweep_matmul(gen, dev)
+        if "block" in want:
+            sweep_block(gen, dev)
+        if "gather" in want:
+            sweep_gather(gen, dev)
+        if "conv" in want:
+            sweep_conv(gen, dev)
+        if "commit" in want:
+            sweep_commit(gen, dev)
+        if "prologue" in want:
+            for dtype in (torch.float32, torch.bfloat16):
+                prologue(gen, dev, "YOLO neck -> 1x1 conv 255", 1, dtype)
+            prologue(gen, dev, "YOLO neck -> 3x3 conv 255", 3)
+
+
+def sweep_matmul(gen, dev) -> None:
+    M = 360 * 640
+    for ep in (mk.Epilogue(), mk.Epilogue("transpose"),
+               mk.Epilogue("pixel_shuffle", 360, 640, 3, 3)):
+        matmul(gen, dev, M, 288, 27, ep)
+    matmul(gen, dev, M, 288, 27, mk.Epilogue(), torch.bfloat16)
+    matmul(gen, dev, M, 287, 27, mk.Epilogue())
+    for N in (12, 64, 255):
+        matmul(gen, dev, M, 288, N, mk.Epilogue())
+    matmul(gen, dev, M, 32, 27, mk.Epilogue())
+
+
+def sweep_block(gen, dev) -> None:
+    shape = (448, 448, 64)
+    x = torch.rand(shape, generator=gen).to(dev)
+    copy = graph_ms(lambda: x.clone())
+    print(f"copy {shape} float32 (x.clone(), the yardstick of a plain "
+          f"copy): {copy:.4f} ms, bound "
+          f"{2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3:.4f}", flush=True)
+    del x
+    for dtype in (torch.int8, torch.bfloat16, torch.float32):
+        block(gen, dev, "transpose", af.transpose_map(shape), dtype,
+              lambda x: x.permute(1, 0, 2).contiguous())
+        block(gen, dev, "band 32:64", af.split_map(shape, 2, 1), dtype,
+              lambda x: x[..., 32:].contiguous())
+        block(gen, dev, "HWC->CHW", af.axis_permutation_map(
+            shape, (2, 0, 1)), dtype,
+            lambda x: x.permute(2, 0, 1).contiguous())
+    block(gen, dev, "flip W, C", af.flip_map(shape, (1, 2)),
+          torch.float32, lambda x: x.flip(1, 2).contiguous())
+
+
+def sweep_gather(gen, dev) -> None:
+    shape = (448, 448, 64)
+
+    def interp(x):
+        return F.interpolate(x.permute(2, 0, 1)[None], scale_factor=2,
+                             mode="nearest")
+
+    for dtype in (torch.int8, torch.bfloat16, torch.float32):
+        gather(gen, dev, "upsample x2", af.upsample_map(shape, 2), dtype,
+               interp if dtype != torch.int8 else None)
+        gather(gen, dev, "pixel shuffle x2", af.pixel_shuffle_map(shape, 2),
+               dtype)
+        gather(gen, dev, "pixel unshuffle x2",
+               af.pixel_unshuffle_map(shape, 2), dtype)
+        gather(gen, dev, "rearrange 3 -> 16",
+               af.rearrange_map((448, 448, 3), 1, 16), dtype)
+
+
+def sweep_conv(gen, dev) -> None:
+    conv(gen, dev, "EDSR body", 224, 224, 64, 64)
+    conv(gen, dev, "EDSR head", 224, 224, 3, 64)
+    conv(gen, dev, "EDSR up", 224, 224, 64, 12)
+    conv(gen, dev, "EDSR body", 224, 224, 64, 64, dtype=torch.bfloat16)
+    conv(gen, dev, "EDSR body stride 2", 224, 224, 64, 64, stride=2)
+    conv(gen, dev, "EDSR body off 16 B (cp.async)", 224, 224, 64, 64,
+         offset=1)
+
+
+def sweep_commit(gen, dev) -> None:
+    g = xc.Gemm("conv", (1, 360, 640, 32), (3, 3, 32, 27), 1, "SAME")
+    shuffle = ((af.batch_extend_map(
+        af.pixel_shuffle_map(g.out_shape[1:], 3), (1,)), None),)
+    commit(gen, dev, "ESPCN conv3 -> PixelShuffle x3", g, shuffle)
+    commit(gen, dev, "ESPCN conv3 -> PixelShuffle x3", g, shuffle,
+           torch.bfloat16)
+    pad = ((af.batch_extend_map(af.pad_map(
+        g.out_shape[1:], (1, 1, 0), (1, 1, 0), fill=3.0), (1,)), None),)
+    commit(gen, dev, "ESPCN conv3 -> pad with fill", g, pad)
+    g = xc.Gemm("mm", (230400, 288), (288, 27))
+    commit(gen, dev, "mm (230400, 288) x (288, 27) -> transpose", g,
+           ((af.axis_permutation_map(g.out_shape, (1, 0)), None),))
 
 
 if __name__ == "__main__":

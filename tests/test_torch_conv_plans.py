@@ -83,8 +83,8 @@ def test_conv_plan_path_tiles_and_fill(name, dtype, aligned):
     assert plan.path == ("tma" if want_tma else "cp.async")
     # the tile: N rounded up to 4 where N <= 32, else 64; 8 rows a thread
     assert plan.BN == (-(-OC // 4) * 4 if OC <= 32 else 64)
-    nct = 8 if plan.BN == 64 else 4
-    assert plan.threads == plan.BM // 8 * nct
+    assert plan.nct in ((8, 16) if plan.BN == 64 else (4,))
+    assert plan.threads == plan.BM // 8 * plan.nct
     assert plan.threads % 32 == 0 and 64 <= plan.threads <= ik.MAX_THREADS
     assert plan.smem <= ik.BLOCK_SMEM and plan.stages in ik.STAGES
     # the K steps: filter taps by 128-byte channel chunks (TMA), else K
@@ -125,6 +125,24 @@ def test_conv_plan_main_path_choices():
     for case in MAIN_CONVS.values():
         p = _plan(case, torch.float32)
         assert p.threads * p.blocks_per_sm >= 256
+
+
+def test_conv_plan_takes_narrow_thread_tiles_only_for_warps():
+    """8 x 4 tiles a thread (16 column threads at BN = 64) only where 8 x 8
+    ones would leave the SMs with fewer warps on the same rows: the YOLO
+    neck's head-2 1x1 conv (M 6272, N 255) takes them, EDSR's convs keep
+    8 x 8 (and every tile width below 64 its 4 column threads)."""
+    neck = ik.conv_plan(6272, 255, 256, torch.float32, tma=True, C=256)
+    assert (neck.BM, neck.nct, neck.tiles, neck.warps) == (96, 16, 264, 12)
+    wide = ik.conv_plan(6272, 255, 256, torch.float32, tma=True, C=256,
+                        occupancy=lambda nct, threads, smem: (
+                            ik.model_occupancy(threads, smem)
+                            if nct == 8 else 0))
+    assert (wide.BM, wide.nct, wide.tiles, wide.warps) == (192, 8, 132, 6)
+    for name in ("edsr_head", "edsr_body"):
+        plan = _plan(MAIN_CONVS[name], torch.float32)
+        assert (plan.BM, plan.nct, plan.warps) == (192, 8, 12)
+    assert _plan(MAIN_CONVS["edsr_up"], torch.float32).nct == 4
 
 
 def test_model_occupancy_limits():

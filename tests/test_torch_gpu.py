@@ -160,6 +160,65 @@ def test_gather_kernel_matches_plain_on_card(cuda, name):
             assert torch.equal(got, ref), (name, dtype, ew)
 
 
+# maps whose run table holds SEP_CAP entries element by element (the
+# upsample on an x one element off 16 B): with the kernel's own shared
+# memory, more than the 48 KB a block gets without asking
+CAP_MAPS = {
+    "pixelshuffle_at_cap": af.pixel_shuffle_map((2, 3, 4 * ta.SEP_CAP), 2),
+    "upsample_at_cap": af.upsample_map((2, 3, ta.SEP_CAP), 2),
+}
+
+# maps of each gather path: (map, path, vbytes at int8 / int32 / bf16 / f32
+# for an aligned x); the upsamples, and the pad past int8, read 16-byte
+# accesses where aligned
+GATHER_PATH_CASES = {
+    "upsample_vector": (af.upsample_map((9, 7, 16), 2), "separable",
+                        (16, 16, 16, 16)),
+    "pad_vector": (af.pad_map((12, 10, 8), (1, 0, 0), (0, 2, 0), fill=5.0),
+                   "separable", (1, 16, 16, 16)),
+    "pixelshuffle_elements": (af.pixel_shuffle_map((20, 18, 64), 2),
+                              "separable", (1, 4, 2, 4)),
+    "pixelunshuffle_elements": (af.pixel_unshuffle_map((20, 36, 16), 2),
+                                "separable", (1, 4, 2, 4)),
+    "rearrange_elements": (af.batch_extend_map(
+        af.rearrange_map((30, 40, 3), 1, 16), (2,)), "separable",
+        (1, 4, 2, 4)),
+    "img2col_general": (af.img2col_map((64, 64, 8), 3, 3, 1, 1, fill=-1.0),
+                        "general", (1, 4, 2, 4)),
+    "pixelshuffle_at_cap": (CAP_MAPS["pixelshuffle_at_cap"], "separable",
+                            (1, 4, 2, 4)),
+    "upsample_at_cap": (CAP_MAPS["upsample_at_cap"], "separable",
+                        (16, 16, 16, 16)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(GATHER_PATH_CASES))
+def test_gather_kernel_paths_on_card(cuda, name):
+    """Each path of the gather kernel against the plain version, in every
+    dtype and epilogue, on an aligned x and on the same values one element
+    off 16 bytes (a view into a larger buffer: element by element)."""
+    m, path, vbytes = GATHER_PATH_CASES[name]
+    rng = np.random.RandomState(8)
+    n = int(np.prod(m.in_shape))
+    for dtype, vb in zip(DTYPES, vbytes):
+        buf = _rand(rng, (n + 1,), dtype, cuda)
+        for aligned in (True, False):
+            x = (buf[:n] if aligned else buf[1:]).view(m.in_shape)
+            launch = ta.gather_launch(m, x)
+            assert launch.path == path, (name, dtype)
+            assert launch.vbytes == (vb if aligned else x.element_size())
+            for ew in EW_OPS:
+                y = None if ew is None else _rand(rng, m.out_shape, dtype,
+                                                  cuda)
+                before = ta.tm_affine_gather.launches
+                got = ta.tm_affine_gather(x, m, y=y, ew=ew)
+                ref = ta.gather_plain(x, m, y=y, ew=ew)
+                torch.cuda.synchronize()
+                assert ta.tm_affine_gather.launches == before + 1
+                assert torch.equal(got, ref), (name, dtype, aligned, ew)
+
+
 @pytest.mark.gpu
 def test_empty_output_launches_nothing_on_card(cuda):
     counts = lambda: (ta.tm_affine_block.launches,  # noqa: E731
@@ -794,6 +853,88 @@ def test_xchain_commit_replays_in_a_cuda_graph_on_card(cuda, full_f32):
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             captured = xc.xchain_commit(sig, g, x, w)
+        for _ in range(3):
+            captured.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(captured, eager), dtype
+
+
+def _neck_prologue(rng, dtype, device, batch=8):
+    """The YOLOv3-Tiny neck (upsample x2 of (B, 14, 14, 128), Route with
+    the (B, 28, 28, 128) skip) into head 2's 1x1 conv to 255 channels."""
+    from repro_torch.kernels.matmul_tm import chain as xc
+    from repro_torch.kernels.tm_affine.chain import ChainSig
+    up = af.batch_extend_map(af.upsample_map((14, 14, 128), 2), (batch,))
+    route = tuple(af.batch_extend_map(m, (batch,)) for m in
+                  af.route_maps([(28, 28, 128), (28, 28, 128)]))
+    sig = ChainSig(links=((up, None),), route_maps=route, route_band=0,
+                   dtype=str(dtype).removeprefix("torch."))
+    u = _operand(rng, up.in_shape, dtype, device)
+    skip = _operand(rng, route[1].in_shape, dtype, device)
+    w = _operand(rng, (1, 1, 256, 255), dtype, device)
+    g = xc.Gemm("conv", (batch, 28, 28, 256), (1, 1, 256, 255), 1, "SAME")
+    return sig, g, u, skip, w
+
+
+@pytest.mark.gpu
+def test_xchain_prologue_at_the_yolo_neck_on_card(cuda, full_f32):
+    """The prologue at the full YOLO-neck size in every dtype (one launch,
+    TMA im2col over the scratch), against the plain version: integers bit
+    for bit, floats within 2 gamma_K sum |x w| (bf16 one more ulp)."""
+    from repro_torch.kernels.matmul_tm import chain as xc
+    rng = np.random.RandomState(25)
+    for dtype in DTYPES:
+        sig, g, u, skip, w = _neck_prologue(rng, dtype, cuda)
+        before = xc.xchain_prologue.launches
+        got = xc.xchain_prologue(sig, g, 0, u, w, (skip,))
+        ref = xc.xchain_prologue_plain(sig, g, 0, u, w, (skip,))
+        torch.cuda.synchronize()
+        assert xc.xchain_prologue.launches == before + 1
+        cat = torch.cat([u.repeat_interleave(2, 1).repeat_interleave(2, 2),
+                         skip], -1)
+        assert xc.xchain_prologue_card_plan(g, cat).path == "tma"
+        _require_product(got.reshape(-1, 255), ref.reshape(-1, 255),
+                         cat.reshape(-1, 256), w.reshape(256, 255), dtype,
+                         dtype)
+
+
+@pytest.mark.gpu
+def test_xchain_prologue_keeps_the_route_sum_bits_on_card(cuda):
+    """The Route band sums v + (mask ? z : fill) as the JAX package does:
+    a -0.0 in either band's source comes out +0.0 (-0.0 + 0.0), bit for
+    bit the plain version, through the chain into an identity product."""
+    from repro_torch.kernels.matmul_tm import chain as xc
+    from repro_torch.kernels.tm_affine.chain import ChainSig
+    up = af.batch_extend_map(af.upsample_map((3, 4, 4), 2), (1,))
+    route = tuple(af.batch_extend_map(m, (1,)) for m in
+                  af.route_maps([(6, 8, 4), (6, 8, 4)]))
+    sig = ChainSig(links=((up, None),), route_maps=route, route_band=0)
+    g = xc.Gemm("conv", (1, 6, 8, 8), (1, 1, 8, 8), 1, "SAME")
+    u = torch.full(up.in_shape, -0.0, device=cuda)
+    skip = torch.full(route[1].in_shape, -0.0, device=cuda)
+    eye = torch.eye(8, device=cuda).reshape(1, 1, 8, 8)
+    got = xc.xchain_prologue(sig, g, 0, u, eye, (skip,))
+    ref = xc.xchain_prologue_plain(sig, g, 0, u, eye, (skip,))
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert not torch.signbit(got).any()
+
+
+@pytest.mark.gpu
+def test_xchain_prologue_replays_in_a_cuda_graph_on_card(cuda, full_f32):
+    """The cooperative prologue captured in a CUDA graph and replayed
+    equals an eager call, bit for bit; its scratch comes from the graph's
+    pool."""
+    from repro_torch.kernels.matmul_tm import chain as xc
+    rng = np.random.RandomState(26)
+    for dtype in (torch.float32, torch.int32):
+        sig, g, u, skip, w = _neck_prologue(rng, dtype, cuda, batch=2)
+        eager = xc.xchain_prologue(sig, g, 0, u, w, (skip,))
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = xc.xchain_prologue(sig, g, 0, u, w, (skip,))
         for _ in range(3):
             captured.zero_()
             graph.replay()
