@@ -29,7 +29,9 @@ phases and fails on any mismatch:
    library call) and ``x.flatten()[index]``; the prologue's plan, each of
    its two phases alone, and the same work split (``tm_chain``, then
    ``conv2d``, which the one launch has to beat; ``tm_chain``, then
-   ``torch.mm``);
+   ``torch.mm``); ``tm_chain``'s run plan at the neck (R, elements an
+   access, the bytes of its run tables beside the full pullback's, which
+   must stay under 64 KB); each RME compaction's scan rounds per stream;
 2. slice 1, per-instruction lowering: the paper's Table III operators as
    single-instruction ``TMProgram``s through ``TMExecutor(backend="cuda")``
    against ``backend="reference"``, bit-exact, with the expected ``cuda.*``
@@ -210,6 +212,19 @@ def require_equal(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
 # phases
 # ---------------------------------------------------------------------------
 
+def _rounds(src: torch.Tensor, cnt: torch.Tensor, n: int) -> str:
+    """The scan rounds each stream took: the walk stops after the round in
+    which the count reaches the capacity (or at the stream's end)."""
+    from repro_torch.kernels.rme_gather import rme_gather as rg
+    rounds = []
+    for b in range(src.shape[0]):
+        c = int(cnt[b])
+        scanned = int(src[b, c - 1]) + 1 if c == src.shape[1] > 0 else n
+        rounds.append(-(-scanned // rg.ROUND_ROWS))
+    return (f"scan rounds of {rg.ROUND_ROWS} rows per stream {rounds} "
+            f"(a {n}-row stream is {-(-n // rg.ROUND_ROWS)})")
+
+
 def chain_row(dev, gen) -> dict:
     """tm_chain at the YOLOv3-Tiny neck: u0 (8, 14, 14, 128) upsample x2,
     then Route with the skip map (8, 28, 28, 128) -> (8, 28, 28, 256)."""
@@ -238,9 +253,17 @@ def chain_row(dev, gen) -> dict:
                     if a is not None]
                  + [a for ex in plan.extras for a in (ex.idx, ex.mask)
                     if a is not None])
-    log(f"kernel tm_chain: {nbytes} bytes of data, {consts} bytes of plan "
-        f"constants (not in the bound); {len(plan.levels)} level(s), "
-        f"{len(plan.extras)} extra band(s)")
+    rp = ch.build_run_plan(sig)
+    table, outer = rp.table_bytes, rp.outer_bytes
+    log(f"kernel tm_chain: {nbytes} bytes of data; run tables {table} bytes "
+        f"(staged per block) + {outer} bytes per-run tables = "
+        f"{table + outer} bytes read in place of {consts} bytes of full "
+        f"pullback constants (neither in the bound); runs of R = "
+        f"{rp.run}, {rp.vec} element(s) an access; {len(plan.levels)} "
+        f"level(s), {len(plan.extras)} extra band(s)")
+    if table + outer >= 64 * 1024:
+        raise AssertionError(f"tm_chain: {table + outer} bytes of run tables "
+                             f"at the neck, expected under 64 KB")
     return dict(
         name="tm_chain", route="cuda",
         source="src/repro_torch/csrc/tm_chain.cu",
@@ -296,7 +319,7 @@ def chained_evaluate_row(dev, gen) -> dict:
     nbytes += B * (CAPACITY * D * f32 + CAPACITY * 4 + 4)  # packed output
     log(f"kernel rme_evaluate_chained: {nbytes} bytes of data, {consts} "
         f"bytes of pullback index read (not in the bound), ok mask "
-        f"{'none' if ok is None else 'present'}")
+        f"{'none' if ok is None else 'present'}; {_rounds(src, cnt, N)}")
     return dict(
         name="rme_evaluate_chained", route="cuda",
         source="src/repro_torch/csrc/rme_gather.cu",
@@ -811,6 +834,7 @@ def kernel_phase(dev, gen, espcn: dict) -> list[dict]:
         # row that is not kept costs one sector; a kept row is read whole
         nbytes += (scanned - c) * SECTOR + c * D * f32
     nbytes += B * (CAPACITY * D * f32 + CAPACITY * 4 + 4)  # packed output
+    log(f"kernel rme_evaluate: {_rounds(idx, cnt, N)}")
     rows.append(dict(
         name="rme_evaluate", route="cuda",
         source="src/repro_torch/csrc/rme_gather.cu",
@@ -846,6 +870,7 @@ def kernel_phase(dev, gen, espcn: dict) -> list[dict]:
         scanned = int(idx[b, c - 1]) + 1 if c == CAPACITY else N
         nbytes += scanned + c * D * f32  # one mask byte per scanned row
     nbytes += B * (CAPACITY * D * f32 + 4)  # packed rows and count
+    log(f"kernel rme_assemble: {_rounds(idx, cnt, N)}")
     rows.append(dict(
         name="rme_assemble", route="cuda",
         source="src/repro_torch/csrc/rme_gather.cu",

@@ -1,5 +1,5 @@
-// The forwarding chain's descriptor table and its per-element walk, shared
-// by the chain megakernel (tm_chain.cu) and the cross-engine kernels
+// The forwarding chain's descriptor tables and its element-wise arithmetic,
+// shared by the chain megakernel (tm_chain.cu) and the cross-engine kernels
 // (xchain_commit.cu, xchain_prologue.cu, through chain_walk.cuh).
 //
 // The host (kernels/tm_affine/chain.py) pulls every link of a chain back
@@ -12,11 +12,20 @@
 //   v = ew(v, y[p]); for each extra band: v = v + (mask ? z[idx] : fill)
 // rounded to the element type after every step (a bf16 chain rounds after
 // each epilogue and each band sum, an int8 chain wraps at each level), as
-// the JAX package's Pallas body keeps v in the working dtype.
+// the JAX package's Pallas body keeps v in the working dtype.  chain_plain
+// (chain.py) computes this walk in PyTorch; every kernel's walk is held
+// against it.
 //
 // Element-wise arithmetic is that of tm_affine.cu: integers wrap (computed
 // in unsigned), bf16 goes through f32 and rounds to nearest even, max
 // propagates NaN.
+//
+// Two descriptors of the same walk: chain::Chain holds the full-size
+// index and mask arrays (read by the cross-engine kernels through
+// chain_walk.cuh); chain::Runs holds them factored over runs of R
+// consecutive output elements (chain.py build_run_plan), as the chain
+// megakernel reads them: element o R + p reads index base[o] + off[p] and
+// mask outer[o] & run[p], the R-entry run tables staged in shared memory.
 
 #pragma once
 
@@ -149,41 +158,113 @@ inline bool parse(const int64_t* desc, int n_levels, int n_extras, Chain* c) {
   return true;
 }
 
-// False when some level masks element i out: its fill then overwrites the
-// value read from the source, which need not be read (or computed) at all.
-__device__ __forceinline__ bool source_needed(const Chain& c, int64_t i) {
-  for (int l = 0; l < c.n_levels; ++l) {
-    if (c.level[l].mask != nullptr && c.level[l].mask[i] == 0) return false;
+// ---------------------------------------------------------------------------
+// the run-table descriptor
+//
+// The host passes int64 words (chain._Launch): R, run table bytes, run
+// table pointer, base_j pointer, off_j offset, elements per access, the
+// magic and shifts of R / elements per access; per level outer mask
+// pointer, run mask offset, fill bits, ew code, base_p pointer, off_p
+// offset, y; per extra base pointer, off offset, outer mask pointer, run
+// mask offset, fill bits, z.  Offsets are bytes into the run tables (staged
+// in shared memory); a pointer of 0 or an offset of -1 means none: a level
+// without a mask passes everywhere, a mask without an outer (run) part
+// passes on every run (position).
+// ---------------------------------------------------------------------------
+
+struct RunLevel {
+  const uint8_t* outer_ok;
+  const int32_t* base;  // the epilogue operand's base per run
+  const void* y;
+  int64_t fill;
+  int32_t run_ok;  // offsets into the staged run tables
+  int32_t off;
+  int32_t ew;
+};
+
+struct RunExtra {
+  const int32_t* base;
+  const uint8_t* outer_ok;
+  const void* z;
+  int64_t fill;
+  int32_t off;
+  int32_t run_ok;
+};
+
+struct Runs {
+  const void* table;  // the run tables, 16-byte aligned, table_bytes long
+  const int32_t* base_j;
+  int32_t table_bytes;
+  int32_t off_j;
+  uint32_t units;  // accesses a run: R / vec
+  uint32_t magic;  // of units (tm_affine.py _magic)
+  uint32_t shifts;
+  int32_t vec;
+  int n_levels;
+  int n_extras;
+  RunLevel level[kMaxLevels];
+  RunExtra extra[kMaxExtras];
+};
+
+// Returns false on a table the kernel cannot take.
+inline bool parse_runs(const int64_t* w, int n_levels, int n_extras,
+                       Runs* c) {
+  if (n_levels < 0 || n_levels > kMaxLevels || n_extras < 0 ||
+      n_extras > kMaxExtras || w[0] < 1 || w[5] < 1 || w[0] % w[5] != 0 ||
+      w[1] < 0 || w[1] % 16 != 0) {
+    return false;
+  }
+  memset(c, 0, sizeof(*c));
+  c->table = reinterpret_cast<const void*>(w[2]);
+  c->base_j = reinterpret_cast<const int32_t*>(w[3]);
+  c->table_bytes = static_cast<int32_t>(w[1]);
+  c->off_j = static_cast<int32_t>(w[4]);
+  c->vec = static_cast<int32_t>(w[5]);
+  c->units = static_cast<uint32_t>(w[0] / w[5]);
+  c->magic = static_cast<uint32_t>(w[6]);
+  c->shifts = static_cast<uint32_t>(w[7]);
+  c->n_levels = n_levels;
+  c->n_extras = n_extras;
+  w += 8;
+  for (int l = 0; l < n_levels; ++l, w += 7) {
+    RunLevel& lv = c->level[l];
+    lv.outer_ok = reinterpret_cast<const uint8_t*>(w[0]);
+    lv.run_ok = static_cast<int32_t>(w[1]);
+    lv.fill = w[2];
+    lv.ew = static_cast<int32_t>(w[3]);
+    lv.base = reinterpret_cast<const int32_t*>(w[4]);
+    lv.off = static_cast<int32_t>(w[5]);
+    lv.y = reinterpret_cast<const void*>(w[6]);
+  }
+  for (int e = 0; e < n_extras; ++e, w += 6) {
+    RunExtra& ex = c->extra[e];
+    ex.base = reinterpret_cast<const int32_t*>(w[0]);
+    ex.off = static_cast<int32_t>(w[1]);
+    ex.outer_ok = reinterpret_cast<const uint8_t*>(w[2]);
+    ex.run_ok = static_cast<int32_t>(w[3]);
+    ex.fill = w[4];
+    ex.z = reinterpret_cast<const void*>(w[5]);
   }
   return true;
 }
 
-// The walk after the source read: every level, then every extra band.
-template <typename T>
-__device__ __forceinline__ T apply(const Chain& c, T v, int64_t i) {
-  for (int l = 0; l < c.n_levels; ++l) {
-    const Level& lv = c.level[l];
-    if (lv.mask != nullptr && lv.mask[i] == 0) v = from_bits<T>(lv.fill);
-    if (lv.ew != kNone) {
-      v = apply_ew<T>(static_cast<int>(lv.ew), v,
-                      static_cast<const T*>(lv.y)[lv.p[i]]);
-    }
-  }
-  for (int e = 0; e < c.n_extras; ++e) {
-    const Extra& ex = c.extra[e];
-    const T u = (ex.mask != nullptr && ex.mask[i] == 0)
-                    ? from_bits<T>(ex.fill)
-                    : static_cast<const T*>(ex.z)[ex.idx[i]];
-    v = apply_ew<T>(kAdd, v, u);
-  }
-  return v;
+// run o = u / units of access u (multiply-high, as tm_affine.cu divides)
+__device__ __forceinline__ uint32_t run_of(const Runs& c, uint32_t u) {
+  const uint32_t t = __umulhi(u, c.magic);
+  return (t + ((u - t) >> (c.shifts & 0xff))) >> (c.shifts >> 8);
 }
 
-// Element i of the chain's output, its source a tensor in memory.
-template <typename T>
-__device__ __forceinline__ T eval(const T* __restrict__ x, const Chain& c,
-                                  int64_t i) {
-  return apply<T>(c, x[c.j[i]], i);
+// whether a mask (outer pointer, run offset) passes at run o, position p
+__device__ __forceinline__ bool passes(const uint8_t* outer, int32_t run,
+                                       const char* s, uint32_t o,
+                                       uint32_t p) {
+  return (outer == nullptr || outer[o] != 0) &&
+         (run < 0 || reinterpret_cast<const uint8_t*>(s + run)[p] != 0);
+}
+
+__device__ __forceinline__ int32_t off_at(const char* s, int32_t off,
+                                          uint32_t p) {
+  return reinterpret_cast<const int32_t*>(s + off)[p];
 }
 
 }  // namespace chain

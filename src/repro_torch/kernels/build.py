@@ -30,6 +30,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # --split-compile=0: optimise a source's kernels on every core (matmul_tm.cu
@@ -173,6 +175,15 @@ def library(name: str) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _libs[name] = lib
     return lib
+
+
+def current_stream(index: int) -> int:
+    """The handle of PyTorch's current stream on CUDA device ``index`` (a
+    tensor's ``get_device()``), as an int for a C entry point."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:  # no Stream object is made
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def check(rc: int, what: str) -> None:

@@ -18,10 +18,15 @@ its plain PyTorch version:
   runtime mask, no indices (:func:`assemble`, :func:`assemble_batched`).
 
 Each wrapper runs the plain version for a CPU tensor and the kernel for a
-CUDA tensor, and its ``launches`` counts kernel launches.
+CUDA tensor, and its ``launches`` counts kernel launches.  What a launch
+needs beyond the tensors' pointers (the checked shapes, the C arguments
+after the pointers) is computed once per shape, dtype and configuration.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -31,6 +36,7 @@ from repro_torch.kernels.tm_affine.tm_affine import _fill_bits
 
 DTYPE_CODES = {torch.int8: 0, torch.int32: 1, torch.bfloat16: 2,
                torch.float32: 3}
+ROUND_ROWS = 2048  # rows of a stream one scan round tests (kRound)
 CMP_CODES = {"ge": 0, "gt": 1, "le": 2, "lt": 3}
 _NARROW = 2 ** 31  # source indices are int32
 
@@ -62,27 +68,74 @@ def _check_records(name: str, x: torch.Tensor, capacity: int) -> None:
         raise ValueError(f"{name}: x must be a CUDA tensor, got {x.device}")
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: unsupported dtype {x.dtype}")
-    if capacity < 0:
-        raise ValueError(f"{name}: capacity must be >= 0, got {capacity}")
+    if not 0 <= capacity < _NARROW:
+        raise ValueError(f"{name}: capacity must be >= 0 and below 2^31 "
+                         f"(the count is int32), got {capacity}")
 
 
-def _threshold_args(x: torch.Tensor, threshold) -> tuple[int, float, int]:
-    """(int_mode, f32 threshold, integer threshold): the compare runs at the
-    promoted dtype, rounded on the host (see core.rme)."""
-    thr_dtype, thr = promoted_threshold(x, threshold)
+def _ctyped(entry: str, first: int, values) -> tuple:
+    """``values`` as the ctypes objects of ``entry``'s arguments from
+    position ``first`` on (converted once, not at every call)."""
+    types = build.SIGNATURES["rme_gather"][entry][first:]
+    return tuple(t(v) for t, v in zip(types, values))
+
+
+def _threshold_config(name: str, dtype: torch.dtype, d: int, threshold,
+                      cmp: str, score_index: int) -> tuple:
+    """(score_index, cmp code, int_mode, f32 threshold, integer threshold):
+    the compare runs at the promoted dtype, rounded on the host (see
+    core.rme)."""
+    if not 0 <= score_index < d or cmp not in CMP_CODES:
+        raise ValueError(f"{name}: bad config score_index={score_index} "
+                         f"cmp={cmp!r}")
+    thr_dtype, thr = promoted_threshold(torch.empty((), dtype=dtype),
+                                        threshold)
     int_mode = not thr_dtype.is_floating_point
-    return (int(int_mode), 0.0 if int_mode else float(thr),
-            int(thr) if int_mode else 0)
+    return (score_index, CMP_CODES[cmp], int(int_mode),
+            0.0 if int_mode else float(thr), int(thr) if int_mode else 0)
+
+
+@functools.lru_cache(maxsize=256)
+def _evaluate_args(shape: tuple, dtype: torch.dtype, capacity: int,
+                   threshold, cmp: str, score_index: int) -> tuple:
+    """The C arguments of ``rme_evaluate`` after its four pointers."""
+    if len(shape) != 3:
+        raise ValueError(f"rme_evaluate: x must be a contiguous (B, N, D) "
+                         f"tensor, got shape {shape}")
+    B, n, d = shape
+    if n >= _NARROW:
+        raise ValueError("rme_evaluate: source indices are int32")
+    return _ctyped("rme_evaluate", 4, (
+        DTYPE_CODES[dtype], B, n, d, capacity,
+        *_threshold_config("rme_evaluate", dtype, d, threshold, cmp,
+                           score_index)))
+
+
+@functools.lru_cache(maxsize=256)
+def _chained_args(slab_numel: int, shape: tuple, dtype: torch.dtype,
+                  fill: float, capacity: int, threshold, cmp: str,
+                  score_index: int) -> tuple:
+    """The C arguments of ``rme_evaluate_chained`` after its seven
+    pointers and its fill bits, and the fill bits."""
+    if len(shape) != 3:
+        raise ValueError("rme_evaluate_chained: idx must be a contiguous "
+                         "int32 (B, N, D) tensor beside a contiguous slab")
+    B, n, d = shape
+    if max(slab_numel, B * n * d) >= _NARROW:
+        raise ValueError("rme_evaluate_chained: the pullback's indices are "
+                         "int32; a chain input or stream of 2^31 elements "
+                         "or more cannot be addressed")
+    return ctypes.c_int64(_fill_bits(fill, dtype)), _ctyped(
+        "rme_evaluate_chained", 7, (
+            DTYPE_CODES[dtype], B, n, d, capacity,
+            *_threshold_config("rme_evaluate_chained", dtype, d, threshold,
+                               cmp, score_index)))
 
 
 def _outputs(x: torch.Tensor, B: int, capacity: int, d: int):
-    return (torch.empty((B, capacity, d), dtype=x.dtype, device=x.device),
-            torch.empty((B, capacity), dtype=torch.int32, device=x.device),
-            torch.empty((B,), dtype=torch.int32, device=x.device))
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    return (x.new_empty((B, capacity, d)),
+            x.new_empty((B, capacity), dtype=torch.int32),
+            x.new_empty((B,), dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -105,27 +158,23 @@ def rme_evaluate(x: torch.Tensor, threshold, capacity: int, *,
     """Evaluate ``(B, N, D)`` record streams (see :func:`evaluate_plain`).
     CPU tensor: the plain version; CUDA tensor: the kernel, or an
     exception."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return evaluate_plain(x, threshold, capacity, cmp=cmp,
                               score_index=score_index)
     lib = build.library("rme_gather")
     _check_records("rme_evaluate", x, capacity)
-    if x.ndim != 3 or not x.is_contiguous():
+    args = _evaluate_args(tuple(x.shape), x.dtype, capacity, threshold, cmp,
+                          score_index)
+    if not x.is_contiguous():
         raise ValueError("rme_evaluate: x must be a contiguous (B, N, D) "
                          f"tensor, got shape {tuple(x.shape)}")
-    B, n, d = x.shape
-    if not 0 <= score_index < d or cmp not in CMP_CODES:
-        raise ValueError(f"rme_evaluate: bad config score_index="
-                         f"{score_index} cmp={cmp!r}")
-    if n >= _NARROW:
-        raise ValueError("rme_evaluate: source indices are int32")
+    B, _, d = x.shape
     rows, idx, cnt = _outputs(x, B, capacity, d)
     if B == 0:
         return rows, idx, cnt
-    rc = lib.rme_evaluate(
-        x.data_ptr(), rows.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
-        DTYPE_CODES[x.dtype], B, n, d, capacity, score_index, CMP_CODES[cmp],
-        *_threshold_args(x, threshold), _stream(x))
+    rc = lib.rme_evaluate(x.data_ptr(), rows.data_ptr(), idx.data_ptr(),
+                          cnt.data_ptr(), *args,
+                          build.current_stream(x.get_device()))
     build.check(rc, "rme_evaluate")
     rme_evaluate.launches += 1
     return rows, idx, cnt
@@ -184,40 +233,33 @@ def rme_evaluate_chained(x_slab: torch.Tensor, idx: torch.Tensor,
     out of bounds).  Returns ``(rows (B, capacity, D), src_idx (B,
     capacity), count (B,))``.  CPU tensor: the plain version; CUDA tensor:
     the kernel, or an exception."""
-    if x_slab.device.type == "cpu":
+    if x_slab.is_cpu:
         return evaluate_chained_plain(x_slab, idx, ok, fill, threshold,
                                       capacity, cmp=cmp,
                                       score_index=score_index)
     lib = build.library("rme_gather")
     _check_records("rme_evaluate_chained", x_slab, capacity)
-    if (idx.ndim != 3 or idx.dtype != torch.int32
-            or idx.device != x_slab.device or not idx.is_contiguous()
-            or not x_slab.is_contiguous()):
+    fill_bits, args = _chained_args(x_slab.numel(), tuple(idx.shape),
+                                    x_slab.dtype, fill, capacity, threshold,
+                                    cmp, score_index)
+    index = x_slab.get_device()
+    if (idx.dtype != torch.int32 or idx.get_device() != index
+            or not idx.is_contiguous() or not x_slab.is_contiguous()):
         raise ValueError("rme_evaluate_chained: idx must be a contiguous "
                          "int32 (B, N, D) tensor beside a contiguous slab")
     if ok is not None and (ok.dtype != torch.bool or ok.shape != idx.shape
-                           or ok.device != idx.device
+                           or ok.get_device() != index
                            or not ok.is_contiguous()):
         raise ValueError("rme_evaluate_chained: ok must be a contiguous "
                          "bool tensor shaped like idx")
-    B, n, d = idx.shape
-    if not 0 <= score_index < d or cmp not in CMP_CODES:
-        raise ValueError(f"rme_evaluate_chained: bad config score_index="
-                         f"{score_index} cmp={cmp!r}")
-    if max(x_slab.numel(), idx.numel()) >= _NARROW:
-        raise ValueError("rme_evaluate_chained: the pullback's indices are "
-                         "int32; a chain input or stream of 2^31 elements "
-                         "or more cannot be addressed")
+    B, _, d = idx.shape
     rows, src, cnt = _outputs(x_slab, B, capacity, d)
     if B == 0:
         return rows, src, cnt
     rc = lib.rme_evaluate_chained(
         x_slab.data_ptr(), idx.data_ptr(),
-        None if ok is None else ok.data_ptr(),
-        _fill_bits(fill, x_slab.dtype), rows.data_ptr(), src.data_ptr(),
-        cnt.data_ptr(), DTYPE_CODES[x_slab.dtype], B, n, d, capacity,
-        score_index, CMP_CODES[cmp], *_threshold_args(x_slab, threshold),
-        _stream(x_slab))
+        None if ok is None else ok.data_ptr(), fill_bits, rows.data_ptr(),
+        src.data_ptr(), cnt.data_ptr(), *args, build.current_stream(index))
     build.check(rc, "rme_evaluate_chained")
     rme_evaluate_chained.launches += 1
     return rows, src, cnt
@@ -252,6 +294,16 @@ def assemble_plain(x: torch.Tensor, mask: torch.Tensor, capacity: int,
     return rows, cnt
 
 
+@functools.lru_cache(maxsize=256)
+def _assemble_args(shape: tuple, dtype: torch.dtype, capacity: int) -> tuple:
+    """The C arguments of ``rme_assemble`` after its five pointers and
+    the mask's width."""
+    if len(shape) != 3:
+        raise ValueError(f"rme_assemble: x must be a contiguous (B, N, D) "
+                         f"tensor, got shape {shape}")
+    return _ctyped("rme_assemble", 5, (DTYPE_CODES[dtype], *shape, capacity))
+
+
 def rme_assemble(x: torch.Tensor, mask: torch.Tensor, capacity: int,
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Assemble ``(B, N, D)`` record streams under a ``(B, N)`` runtime mask
@@ -259,28 +311,29 @@ def rme_assemble(x: torch.Tensor, mask: torch.Tensor, capacity: int,
     mask of another dtype is cast to int32 first, as the JAX package casts
     it.  CPU tensor: the plain version; CUDA tensor: the kernel, or an
     exception."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return assemble_plain(x, mask, capacity)
     lib = build.library("rme_gather")
     _check_records("rme_assemble", x, capacity)
-    if x.ndim != 3 or not x.is_contiguous():
+    args = _assemble_args(tuple(x.shape), x.dtype, capacity)
+    if not x.is_contiguous():
         raise ValueError("rme_assemble: x must be a contiguous (B, N, D) "
                          f"tensor, got shape {tuple(x.shape)}")
     B, n, d = x.shape
-    if tuple(mask.shape) != (B, n) or mask.device != x.device:
+    if mask.shape != (B, n) or mask.get_device() != x.get_device():
         raise ValueError(f"rme_assemble: mask must be ({B}, {n}) on "
                          f"{x.device}, got {tuple(mask.shape)} on "
                          f"{mask.device}")
     if mask.dtype not in (torch.bool, torch.int32):
         mask = mask.to(torch.int32)
     mask = mask.contiguous()
-    rows = torch.empty((B, capacity, d), dtype=x.dtype, device=x.device)
-    cnt = torch.empty((B,), dtype=torch.int32, device=x.device)
+    rows = x.new_empty((B, capacity, d))
+    cnt = x.new_empty((B,), dtype=torch.int32)
     if B == 0:
         return rows, cnt
     rc = lib.rme_assemble(x.data_ptr(), mask.data_ptr(), mask.element_size(),
-                          rows.data_ptr(), cnt.data_ptr(),
-                          DTYPE_CODES[x.dtype], B, n, d, capacity, _stream(x))
+                          rows.data_ptr(), cnt.data_ptr(), *args,
+                          build.current_stream(x.get_device()))
     build.check(rc, "rme_assemble")
     rme_assemble.launches += 1
     return rows, cnt

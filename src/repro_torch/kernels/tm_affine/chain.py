@@ -29,10 +29,19 @@ segment is handed to the next on the TPU.  The CUDA kernel keeps that
 handoff in registers, one output element per thread, so the port's plan
 has no scratch fields.
 
-The kernel (``csrc/tm_chain.cu``) sits beside its plain PyTorch version
-:func:`chain_plain`; the wrapper :func:`tm_chain` runs the plain version for
-a CPU tensor and the kernel for a CUDA tensor, and ``tm_chain.launches``
-counts kernel launches.
+The kernel (``csrc/tm_chain.cu``) does not stream those full-size arrays.
+:func:`build_run_plan` factors each of them over a run grid (element ``i``
+is run ``o = i // R``, position ``p = i % R``, a suffix of the output's
+axes): every index as ``base[o] + off[p]`` and every mask as ``outer[o] &
+run[p]``, checked exactly in numpy against the full arrays wherever the
+kernel reads them.  The kernel stages the ``R``-entry run tables in shared
+memory and reads one base per run; ``R = 1`` always factors, so every chain
+has a plan.
+
+The kernel sits beside its plain PyTorch version :func:`chain_plain`; the
+wrapper :func:`tm_chain` runs the plain version for a CPU tensor and the
+kernel for a CUDA tensor, and ``tm_chain.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ from repro_torch.core.engine import EW_FNS, gather_indices
 from repro_torch.core.schedule import plan_segments
 from repro_torch.kernels import build
 from repro_torch.kernels.tm_affine.tm_affine import (DTYPE_CODES, EW_CODES,
-                                                     _fill_bits)
+                                                     _fill_bits, _magic)
 
 # The JAX package declines chains whose inputs (the chain source + every
 # epilogue/band operand slab + the pullback constants) would not stay
@@ -59,10 +68,15 @@ from repro_torch.kernels.tm_affine.tm_affine import (DTYPE_CODES, EW_CODES,
 # same programs the same way.
 CHAIN_VMEM_BUDGET = 1 << 27
 
-# descriptor table sizes of csrc/tm_chain.cu
+# descriptor table sizes of csrc/chain_desc.cuh
 MAX_LEVELS = 16
 MAX_EXTRAS = 16
 _NARROW = 2 ** 31  # the plan's indices are int32
+# the run tables of csrc/tm_chain.cu: at most R_CAP positions a run, and at
+# most RUN_SMEM bytes of tables staged in a block's shared memory
+R_CAP = 8192
+RUN_SMEM = 64 * 1024
+_ALIGN = 16  # each table starts on a 16-byte boundary
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,6 +279,205 @@ def chain_slab_bytes(sig: ChainSig, x, slabs) -> int:
 
 
 # ---------------------------------------------------------------------------
+# the run plan: the pullback factored over a run grid
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RunIndex:
+    """An int32 plan array over the run grid: ``base[o] + off[p]`` at
+    element ``o * R + p`` wherever the kernel reads it."""
+
+    base: np.ndarray   # (n_runs,) int32
+    off: np.ndarray    # (R,) int32
+
+
+@dataclasses.dataclass(frozen=True)
+class RunMask:
+    """A plan mask over the run grid: ``outer[o] & run[p]``; a part that is
+    None is true everywhere."""
+
+    outer: np.ndarray | None  # (n_runs,) bool
+    run: np.ndarray | None    # (R,) bool
+
+
+@dataclasses.dataclass(frozen=True)
+class RunPlan:
+    """A chain plan factored over runs of ``run`` consecutive output
+    elements (a suffix of the output's axes).  ``levels`` holds each
+    level's (mask, p), p None without an epilogue; ``extras`` each extra
+    band's (idx, mask).  ``vec``: the elements one access may move (1, or
+    16 bytes' worth where every table allows it)."""
+
+    sig: ChainSig
+    run: int
+    n_runs: int
+    vec: int
+    j: RunIndex
+    levels: tuple[tuple[RunMask, RunIndex | None], ...]
+    extras: tuple[tuple[RunIndex, RunMask], ...]
+
+    def run_tables(self) -> list[np.ndarray]:
+        """What a block stages in shared memory, in the kernel's order:
+        off_j; per level its run mask and off_p; per extra off, run mask."""
+        out = [self.j.off]
+        for mask, p in self.levels:
+            out += [a for a in (mask.run, None if p is None else p.off)
+                    if a is not None]
+        for idx, mask in self.extras:
+            out += [a for a in (idx.off, mask.run) if a is not None]
+        return out
+
+    def outer_tables(self) -> list[np.ndarray]:
+        """The per-run tables, read from device memory: base_j; per level
+        its outer mask and base_p; per extra base, outer mask."""
+        out = [self.j.base]
+        for mask, p in self.levels:
+            out += [a for a in (mask.outer, None if p is None else p.base)
+                    if a is not None]
+        for idx, mask in self.extras:
+            out += [a for a in (idx.base, mask.outer) if a is not None]
+        return out
+
+    @property
+    def table_bytes(self) -> int:
+        return sum(_padded(a.nbytes) for a in self.run_tables())
+
+    @property
+    def outer_bytes(self) -> int:
+        return sum(_padded(a.nbytes) for a in self.outer_tables())
+
+
+def _padded(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def _factor_mask(mask: np.ndarray | None, care, n: int, r: int,
+                 ) -> RunMask | None:
+    """``mask`` as ``outer[o] & run[p]`` on the rectangle ``care`` (rows,
+    cols) where it decides the result; None if it does not factor."""
+    if mask is None:
+        return RunMask(None, None)
+    rows, cols = care
+    sub = mask.reshape(n, r)[rows][:, cols]
+    outer, run = np.ones(n, bool), np.ones(r, bool)
+    outer[rows], run[cols] = sub.any(1), sub.any(0)
+    if not np.array_equal(sub, outer[rows][:, None] & run[cols][None, :]):
+        return None
+    return RunMask(None if outer.all() else outer, None if run.all() else run)
+
+
+def _factor_index(a: np.ndarray, read, n: int, r: int) -> RunIndex | None:
+    """``a`` as ``base[o] + off[p]`` on the rectangle ``read`` (rows, cols)
+    where the kernel reads it (elsewhere both are 0); None if it does not
+    factor."""
+    rows, cols = read
+    a = a.reshape(n, r)
+    base, off = np.zeros(n, np.int64), np.zeros(r, np.int64)
+    if rows.any() and cols.any():
+        o0, p0 = int(np.argmax(rows)), int(np.argmax(cols))
+        off[cols] = a[o0, cols].astype(np.int64) - int(a[o0, p0])
+        base[rows] = a[rows, p0]
+        sub = a[rows][:, cols].astype(np.int64)
+        if not np.array_equal(sub, base[rows][:, None] + off[cols][None, :]):
+            return None
+    return RunIndex(base.astype(np.int32), off.astype(np.int32))
+
+
+def _rect(mask: RunMask, care):
+    """The rectangle where ``care`` holds and ``mask`` passes."""
+    rows, cols = care
+    return (rows if mask.outer is None else rows & mask.outer,
+            cols if mask.run is None else cols & mask.run)
+
+
+def _vector_ok(idx: RunIndex, read, v: int) -> bool:
+    """Whether ``idx`` reads runs of ``v`` consecutive elements, ``v``-
+    aligned, in every ``v``-chunk of a run that it reads at all."""
+    rows, cols = read
+    chunks = cols.reshape(-1, v)
+    if not (chunks.all(1) | ~chunks.any(1)).all():
+        return False
+    off = idx.off.astype(np.int64).reshape(-1, v)[chunks[:, 0]]
+    return bool((off == off[:, :1] + np.arange(v)).all()
+                and (off[:, 0] % v == 0).all()
+                and (idx.base[rows].astype(np.int64) % v == 0).all())
+
+
+def _factor_plan(plan: ChainPlan, r: int, itemsize: int) -> RunPlan | None:
+    """Factor every array of ``plan`` over runs of ``r``, or None.  The
+    kernel reads a level's mask and its p only where no later level masks
+    the element (a later fill overwrites the value), j only where no level
+    masks it, an extra's idx only where its mask passes."""
+    numel = plan.rows * plan.minor
+    n = numel // r
+    every = (np.ones(n, bool), np.ones(r, bool))
+    care = every
+    levels, reads = [], []
+    for lv in reversed(plan.levels):
+        mask = _factor_mask(lv.mask, care, n, r)
+        if mask is None:
+            return None
+        p = None
+        if lv.ew is not None:
+            p = _factor_index(lv.p, care, n, r)
+            if p is None:
+                return None
+            reads.append((p, care))
+        levels.append((mask, p))
+        care = _rect(mask, care)
+    levels.reverse()
+    j = _factor_index(plan.j, care, n, r)
+    if j is None:
+        return None
+    reads.append((j, care))
+    masks = [mask for mask, _ in levels]
+    extras = []
+    for ex in plan.extras:
+        mask = _factor_mask(ex.mask, every, n, r)
+        if mask is None:
+            return None
+        idx = _factor_index(ex.idx, _rect(mask, every), n, r)
+        if idx is None:
+            return None
+        extras.append((idx, mask))
+        masks.append(mask)
+        reads.append((idx, _rect(mask, every)))
+    v = 16 // itemsize
+    vec = v if (r % v == 0 and all(
+        (m.run is None or (m.run.reshape(-1, v) == m.run.reshape(-1, v)[:, :1])
+         .all()) for m in masks)
+        and all(_vector_ok(idx, read, v) for idx, read in reads)) else 1
+    return RunPlan(sig=plan.sig, run=r, n_runs=n, vec=vec, j=j,
+                   levels=tuple(levels), extras=tuple(extras))
+
+
+def _table_bytes_at_most(plan: ChainPlan, r: int) -> int:
+    per = [4] + [4 for lv in plan.levels if lv.ew is not None] \
+        + [1 for lv in plan.levels if lv.mask is not None] \
+        + [4 for _ in plan.extras] + [1 for ex in plan.extras
+                                      if ex.mask is not None]
+    return sum(_padded(b * r) for b in per)
+
+
+@lru_cache(maxsize=256)
+def build_run_plan(sig: ChainSig) -> RunPlan:
+    """The longest suffix of the output's axes, of at most ``R_CAP``
+    elements and ``RUN_SMEM`` bytes of run tables, over which every array
+    of :func:`build_chain_plan` factors.  ``R = 1`` always factors."""
+    plan = build_chain_plan(sig)
+    shape = sig.out_shape
+    itemsize = torch.empty((), dtype=getattr(torch, sig.dtype)).element_size()
+    for s in range(len(shape) + 1):
+        r = math.prod(shape[s:])
+        if r < 1 or r > R_CAP or _table_bytes_at_most(plan, r) > RUN_SMEM:
+            continue
+        got = _factor_plan(plan, r, itemsize)
+        if got is not None:
+            return got
+    raise AssertionError("a chain plan must factor at R = 1")
+
+
+# ---------------------------------------------------------------------------
 # the plan's constants on a device, and the plain version
 # ---------------------------------------------------------------------------
 
@@ -351,32 +564,115 @@ def _slab_shapes(sig: ChainSig) -> list[tuple[int, ...]]:
     return shapes
 
 
-def _check_launch(sig: ChainSig, x: torch.Tensor,
-                  slabs: tuple[torch.Tensor, ...]) -> None:
-    if not x.is_cuda:
-        raise ValueError(f"tm_chain: x must be a CUDA tensor, got {x.device}")
-    if x.dtype not in DTYPE_CODES or str(x.dtype) != f"torch.{sig.dtype}":
-        raise TypeError(f"tm_chain: dtype {x.dtype} does not match the "
-                        f"chain's {sig.dtype}")
-    if tuple(x.shape) != tuple(sig.links[0][0].in_shape) \
-            or not x.is_contiguous():
-        raise ValueError(f"tm_chain: x must be a contiguous tensor of shape "
-                         f"{sig.links[0][0].in_shape}")
-    shapes = _slab_shapes(sig)
-    if len(slabs) != len(shapes):
-        raise ValueError(f"tm_chain: {len(shapes)} operand slabs expected, "
-                         f"got {len(slabs)}")
-    for s, shape in zip(slabs, shapes):
-        if (s.device != x.device or s.dtype != x.dtype
-                or tuple(s.shape) != tuple(shape) or not s.is_contiguous()):
-            raise ValueError(f"tm_chain: operand slabs must be contiguous "
-                             f"{x.dtype} tensors of shapes {shapes} on "
-                             f"{x.device}")
-    if max([x.numel(), math.prod(sig.out_shape)]
-           + [s.numel() for s in slabs]) >= _NARROW:
-        raise ValueError("tm_chain: the chain's indices are int32; a chain "
-                         "input, operand or output of 2^31 elements or more "
-                         "cannot be addressed")
+def _pack(arrays: list[np.ndarray], device: torch.device,
+          ) -> tuple[torch.Tensor, list[int]]:
+    """The arrays in one device buffer, each at a 16-byte aligned offset
+    (the offsets returned in order)."""
+    offsets, at = [], 0
+    for a in arrays:
+        offsets.append(at)
+        at += _padded(a.nbytes)
+    buf = np.zeros(max(at, _ALIGN), np.uint8)
+    for a, o in zip(arrays, offsets):
+        buf[o:o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).ravel()
+    return torch.from_numpy(buf).to(device), offsets
+
+
+class _Launch:
+    """Everything of a ``tm_chain`` launch that does not depend on the
+    tensors: the checks' expected tuples, the run tables on the device
+    (uploaded once per signature and device) and, per access width, the
+    descriptor's words, packed, with a hole for every slab pointer (each
+    call copies them into a ctypes array of its own and fills the holes).
+
+    Descriptor (int64 words, csrc/chain_desc.cuh ``parse_runs``): R, run
+    table bytes, run table pointer, base_j pointer, off_j offset, elements
+    per access, its magic and shifts; per level outer mask pointer, run
+    mask offset, fill bits, ew code, base_p pointer, off_p offset, y; per
+    extra base pointer, off offset, outer mask pointer, run mask offset,
+    fill bits, z.  A pointer of 0 or an offset of -1 means none."""
+
+    def __init__(self, sig: ChainSig, device: torch.device):
+        self.dtype = getattr(torch, sig.dtype)
+        if self.dtype not in DTYPE_CODES:
+            raise TypeError(f"tm_chain: unsupported dtype {self.dtype}")
+        self.device = device
+        self.in_shape = tuple(sig.links[0][0].in_shape)
+        self.out_shape = tuple(sig.out_shape)
+        self.slab_shapes = [tuple(t) for t in _slab_shapes(sig)]
+        self.numel = math.prod(self.out_shape)
+        if self.numel == 0:  # nothing to launch, nothing to plan
+            return
+        if max([math.prod(self.in_shape), self.numel]
+               + [math.prod(t) for t in self.slab_shapes]) >= _NARROW:
+            raise ValueError("tm_chain: the chain's indices are int32; a "
+                             "chain input, operand or output of 2^31 "
+                             "elements or more cannot be addressed")
+        plan = build_chain_plan(sig)
+        if len(plan.levels) > MAX_LEVELS or len(plan.extras) > MAX_EXTRAS:
+            raise ValueError(f"tm_chain: the kernel takes at most "
+                             f"{MAX_LEVELS} levels and {MAX_EXTRAS} extra "
+                             f"Route bands")
+        rp = build_run_plan(sig)
+        self.n_levels, self.n_extras = len(rp.levels), len(rp.extras)
+        self.code = DTYPE_CODES[self.dtype]
+        self.plan = rp
+        self.table, toff = _pack(rp.run_tables(), device)
+        self.outer, ooff = _pack(rp.outer_tables(), device)
+        tnext = iter(toff)
+        onext = (o + self.outer.data_ptr() for o in ooff)
+
+        def ptr(a):  # a per-run table's pointer, 0 for none
+            return 0 if a is None else next(onext)
+
+        def off(a):  # a run table's offset in shared memory, -1 for none
+            return -1 if a is None else next(tnext)
+
+        words = [rp.run, rp.table_bytes, self.table.data_ptr(),
+                 ptr(rp.j.base), off(rp.j.off), 0, 0, 0]
+        slab_at = []
+        for (mask, pidx), lv in zip(rp.levels, plan.levels):
+            words += [ptr(mask.outer), off(mask.run),
+                      _fill_bits(lv.fill, self.dtype), EW_CODES[lv.ew],
+                      ptr(None if pidx is None else pidx.base),
+                      off(None if pidx is None else pidx.off), 0]
+            if lv.ew is not None:
+                slab_at.append(len(words) - 1)
+        for (idx, mask), ex in zip(rp.extras, plan.extras):
+            words += [ptr(idx.base), off(idx.off), ptr(mask.outer),
+                      off(mask.run), _fill_bits(ex.fill, self.dtype), 0]
+            slab_at.append(len(words) - 1)
+        self.slab_at = tuple(slab_at)
+        self.table_type = ctypes.c_int64 * len(words)
+        self.words = {}
+        for vec in {1, rp.vec}:
+            w = list(words)
+            w[5] = vec
+            w[6], w[7] = _magic(rp.run // vec)
+            self.words[vec] = bytes(self.table_type(*w))
+
+    def check(self, x: torch.Tensor, slabs) -> None:
+        if x.dtype != self.dtype:
+            raise TypeError(f"tm_chain: dtype {x.dtype} does not match the "
+                            f"chain's {self.dtype}")
+        if x.shape != self.in_shape or not x.is_contiguous():
+            raise ValueError(f"tm_chain: x must be a contiguous tensor of "
+                             f"shape {self.in_shape}")
+        if len(slabs) != len(self.slab_shapes):
+            raise ValueError(f"tm_chain: {len(self.slab_shapes)} operand "
+                             f"slabs expected, got {len(slabs)}")
+        for s, shape in zip(slabs, self.slab_shapes):
+            if (s.dtype != self.dtype or s.shape != shape
+                    or s.get_device() != self.device.index
+                    or not s.is_contiguous()):
+                raise ValueError(f"tm_chain: operand slabs must be "
+                                 f"contiguous {self.dtype} tensors of shapes "
+                                 f"{self.slab_shapes} on {self.device}")
+
+
+@lru_cache(maxsize=64)
+def _launch_of(sig: ChainSig, index: int) -> _Launch:
+    return _Launch(sig, torch.device("cuda", index))
 
 
 def tm_chain(sig: ChainSig, x: torch.Tensor,
@@ -385,26 +681,26 @@ def tm_chain(sig: ChainSig, x: torch.Tensor,
     epilogue operands then non-chain Route band sources, in link order.
     CPU tensor: the plain version; CUDA tensor: the kernel, or an
     exception.  An empty output launches nothing."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return chain_plain(x, build_chain_plan(sig), slabs)
     lib = build.library("tm_chain")  # a kernel that cannot be built raises
-    _check_launch(sig, x, slabs)
-    out = torch.empty(sig.out_shape, dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
+    if not x.is_cuda:
+        raise ValueError(f"tm_chain: x must be a CUDA tensor, got {x.device}")
+    index = x.get_device()
+    lc = _launch_of(sig, index)
+    lc.check(x, slabs)
+    out = x.new_empty(lc.out_shape)
+    if lc.numel == 0:
         return out
-    plan = build_chain_plan(sig)
-    if len(plan.levels) > MAX_LEVELS or len(plan.extras) > MAX_EXTRAS:
-        raise ValueError(f"tm_chain: the kernel takes at most {MAX_LEVELS} "
-                         f"levels and {MAX_EXTRAS} extra Route bands")
-    consts = _device_consts(sig, x.device)
-    desc = list(consts.desc)
-    for at, s in zip(consts.slab_at, slabs):
-        desc[at] = s.data_ptr()
-    table = (ctypes.c_int64 * len(desc))(*desc)
-    rc = lib.tm_chain(x.data_ptr(), out.data_ptr(), table,
-                      DTYPE_CODES[x.dtype], out.numel(), len(plan.levels),
-                      len(plan.extras),
-                      torch.cuda.current_stream(x.device).cuda_stream)
+    vec = lc.plan.vec
+    if vec > 1 and any(t.data_ptr() % 16 for t in (x, out, *slabs)):
+        vec = 1
+    table = lc.table_type.from_buffer_copy(lc.words[vec])
+    for at, s in zip(lc.slab_at, slabs):
+        table[at] = s.data_ptr()
+    rc = lib.tm_chain(x.data_ptr(), out.data_ptr(), table, lc.code,
+                      lc.numel, lc.n_levels, lc.n_extras,
+                      build.current_stream(index))
     build.check(rc, "tm_chain")
     tm_chain.launches += 1
     return out

@@ -4,8 +4,8 @@ their bounds and one PyTorch call of the same work.
 
     PYTHONPATH=src python3 -m repro_torch.tools.profile_tm_kernels [SECTION ...]
 
-SECTION is any of matmul, block, gather, conv, commit, prologue (default:
-all, in that order).
+SECTION is any of matmul, block, gather, conv, commit, prologue, chain,
+rme (default: all, in that order), or calls, which is run alone.
 
 Prints the card's name and power limit, then one line per case: the
 kernel's device ms (a CUDA graph of back-to-back calls, timed with CUDA
@@ -52,7 +52,24 @@ over 67 TFLOP/s where larger) and the PyTorch call's device ms:
   (TF32 off); the 1x1 product also as one ``conv2d`` launch and its FMA
   loop alone, the port's own split (``tm_chain``, then ``conv2d``), and
   the kernel with its plan held to 8 x 8 thread tiles, on every block the
-  card holds and on one block a tile.
+  card holds and on one block a tile;
+* ``tm_chain`` at the YOLOv3-Tiny neck in int8, bf16 and f32, with its run
+  plan (R, elements an access, table bytes), on aligned operands and on
+  an x 4 bytes off 16-byte alignment (accesses of one element), beside
+  its byte bound, the time per call with the wrapper's host work and the
+  plain version;
+* the RME compactions (``rme_evaluate``, ``rme_evaluate_chained``,
+  ``rme_assemble``) at the detect tail (8, 2352, 85) f32, capacity 256,
+  scores from ``randn``, conf 0.5, and ``rme_evaluate`` on one 100000-row
+  stream with room for every survivor, and with capacity 0 (the launch
+  alone), in two turns; then the time per call of each with the wrapper's
+  host work, and the chained wrapper's host work piece by piece;
+* ``calls``: ``tm_chain`` at the neck and the three compactions at the
+  detect tail (``chip_smoke.py``'s shapes and data), device ms and ms per
+  call with the wrapper's host work, three turns.  It calls only what
+  the port's earlier packages have as well, so that an earlier checkout's
+  kernels are timed by the same code in the same run: ``cd <checkout> &&
+  PYTHONPATH=src python3 <this file> calls``.
 
 Every kernel result is checked against its plain version first.  Needs a
 CUDA device.
@@ -343,7 +360,147 @@ def prologue(gen, dev, name, k, dtype=torch.float32) -> None:
           flush=True)
 
 
-SECTIONS = ("matmul", "block", "gather", "conv", "commit", "prologue")
+def chain(gen, dev, dtype) -> None:
+    from repro_torch.kernels.tm_affine.chain import ChainSig
+    batch = (8,)
+    up = af.batch_extend_map(af.upsample_map((14, 14, 128), 2), batch)
+    route = tuple(af.batch_extend_map(m, batch) for m in
+                  af.route_maps([(28, 28, 128), (28, 28, 128)]))
+    sig = ChainSig(links=((up, None),), route_maps=route, route_band=0,
+                   dtype=str(dtype)[len("torch."):])
+    rp = tc.build_run_plan(sig)
+    skip = (torch.rand(route[1].in_shape, generator=gen) * 100).to(dev, dtype)
+    n = math.prod(up.in_shape)
+    buf = (torch.rand(n + 16, generator=gen) * 100).to(dev, dtype)
+    nbytes = (n + skip.numel() + math.prod(sig.out_shape)) * dtype.itemsize
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    for off in (0, 4 // dtype.itemsize):
+        u = buf[off:off + n].view(up.in_shape)
+        got = tc.tm_chain(sig, u, (skip,))
+        if not torch.equal(got, tc.chain_plain(u, tc.build_chain_plan(sig),
+                                                (skip,))):
+            raise AssertionError(f"tm_chain neck {dtype} off {off}")
+        ms = graph_ms(lambda: tc.tm_chain(sig, u, (skip,)))
+        call = events_ms(lambda: tc.tm_chain(sig, u, (skip,)), 50)
+        plain = events_ms(lambda: tc.chain_plain(
+            u, tc.build_chain_plan(sig), (skip,)))
+        print(f"tm_chain YOLO neck {str(dtype)[6:]} x "
+              f"{'aligned' if off == 0 else f'{off * dtype.itemsize} B off'}"
+              f": R {rp.run}, {rp.vec if off == 0 else 1} element(s) an "
+              f"access, run tables {rp.table_bytes} + {rp.outer_bytes} B; "
+              f"{ms:.4f} ms, bound {bound:.4f} ({bound / ms:.2f} of it); "
+              f"{call:.4f} ms per call; plain {plain:.4f}", flush=True)
+
+
+def rme(gen, dev) -> None:
+    from repro_torch.kernels.rme_gather import rme_gather as rg
+    from repro_torch.kernels.tm_affine.chain import fold_pullback
+    m = af.batch_extend_map(af.reshape_map((28, 28, 255), (2352, 85)), (8,))
+    j, _, fill = fold_pullback((m,))
+    idx = torch.from_numpy(j.reshape(m.out_shape)).to(dev)
+    pred = torch.randn(m.in_shape, generator=gen).to(dev)
+    recs = torch.randn(m.out_shape, generator=gen).to(dev)
+    mask = recs[..., 4] >= 0.5
+    long = torch.randn((1, 100_000, 85), generator=gen).to(dev)
+    calls = {
+        "evaluate": (lambda: rg.rme_evaluate(recs, 0.5, 256, score_index=4),
+                     lambda: rg.evaluate_plain(recs, 0.5, 256,
+                                               score_index=4)),
+        "evaluate_chained": (
+            lambda: rg.rme_evaluate_chained(pred, idx, None, fill, 0.5, 256,
+                                            score_index=4),
+            lambda: rg.evaluate_chained_plain(pred, idx, None, fill, 0.5,
+                                              256, score_index=4)),
+        "assemble": (lambda: rg.rme_assemble(recs, mask, 256),
+                     lambda: rg.assemble_plain(recs, mask, 256)),
+        "evaluate 100000 rows": (
+            lambda: rg.rme_evaluate(long, 0.5, 100_000, score_index=4),
+            lambda: rg.evaluate_plain(long, 0.5, 100_000, score_index=4)),
+        # no round runs: the launch and the count's store alone
+        "evaluate capacity 0": (
+            lambda: rg.rme_evaluate(recs, 0.5, 0, score_index=4),
+            lambda: rg.evaluate_plain(recs, 0.5, 0, score_index=4)),
+    }
+    for name, (kernel, plain) in calls.items():
+        for g, r in zip(kernel(), plain()):
+            if not torch.equal(g, r):
+                raise AssertionError(f"rme {name}")
+    for turn in range(2):
+        times = ", ".join(f"{name} {graph_ms(k):.4f}"
+                          for name, (k, _) in calls.items())
+        print(f"rme turn {turn}: {times} ms", flush=True)
+    print("rme per call with host work: "
+          + ", ".join(f"{name} {events_ms(k, 50):.4f}"
+                      for name, (k, _) in calls.items()) + " ms", flush=True)
+    # the chained wrapper's host work, piece by piece (host clock, no sync
+    # inside the loop)
+    lib = build.library("rme_gather")
+    rows, src, cnt = rg._outputs(pred, 8, 256, 85)
+    fill_bits, args = rg._chained_args(pred.numel(), tuple(idx.shape),
+                                       pred.dtype, fill, 256, 0.5, "ge", 4)
+    pieces = {
+        "outputs (3 torch.empty)": lambda: rg._outputs(pred, 8, 256, 85),
+        "stream": lambda: build.current_stream(0),
+        "C call and launch": lambda: lib.rme_evaluate_chained(
+            pred.data_ptr(), idx.data_ptr(), None, fill_bits,
+            rows.data_ptr(), src.data_ptr(), cnt.data_ptr(), *args,
+            build.current_stream(0)),
+        "whole wrapper": calls["evaluate_chained"][0],
+    }
+    print("rme_evaluate_chained host us per call: " + ", ".join(
+        f"{name} {host_us(f):.2f}" for name, f in pieces.items()),
+        flush=True)
+
+
+def host_us(fn, iters: int = 300) -> float:
+    """Host microseconds per call of ``fn`` (launches queue on the card,
+    which drains after the clock stops)."""
+    import time
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
+
+
+def calls(gen, dev) -> None:
+    from repro_torch.kernels.rme_gather import rme_gather as rg
+    from repro_torch.kernels.tm_affine.chain import ChainSig, fold_pullback
+    batch = (8,)
+    up = af.batch_extend_map(af.upsample_map((14, 14, 128), 2), batch)
+    route = tuple(af.batch_extend_map(m, batch) for m in
+                  af.route_maps([(28, 28, 128), (28, 28, 128)]))
+    sig = ChainSig(links=((up, None),), route_maps=route, route_band=0)
+    u = torch.rand(up.in_shape, generator=gen).to(dev)
+    skip = torch.rand(route[1].in_shape, generator=gen).to(dev)
+    m = af.batch_extend_map(af.reshape_map((28, 28, 255), (2352, 85)), batch)
+    j, _, fill = fold_pullback((m,))
+    idx = torch.from_numpy(j.reshape(m.out_shape)).to(dev)
+    pred = torch.randn(m.in_shape, generator=gen).to(dev)
+    recs = torch.randn(m.out_shape, generator=gen).to(dev)
+    mask = recs[..., 4] >= 0.5
+    fns = {
+        "tm_chain": lambda: tc.tm_chain(sig, u, (skip,)),
+        "rme_evaluate": lambda: rg.rme_evaluate(recs, 0.5, 256,
+                                                score_index=4),
+        "rme_evaluate_chained": lambda: rg.rme_evaluate_chained(
+            pred, idx, None, fill, 0.5, 256, score_index=4),
+        "rme_assemble": lambda: rg.rme_assemble(recs, mask, 256),
+    }
+    if not torch.equal(fns["tm_chain"](), torch.cat(
+            [u.repeat_interleave(2, 1).repeat_interleave(2, 2), skip], -1)):
+        raise AssertionError("tm_chain at the neck")
+    for turn in range(3):
+        print(f"calls turn {turn}: " + ", ".join(
+            f"{name} {graph_ms(f):.4f} device, {events_ms(f, 200):.4f} per "
+            f"call" for name, f in fns.items()) + " ms", flush=True)
+
+
+SECTIONS = ("matmul", "block", "gather", "conv", "commit", "prologue",
+            "chain", "rme")
 
 
 def main() -> None:
@@ -357,8 +514,13 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
     want = set(sys.argv[1:]) or set(SECTIONS)
+    if want == {"calls"}:
+        with torch.inference_mode():
+            calls(gen, dev)
+        return
     if want - set(SECTIONS):
-        raise SystemExit(f"profile_tm_kernels: sections are {SECTIONS}")
+        raise SystemExit(f"profile_tm_kernels: sections are {SECTIONS}, "
+                         f"or calls alone")
     with torch.inference_mode():
         if "matmul" in want:
             sweep_matmul(gen, dev)
@@ -374,6 +536,11 @@ def main() -> None:
             for dtype in (torch.float32, torch.bfloat16):
                 prologue(gen, dev, "YOLO neck -> 1x1 conv 255", 1, dtype)
             prologue(gen, dev, "YOLO neck -> 3x3 conv 255", 3)
+        if "chain" in want:
+            for dtype in (torch.int8, torch.bfloat16, torch.float32):
+                chain(gen, dev, dtype)
+        if "rme" in want:
+            rme(gen, dev)
 
 
 def sweep_matmul(gen, dev) -> None:

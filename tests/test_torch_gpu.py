@@ -15,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import affine as af  # noqa: E402
+from repro_torch.core.rme import predicate  # noqa: E402
 from repro_torch.kernels.rme_gather import rme_gather as rg  # noqa: E402
 from repro_torch.kernels.tm_affine import chain as ch  # noqa: E402
 from repro_torch.kernels.tm_affine import tm_affine as ta  # noqa: E402
@@ -331,11 +332,83 @@ def _two_epilogues(ew):
                               (af.identity_map((10, 18, 2)), "mul")))
 
 
+def neck_chain(batch=8):
+    """The YOLOv3-Tiny neck: upsample x2 of (14, 14, 128), Route with a
+    (28, 28, 128) skip map (runs of the 256 channels)."""
+    up = af.batch_extend_map(af.upsample_map((14, 14, 128), 2), (batch,))
+    maps = tuple(af.batch_extend_map(m, (batch,))
+                 for m in af.route_maps([(28, 28, 128), (28, 28, 128)]))
+    return ch.ChainSig(links=((up, None),), route_maps=maps, route_band=0)
+
+
+def _img2col_r1(ew):
+    # the padding's mask differs from patch row to patch row, so no suffix
+    # of the output factors: runs of one element
+    m = af.img2col_map((40, 40, 8), 3, 3, 1, 1, fill=-2.0)
+    return ch.ChainSig(links=((m, None), (af.identity_map(m.out_shape), ew)))
+
+
+def _at_cap(ew):
+    # runs of R_CAP elements with an epilogue: 64 KB of run tables, past the
+    # 48 KB a block gets without asking
+    return ch.ChainSig(links=((af.transpose_map((64, 2, 128)), None),
+                              (af.identity_map((2, 64, 128)), ew)))
+
+
+def _superres_wide(ew):
+    # many runs, masks in both parts, an epilogue and out-of-bounds fills
+    ps = af.pixel_shuffle_map((48, 80, 8), 2)
+    crop = af.pad_map((96, 160, 2), (-1, -1, 0), (-1, -1, 0), fill=-5.0)
+    pad = af.pad_map((94, 158, 2), (1, 2, 0), (2, 1, 0), fill=3.0)
+    return ch.ChainSig(links=((ps, ew), (crop, None), (pad, None)))
+
+
+def _route_band1():
+    # the chain feeds the second band; the first is an extra
+    up = af.batch_extend_map(af.upsample_map((10, 14, 16), 2), (3,))
+    maps = tuple(af.batch_extend_map(m, (3,))
+                 for m in af.route_maps([(20, 28, 24), (20, 28, 16)]))
+    return ch.ChainSig(links=((up, None),), route_maps=maps, route_band=1)
+
+
+def _harness_chain(name, batch, ew):
+    """The tm_chain chains of tests/harness.py CHAIN_CASES, built here from
+    the port's maps (the harness imports JAX), at batch rank 0 or 1."""
+    def lift(m):
+        return af.batch_extend_map(m, (2,)) if batch else m
+    if name == "route":
+        maps = tuple(lift(m) for m in
+                     af.route_maps([(10, 14, 3), (10, 14, 5)]))
+        return ch.ChainSig(links=((lift(af.upsample_map((5, 7, 3), 2)),
+                                   None),), route_maps=maps, route_band=0)
+    links = {
+        "chain3": [(af.transpose_map((4, 6, 8)), None),
+                   (af.split_map((6, 4, 8), 2, 1), None),
+                   (af.transpose_map((6, 4, 4)), None)],
+        "superres": [(af.pixel_shuffle_map((6, 10, 8), 2), ew),
+                     (af.pad_map((12, 20, 2), (-1, -1, 0), (-1, -1, 0)),
+                      None),
+                     (af.pad_map((10, 18, 2), (1, 1, 0), (1, 1, 0)), None)],
+        # the suffix that fuses when a trailing Add also reads the first
+        # intermediate
+        "broken": [(af.split_map((6, 4, 8), 2, 1), None),
+                   (af.transpose_map((6, 4, 4)), None)],
+    }[name]
+    return ch.ChainSig(links=tuple((lift(m), e) for m, e in links))
+
+
 CHAIN_SIGS = {
+    **{f"harness_{n}_b{b}": (lambda ew, n=n, b=b: _harness_chain(n, b, ew))
+       for n in ("chain3", "superres", "route", "broken") for b in (0, 1)},
     "chain3": lambda ew: _chain3(),
     "superres": _superres,
     "route": lambda ew: _route(),
     "two_epilogues": _two_epilogues,
+    "neck": lambda ew: neck_chain(),
+    "img2col_r1": _img2col_r1,
+    "at_cap": _at_cap,
+    "superres_wide": _superres_wide,
+    "route_band1": lambda ew: _route_band1(),
 }
 
 
@@ -411,6 +484,155 @@ def test_assemble_kernel_matches_plain_on_card(cuda, dtype):
                 assert rg.rme_assemble.launches == before + 1
                 for g, r in zip(got, ref):
                     assert torch.equal(g, r), (dtype, B, N, kind, cap)
+
+
+# the compaction core's edges, on each of its sources: (B, N, D, capacity,
+# which rows pass).  A scan round is rg.ROUND_ROWS rows.
+ROUND = rg.ROUND_ROWS
+COMPACT_CASES = {
+    "capacity_0": (2, 3000, 7, 0, "some"),
+    "capacity_past_n": (2, 3000, 7, 3100, "some"),
+    "full_inside_a_round": (2, 5000, 5, 1000, "all"),
+    "full_at_a_round_end": (2, 5000, 5, ROUND, "all"),
+    "full_one_past_a_round": (1, 5000, 5, ROUND + 1, "all"),
+    "no_survivor": (2, 5000, 6, 256, "none"),
+    "every_row": (2, 3000, 6, 5000, "all"),
+    "ragged_rounds": (3, 2 * ROUND + 7, 9, 8000, "some"),
+    "detect_tail": (8, 2352, 85, 256, "some"),
+    "long_stream": (1, 100_000, 4, 120_000, "some"),
+    "long_stream_early": (2, 100_000, 4, 256, "some"),
+}
+# one threshold a dtype: an integer one compares in the records' dtype
+THRESHOLDS = {torch.float32: 20.0, torch.bfloat16: 7.3, torch.int32: 10.5,
+              torch.int8: 3}
+
+
+def _records(rng, B, N, D, dtype, device, rows):
+    x = _rand(rng, (B, N, D), dtype, device)
+    if rows != "some":
+        x[..., 4 % D] = 99 if rows == "all" else -99
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(COMPACT_CASES))
+def test_compaction_edges_on_card(cuda, case):
+    """rme_evaluate, rme_evaluate_chained (the pullback a permutation, with
+    and without ok, its fill passing the threshold) and rme_assemble (bool
+    and int32 masks) against their plain versions, every dtype."""
+    B, N, D, cap, rows = COMPACT_CASES[case]
+    rng = np.random.RandomState(10)
+    si = 4 % D
+    for dtype, thr in THRESHOLDS.items():
+        x = _records(rng, B, N, D, dtype, cuda, rows)
+        got = rg.rme_evaluate(x, thr, cap, score_index=si)
+        ref = rg.evaluate_plain(x, thr, cap, score_index=si)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r), (case, dtype, "evaluate")
+        perm = torch.tensor(rng.permutation(B * N * D).astype(np.int32),
+                            device=cuda).reshape(B, N, D)
+        slab = x.reshape(-1)[perm.reshape(-1).long().argsort()]
+        for ok in (None, torch.tensor(rng.rand(B, N, D) < 0.9,
+                                      device=cuda)):
+            got = rg.rme_evaluate_chained(slab, perm, ok, 25.0, thr, cap,
+                                          score_index=si)
+            ref = rg.evaluate_chained_plain(slab, perm, ok, 25.0, thr, cap,
+                                            score_index=si)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                assert torch.equal(g, r), (case, dtype, ok is None)
+        keep = predicate(x[..., si], thr, "ge")
+        for m in (keep, keep.to(torch.int32) * 5):
+            got = rg.rme_assemble(x, m, cap)
+            ref = rg.assemble_plain(x, m, cap)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                assert torch.equal(g, r), (case, dtype, m.dtype)
+
+
+@pytest.mark.gpu
+def test_compaction_replays_in_a_cuda_graph_on_card(cuda):
+    """The three compactions captured once and replayed on new records."""
+    rng = np.random.RandomState(11)
+    B, N, D = 8, 2352, 85
+    x = _rand(rng, (B, N, D), torch.float32, cuda)
+    perm = torch.tensor(rng.permutation(B * N * D).astype(np.int32),
+                        device=cuda).reshape(B, N, D)
+    slab = torch.empty(B * N * D, device=cuda)
+    mask = torch.empty((B, N), dtype=torch.bool, device=cuda)
+
+    def calls():
+        return (rg.rme_evaluate(x, 20.0, 256, score_index=4),
+                rg.rme_evaluate_chained(slab, perm, None, 0.0, 20.0, 256,
+                                        score_index=4),
+                rg.rme_assemble(x, mask, 256))
+
+    calls()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = calls()
+    for _ in range(3):
+        x.copy_(_rand(rng, (B, N, D), torch.float32, cuda))
+        slab.copy_(torch.rand(B * N * D, device=cuda) * 200 - 100)
+        mask.copy_(torch.rand((B, N), device=cuda) < 0.3)
+        graph.replay()
+        torch.cuda.synchronize()
+        refs = (rg.evaluate_plain(x, 20.0, 256, score_index=4),
+                rg.evaluate_chained_plain(slab, perm, None, 0.0, 20.0, 256,
+                                          score_index=4),
+                rg.assemble_plain(x, mask, 256))
+        for got, ref in zip(outs, refs):
+            for g, r in zip(got, ref):
+                assert torch.equal(g, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,run,vec", [("neck", 256, True),
+                                          ("img2col_r1", 1, False),
+                                          ("at_cap", ch.R_CAP, True)])
+def test_chain_run_plans_on_card(cuda, name, run, vec):
+    """The run lengths the plan takes (runs of the neck's channels, of one
+    element, of R_CAP with 64 KB of tables), each in 16-byte accesses where
+    the plan allows them and element by element on operands 4 bytes off
+    16-byte alignment, every dtype."""
+    rng = np.random.RandomState(12)
+    for dtype in DTYPES:
+        sig = dataclasses.replace(CHAIN_SIGS[name]("add"),
+                                  dtype=str(dtype)[len("torch."):])
+        rp = ch.build_run_plan(sig)
+        assert rp.run == run and (rp.vec > 1) == vec, (name, dtype)
+        shape = sig.links[0][0].in_shape
+        for off in (0, 4 // dtype.itemsize):
+            buf = _rand(rng, (int(np.prod(shape)) + off,), dtype, cuda)
+            x = buf[off:].view(shape)
+            slabs = tuple(_rand(rng, s, dtype, cuda)
+                          for s in ch._slab_shapes(sig))
+            got = ch.tm_chain(sig, x, slabs)
+            ref = ch.chain_plain(x, ch.build_chain_plan(sig), slabs)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (name, dtype, off)
+
+
+@pytest.mark.gpu
+def test_chain_replays_in_a_cuda_graph_on_card(cuda):
+    rng = np.random.RandomState(13)
+    sig = neck_chain()
+    u = _rand(rng, sig.links[0][0].in_shape, torch.float32, cuda)
+    skip = _rand(rng, ch._slab_shapes(sig)[0], torch.float32, cuda)
+    ch.tm_chain(sig, u, (skip,))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ch.tm_chain(sig, u, (skip,))
+    for _ in range(3):
+        u.copy_(_rand(rng, tuple(u.shape), torch.float32, cuda))
+        skip.copy_(_rand(rng, tuple(skip.shape), torch.float32, cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, torch.cat(
+            [u.repeat_interleave(2, 1).repeat_interleave(2, 2), skip], -1))
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,7 @@ themselves are held against the plain versions on the card by
 tests/test_torch_gpu.py."""
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -125,3 +126,20 @@ def test_evaluate_batched_plain_matches_pallas(dtype, cmp):
     got = trg.evaluate_batched(to_torch(x), 5.0, 16, cmp=cmp, score_index=1)
     for r, g in zip(ref, got):
         assert_same(r, g, what=f"{dtype}/{cmp}")
+
+
+def test_round_rows_is_the_kernels_round():
+    """``ROUND_ROWS``, from which the card tests build their round edges and
+    chip_smoke.py counts scan rounds, is ``kRound`` of csrc/rme_gather.cu:
+    ``kThreads`` x ``kRows``."""
+    from repro_torch.kernels import build
+    src = (build.CSRC / "rme_gather.cu").read_text()
+
+    def const(name):
+        m = re.search(rf"^constexpr int {name} = (.+?);", src, re.M)
+        assert m, name
+        return m.group(1)
+
+    assert const("kRound") == "kThreads * kRows"
+    assert (int(const("kThreads")) * int(const("kRows"))
+            == trg.ROUND_ROWS)
