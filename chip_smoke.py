@@ -77,8 +77,25 @@ phases and fails on any mismatch:
    forced, through the plain attention in bf16 and in f32: the kernel
    path's logits within 2x the bf16 plain path's distance from the f32
    run, plus a floor, at every step;
-7. the launch counts of each slice's path, read just after it ran with the
-   counts set to 0 just before it: every kernel of the slice > 0.
+7. slice 11, serving: YOLOv3-Tiny 448x448 batch 8 compiled with and
+   without ``cross_engine``, four runs at once through ``run_async`` on a
+   ``StreamRuntime`` whose engines are two CUDA streams, bit-exact against
+   ``run()``, the measured overlap beside ``predict_overlap``; the two
+   cooperative launches (ESPCN's commit, the YOLO neck's prologue) queued
+   on the tmu stream while the tpu stream runs the eager YOLO's convs,
+   finished and bit-exact (no deadlock); then 64 requests (32 YOLOv3-Tiny
+   images, 32 ESPCN x3 640x360 frames) from 4 threads through
+   ``TMServer(ServerConfig(backend="cuda", max_batch=8,
+   batch_timeout_s=0.01))``, cold then warm, with the per-sample vmap
+   fallback turned off: every response bit-exact against its cache entry's
+   program run directly on the same stacked batch and within slice 4's
+   tolerances against the eager models; requests/s, p50/p99 latency, the
+   cache hit rate, mean batch, measured against predicted overlap and each
+   entry's selection rows are logged;
+8. the launch counts of each slice's path, read just after it ran with the
+   counts set to 0 just before it: every kernel of the slice > 0; the
+   ``kernels`` line gives each kernel its launches from the path of the
+   slice that ported it.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``{"kernels": [...]}`` line and
@@ -88,6 +105,7 @@ without a CUDA device or without the repository's ``src`` beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1556,12 +1574,295 @@ def yolo_compiled_check(y: dict, chained) -> None:
         + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the stream runtime and TMServer
+# ---------------------------------------------------------------------------
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def no_vmap_fallback():
+    """A context in which ``torch.func.vmap`` raises where an op has no
+    vmap rule, in place of looping over the samples (PyTorch's
+    BatchedFallback): the served programs must reach every op batched."""
+    ft = torch._C._functorch
+    prev = ft._is_vmap_fallback_enabled()
+    ft._set_vmap_fallback_enabled(False)
+    try:
+        yield
+    finally:
+        ft._set_vmap_fallback_enabled(prev)
+
+
+def two_stream_check(dev, img_shape=IMG, n_classes=N_CLASSES,
+                     espcn_img=ESPCN_IMG, inflight=4) -> dict:
+    """YOLOv3-Tiny compiled with ``cross_engine`` (as slice 4) and without,
+    each run ``inflight`` times at once through ``run(runtime=...)`` /
+    ``run_async`` on a StreamRuntime whose engines are two CUDA streams:
+    every output bit-exact against ``run()`` of the same program on this
+    thread; the measured overlap beside ``predict_overlap``.  Then the two
+    cooperative launches (the ESPCN commit, the YOLO neck prologue) queued
+    on the tmu stream while the tpu stream runs the eager YOLO's convs:
+    both must finish, bit-exact, within a timeout (no deadlock)."""
+    from repro_torch.compiler import tm_compile
+    from repro_torch.models import cnn
+    from repro_torch.runtime.streams import (StreamRuntime,
+                                             overlap_from_events)
+    from repro_torch.serving.server import predict_overlap
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = cnn.init_yolov3_tiny(gen, n_classes=n_classes, device=dev)
+    imgs = [torch.rand(img_shape, generator=gen).to(dev)
+            for _ in range(inflight)]
+    out = {}
+    for xe in (True, False):
+        prog = tm_compile(model, imgs[0], cross_engine=xe)
+        want = [prog.run(im, backend="cuda", fuse_chains=True)[0]
+                for im in imgs]
+        got, reps = prog.run(imgs[0], backend="cuda", fuse_chains=True,
+                             runtime=StreamRuntime(device=dev))
+        for a, b in zip(got, want[0]):
+            require_equal(a, b, f"YOLOv3-Tiny run(runtime=) xe={xe}")
+        _sync(dev)
+        with StreamRuntime(device=dev) as rt:
+            envs = [prog.bind_inputs(im) for im in imgs]
+            t0 = time.perf_counter()
+            evs = [ev for i, env in enumerate(envs)
+                   for ev in prog.run_async(env, runtime=rt, backend="cuda",
+                                            fuse_chains=True, label=f"{i}:")]
+            for ev in evs:
+                ev.wait(timeout=300)
+            wall = time.perf_counter() - t0
+            meas = overlap_from_events(rt.timeline())
+        for i, (env, w) in enumerate(zip(envs, want)):
+            for a, b in zip(prog.outputs_from(env), w):
+                require_equal(a, b, f"YOLOv3-Tiny run_async #{i} xe={xe}")
+        pred = predict_overlap(prog, fuse_chains=True)
+        paths = [r.path for rep in reps for r in rep.records]
+        log(f"two streams, YOLOv3-Tiny {tuple(img_shape)} cross_engine={xe}:"
+            f" phases {prog.phase_kinds} on engines "
+            f"{[p.engine for p in prog.partition_report.phases]}, records "
+            f"{paths}; {inflight} in flight {wall * 1e3:.3f} ms wall, "
+            f"measured overlap {meas['overlap_ratio']:.4f} (both busy "
+            f"{meas['both_busy_s'] * 1e3:.3f} ms of "
+            f"{meas['any_busy_s'] * 1e3:.3f}; exclusive "
+            f"{meas['exclusive_s'] * 1e3:.3f} ms; busy "
+            + ", ".join(f"{k} {v * 1e3:.3f} ms"
+                        for k, v in meas["engine_busy_s"].items())
+            + f") vs predicted {pred:.4f}; bit-exact against run()")
+        out[xe] = dict(measured=meas["overlap_ratio"], predicted=pred)
+
+    # cooperative launches on the tmu stream beside convs on the tpu stream
+    yc = tm_compile(model, imgs[0], cross_engine=True)
+    es = cnn.init_espcn(torch.Generator().manual_seed(SEED), s=3,
+                        device=dev)
+    frame = torch.rand(espcn_img, generator=gen).to(dev)
+    ec = tm_compile(es, frame, cross_engine=True)
+
+    def last_phase(prog, x):
+        """The env before the program's last (fused) phase, and that
+        phase's output run on this thread."""
+        *head, ph = prog.partition_report.phases
+        env = prog.bind_inputs(x)
+        for p in head:
+            prog.run_phase(p, env, backend="cuda", fuse_chains=True)
+        ref = dict(env)
+        prog.run_phase(ph, ref, backend="cuda", fuse_chains=True)
+        return env, ph, [ref[n] for n in ph.writes]
+
+    runs = [last_phase(ec, frame), last_phase(yc, imgs[0])]
+    for prog, (_, ph, _) in zip((ec, yc), runs):
+        if ph.kind != "fused":
+            raise AssertionError(f"last phase of {prog.phase_kinds} is "
+                                 f"{ph.kind}, not fused")
+    _sync(dev)
+    with StreamRuntime(device=dev) as rt:
+        convs = rt.submit("tpu", lambda: [model(im) for im in imgs * 2],
+                          label="eager convs")
+        coops = [rt.submit("tmu", (lambda p=p, ph=ph, env=env:
+                                   p.run_phase(ph, env, backend="cuda")),
+                           label=f"coop {ph.index}", exclusive=True)
+                 for p, (env, ph, _) in zip((ec, yc), runs)]
+        reps = [ev.wait(timeout=300) for ev in coops]
+        convs.wait(timeout=300)
+        meas = overlap_from_events(rt.timeline())
+    for (env, ph, ref), rep, what in zip(runs, reps, ("commit", "prologue")):
+        if [r.path for r in rep.records] != [f"cuda.xchain.{what}"]:
+            raise AssertionError(f"cooperative {what}: lowered to "
+                                 f"{[(r.path, r.reason) for r in rep.records]}")
+        for n, b in zip(ph.writes, ref):
+            require_equal(env[n], b, f"cooperative {what} on the tmu stream")
+    log(f"cooperative launches on the tmu stream beside eager convs on the "
+        f"tpu stream: xchain_commit and xchain_prologue finished, bit-exact;"
+        f" busy " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in
+                              meas["engine_busy_s"].items())
+        + f", exclusive {meas['exclusive_s'] * 1e3:.3f} ms, counted "
+        f"overlap {meas['both_busy_s'] * 1e3:.3f} ms")
+    return out
+
+
+def _percentiles_ms(snap: dict) -> str:
+    return ", ".join(
+        f"{k} p50 {snap[f'{k}_latency_p50_s'] * 1e3:.3f} p99 "
+        f"{snap[f'{k}_latency_p99_s'] * 1e3:.3f} ms" for k in ("cold", "warm"))
+
+
+def served_traffic(dev, img_shape=IMG, n_classes=N_CLASSES,
+                   espcn_img=ESPCN_IMG, n_requests=64, threads=4,
+                   max_batch=8) -> dict:
+    """``n_requests`` requests, half YOLOv3-Tiny (one image each) and half
+    ESPCN x3 (one frame each), submitted from ``threads`` host threads to
+    ``TMServer(ServerConfig(backend="cuda", max_batch=8,
+    batch_timeout_s=0.01))`` (the continuous scheduler, pipeline depth 2),
+    twice: cold (compiles) then warm.  Every response bit-exact against its
+    cache entry's compiled program run directly on the same stacked batch,
+    and within slice 4's tolerances against the eager model on that batch
+    (YOLO head 1 bit-exact, head 2 within its last conv's bound; ESPCN
+    within its last conv's bound)."""
+    import threading
+
+    from repro_torch.core import tm_ops
+    from repro_torch.core.fp_bounds import gamma
+    from repro_torch.models import cnn
+    from repro_torch.serving import ServerConfig, TMServer
+    from repro_torch.serving.batcher import coalesce, split
+
+    yolo = cnn.init_yolov3_tiny(torch.Generator().manual_seed(SEED),
+                                n_classes=n_classes, device=dev)
+    espcn = cnn.init_espcn(torch.Generator().manual_seed(SEED), s=3,
+                           device=dev)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    groups = []
+
+    class RecordingServer(TMServer):
+        """Keeps each served group (its requests, height and entry) for
+        the checks below."""
+
+        def _finalize(self, prep, err):
+            groups.append((list(prep.batch), prep.size, prep.entry, err))
+            super()._finalize(prep, err)
+
+    def round_of(srv, name):
+        reqs = []
+        for i in range(n_requests):
+            if i % 2 == 0:
+                x = torch.rand((1,) + tuple(img_shape[1:]), generator=gen)
+                reqs.append(("yolo", yolo, x.to(dev)))
+            else:
+                x = torch.rand(espcn_img, generator=gen)
+                reqs.append(("espcn", espcn, x.to(dev)))
+        futs = [None] * n_requests
+
+        def client(k):
+            for i in range(k, n_requests, threads):
+                key, fn, x = reqs[i]
+                futs[i] = srv.submit(fn, x, fn_key=key)
+
+        _sync(dev)
+        srv.stats.reset_series()
+        t0 = time.perf_counter()
+        pool = [threading.Thread(target=client, args=(k,))
+                for k in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=600)
+        outs = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        snap = srv.snapshot_stats()
+        log(f"served {name}: {n_requests} requests ({n_requests // 2} "
+            f"YOLOv3-Tiny {tuple(img_shape[1:])}, {n_requests // 2} ESPCN x3 "
+            f"{tuple(espcn_img[1:])}) from {threads} threads in "
+            f"{wall * 1e3:.3f} ms: {n_requests / wall:.3f} requests/s; "
+            f"{_percentiles_ms(snap)}; queue delay p50 "
+            f"{snap['queue_delay_p50_s'] * 1e3:.3f} ms; cache "
+            f"{snap['cache']['hits']} hits / {snap['cache']['misses']} "
+            f"misses (hit rate {snap['cache']['hit_rate']:.3f}); mean batch "
+            f"{snap['mean_batch_size']:.3f}; overlap measured "
+            f"{snap['overlap_ratio']:.4f} vs predicted "
+            f"{snap['predicted_overlap']:.4f}; engine busy "
+            + ", ".join(f"{k} {v * 1e3:.3f} ms"
+                        for k, v in snap["engine_busy_s"].items()))
+        return reqs, outs, wall, snap
+
+    cfg = ServerConfig(backend="cuda", max_batch=max_batch,
+                       batch_timeout_s=0.01, device=dev)
+    with no_vmap_fallback(), RecordingServer(cfg) as srv:
+        cold = round_of(srv, "cold")
+        warm = round_of(srv, "warm")
+        entries = list(srv.cache._entries.values())
+    for e in entries:
+        sel = {k: v for k, v in e.selection.items() if k != "segment_bytes"}
+        log(f"cache entry {e.key.fn_key} {e.key.shapes[0]}: phases "
+            f"{e.compiled.phase_kinds}, backend {e.backend}, segment_bytes "
+            f"{e.params.segment_bytes if e.params else None}, fuse_chains "
+            f"{e.fuse_chains}, cross_engine {e.cross_engine}, compile "
+            f"{e.compile_s:.3f} s; selection {json.dumps(sel, default=str)}")
+
+    # the checks, group by group, after the server stopped
+    tm_paths = {"yolo": set(), "espcn": set()}
+    n_checked = 0
+    for batch, size, entry, err in groups:
+        if err is not None:
+            raise AssertionError(f"served group {entry.key.fn_key} failed: "
+                                 f"{err!r}")
+        stacked, _ = coalesce(batch, size)
+        direct, reps = entry.compiled.run(*stacked, backend=entry.backend,
+                                          fuse_chains=entry.fuse_chains)
+        key = entry.key.fn_key
+        tm_paths[key] |= {r.path for rep in reps for r in rep.records
+                          if r.path.startswith("cuda.")}
+        x = stacked[0].reshape((size,) + tuple(stacked[0].shape[2:]))
+        if key == "yolo":
+            p1, p2 = yolo(x)
+            r, skip = yolo.trunk(tm_ops.rearrange(x, 1, 16))
+            cat = tm_ops.route([tm_ops.upsample(yolo.neck_in(r), 2), skip])
+            tol2 = 2 * gamma(256) * _conv_mag(cat, yolo.head2_w)
+        else:
+            eager = espcn(x)
+            h = torch.tanh(cnn.conv2d(torch.tanh(cnn.conv2d(x, espcn.c1)),
+                                      espcn.c2))
+            tol = 2 * gamma(3 * 3 * 32) * _shuffle(_conv_mag(h, espcn.c3), 3)
+        for i, (req, part) in enumerate(zip(batch, split(direct, len(batch)))):
+            got = req.future.result(timeout=0)
+            what = f"served {key} x{size} row {i}"
+            if key == "yolo":
+                for a, b in zip(got, part):
+                    require_equal(a, b, f"{what} vs the compiled program")
+                require_equal(got[0], p1[i:i + 1], f"{what} head 1 vs eager")
+                require_within(got[1], p2[i:i + 1], tol2[i:i + 1],
+                               f"{what} head 2 vs eager")
+                fin = all(bool(torch.isfinite(t).all()) for t in got)
+            else:
+                require_equal(got, part, f"{what} vs the compiled program")
+                require_within(got, eager[i:i + 1], tol[i:i + 1],
+                               f"{what} vs eager")
+                fin = bool(torch.isfinite(got).all())
+            if not fin:
+                raise AssertionError(f"{what}: non-finite values")
+            n_checked += 1
+    if n_checked != 2 * n_requests:
+        raise AssertionError(f"checked {n_checked} responses of "
+                             f"{2 * n_requests}")
+    for key, paths in tm_paths.items():
+        if not paths:
+            raise AssertionError(f"served {key}: no TM kernel ran")
+    log(f"served responses: {n_checked} bit-exact against their entries' "
+        f"compiled programs on the same stacked batches and within slice "
+        f"4's tolerances against the eager models; TM paths {tm_paths}")
+    return dict(cold=cold[3], warm=warm[3], entries=entries)
+
+
 KERNELS = {  # slice -> the kernels its path must launch
     1: ("tm_affine_block", "tm_affine_gather", "rme_evaluate"),
     2: ("tm_chain", "rme_evaluate_chained", "rme_assemble"),
     3: ("img2col", "conv2d", "resize"),
     4: ("matmul_tm", "xchain_commit", "xchain_prologue"),
     5: ("flash_attention", "flash_decode"),
+    11: ("tm_affine_gather", "tm_chain", "xchain_commit", "xchain_prologue"),
 }
 
 
@@ -1695,13 +1996,28 @@ def main() -> int:
             raise AssertionError(f"slice 5 launches {counts5}, expected "
                                  f"{want}")
         lm_check(lm, toks, stats, dev)
+        del toks
+    torch.cuda.empty_cache()
+
+    # the server's threads run outside inference mode, so the served
+    # models and requests are made outside it too
+    with torch.no_grad():
+        def slice11():
+            two_stream_check(dev)
+            return served_traffic(dev)
+
+        _, counts11 = run_path(11, slice11)
     if (n_unf, n_chn, n_convs) != (8, 4, 144):
         raise AssertionError(f"TM launches per forward {n_unf} unfused, "
                              f"{n_chn} chained, EDSR conv launches "
                              f"{n_convs}; expected 8, 4 and 144")
-    by_slice = {1: counts1, 2: counts2, 3: counts3, 4: counts4, 5: counts5}
-    counts = {k: by_slice[s][k] for s, names in KERNELS.items()
-              for k in names}
+    by_slice = {1: counts1, 2: counts2, 3: counts3, 4: counts4, 5: counts5,
+                11: counts11}
+    # each kernel's launches from the path of the slice that ported it
+    counts: dict[str, int] = {}
+    for s_no, names in KERNELS.items():
+        for k in names:
+            counts.setdefault(k, by_slice[s_no][k])
     log(f"main-path launches (each kernel from its slice's path): {counts}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -17,11 +17,18 @@ compute op and its adjacent TM chain as ONE kernel launch.
 The program runs on the device of the tensors it was traced with: CUDA
 example arguments mean the card, CPU ones the caller asking for the CPU.
 Every executor it builds gets that device; nothing moves between devices.
+
+``run(..., runtime=)`` / :meth:`CompiledTMProgram.run_async` dispatch the
+phase DAG onto the two engine streams of a
+:class:`~repro_torch.runtime.streams.StreamRuntime` (two CUDA streams on
+the card); ``tracer=`` records ``compile/*`` and ``phase/*`` spans
+(:mod:`repro_torch.obs`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any
 
 import torch
@@ -33,12 +40,17 @@ from repro_torch.core.executor import BACKENDS, TMExecutor
 from repro_torch.core.instr import TMProgram
 from repro_torch.core.schedule import CycleParams
 from repro_torch.core.tm_primitive import tag_tm_ops
+from repro_torch.obs.tracer import NULL_TRACER
 from repro_torch.compiler.allocate import ScratchPlan, allocate
 from repro_torch.compiler.ir import TMGraph, eval_tpu_node, itemsize
 from repro_torch.compiler.partition import (
     _KIND_CHARS, PartitionReport, Phase, partition)
 from repro_torch.compiler.passes import PassReport, run_pipeline
 from repro_torch.compiler.trace import graph_from_fx
+
+# make_fx keeps its tracer in module state, so two threads may not trace at
+# once (the serving layer compiles on its admission threads)
+_TRACE_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -137,14 +149,14 @@ class CompiledTMProgram:
         return total
 
     def _executor(self, backend: str, fuse_chains: bool,
-                  quarantine: set | None) -> TMExecutor:
+                  quarantine: set | None, tracer=None) -> TMExecutor:
         return TMExecutor(backend=backend, device=self.device,
                           params=self.params, fuse_chains=fuse_chains,
-                          quarantine=quarantine)
+                          tracer=tracer, quarantine=quarantine)
 
     def run_phase(self, phase: Phase, env: dict[str, Any], *,
                   backend: str = "fused", fuse_chains: bool = False,
-                  quarantine: set | None = None,
+                  tracer=None, quarantine: set | None = None,
                   ) -> LoweringReport | TPUPhaseReport:
         """Execute one partition phase against ``env`` (mutated in place).
 
@@ -154,27 +166,62 @@ class CompiledTMProgram:
         a fused phase lowers as one kernel where it can
         (:meth:`_exec_fused`).  ``fuse_chains`` (cuda backend) executes
         each forwarding chain of a TM phase as ONE kernel.  ``quarantine``
-        arms the degradation ladder, on the CPU only."""
+        arms the degradation ladder, on the CPU only.
+
+        ``tracer`` (a :class:`repro_torch.obs.Tracer`) wraps the execution
+        in a ``phase/{index}/{kind}`` span; at ``Tracer(detail="instr")``
+        the span also carries the phase's launch/segment accounting and the
+        ``tmu/launches``, ``tmu/segments``, ``tpu/ops`` and ``hbm/bytes``
+        counters accumulate; the default no-op tracer costs one attribute
+        check."""
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of "
                              f"{BACKENDS}")
+        tracer = NULL_TRACER if tracer is None else tracer
+        if not tracer.enabled:
+            return self._exec_phase(phase, env, backend=backend,
+                                    fuse_chains=fuse_chains,
+                                    quarantine=quarantine)
+        with tracer.span(f"phase/{phase.index}/{phase.kind}",
+                         backend=backend) as sp:
+            rep = self._exec_phase(phase, env, backend=backend,
+                                   fuse_chains=fuse_chains, tracer=tracer,
+                                   quarantine=quarantine)
+            if tracer.detail == "instr":
+                if isinstance(rep, TPUPhaseReport):
+                    sp.set(n_ops=rep.n_ops)
+                    tracer.count("tpu/ops", rep.n_ops)
+                else:
+                    launches = rep.launch_count()
+                    segments = sum(r.segments or 0 for r in rep.records)
+                    sp.set(instrs=rep.instr_count(), launches=launches,
+                           segments=segments, chains=rep.chain_count())
+                    tracer.count("tmu/launches", launches)
+                    tracer.count("tmu/segments", segments)
+                tracer.count("hbm/bytes", self._phase_hbm_bytes(phase))
+        return rep
+
+    def _exec_phase(self, phase: Phase, env: dict[str, Any], *,
+                    backend: str, fuse_chains: bool, tracer=None,
+                    quarantine: set | None = None,
+                    ) -> LoweringReport | TPUPhaseReport:
         if phase.kind == "fused":
             return self._exec_fused(phase, env, backend=backend,
-                                    fuse_chains=fuse_chains,
+                                    fuse_chains=fuse_chains, tracer=tracer,
                                     quarantine=quarantine)
         if phase.kind == "tpu":
             for i in phase.node_indices:
                 eval_tpu_node(self.graph.nodes[i], env)
             return TPUPhaseReport(phase_index=phase.index,
                                   n_ops=len(phase.node_indices))
-        ex = self._executor(backend, fuse_chains, quarantine)
+        ex = self._executor(backend, fuse_chains, quarantine, tracer)
         bufs = {n: env[n] for n in phase.program.inputs}
         out, lowering, _ = ex.run(phase.program, bufs)
         env.update(out)
         return lowering
 
     def _exec_fused(self, phase: Phase, env: dict[str, Any], *,
-                    backend: str, fuse_chains: bool,
+                    backend: str, fuse_chains: bool, tracer=None,
                     quarantine: set | None = None) -> LoweringReport:
         """Execute a cross-engine fused phase: the compute op + its TM run
         as ONE kernel launch (cuda backend), the crossing buffer never
@@ -219,7 +266,7 @@ class CompiledTMProgram:
                 path=f"torch.{node.primitive_name}", reason=reason))
 
         def run_tm():
-            ex = self._executor(backend, fuse_chains, quarantine)
+            ex = self._executor(backend, fuse_chains, quarantine, tracer)
             bufs = {n: env[n] for n in phase.program.inputs}
             out, lowering, _ = ex.run(phase.program, bufs)
             env.update(out)
@@ -237,31 +284,98 @@ class CompiledTMProgram:
         outs = [env[o] for o in self.graph.outputs]
         return pytree.tree_unflatten(outs, self.out_tree)
 
+    def run_async(self, env: dict[str, Any], *, runtime,
+                  backend: str = "fused", fuse_chains: bool = False,
+                  label: str = "", tracer=None,
+                  quarantine: set | None = None):
+        """Submit every phase of the DAG onto ``runtime``'s engine streams.
+
+        Each phase becomes one stream task whose event dependencies are its
+        DAG in-edges (``phase.deps``) — independent phases overlap across
+        the TMU/TPU streams, and nothing blocks the calling thread.  Tasks
+        communicate through the shared ``env``: a producer binds its writes
+        before its event completes, so a consumer's reads are
+        happens-before-ordered by the event wait (buffer names are SSA —
+        no two phases write the same key).  On the card each task also
+        marks the buffers it read as used on its engine's CUDA stream
+        (``Tensor.record_stream``), so the caching allocator never hands a
+        buffer made on one stream to new work while the other still reads
+        it.  A fused phase on the cuda backend is submitted ``exclusive``:
+        its cross-engine kernel is a cooperative launch, busy time that the
+        overlap accounting never counts as overlapped.
+
+        Returns the phase events in phase order; each completed event's
+        ``result`` is ``(written tensors, LoweringReport | TPUPhaseReport)``.
+        Wait the sink events (or all of them) to synchronize."""
+        on_card = self.device.type == "cuda"
+        events = []
+        for phase in self.partition_report.phases:
+            def task(ph=phase):
+                rep = self.run_phase(ph, env, backend=backend,
+                                     fuse_chains=fuse_chains, tracer=tracer,
+                                     quarantine=quarantine)
+                if on_card:
+                    _record_reads(ph.reads, env, self.device)
+                return [env[n] for n in ph.writes], rep
+            events.append(runtime.submit(
+                phase.engine, task, deps=[events[d] for d in phase.deps],
+                label=f"{label}phase{phase.index}:{phase.kind}",
+                exclusive=(on_card and backend == "cuda"
+                           and phase.kind == "fused")))
+        return events
+
     def run(self, *args, backend: str = "fused", fuse_chains: bool = False,
-            quarantine: set | None = None,
+            runtime=None, tracer=None, quarantine: set | None = None,
             ) -> tuple[Any, list[LoweringReport]]:
-        """Execute and return ``(outputs, per-TM-phase lowering reports)``:
-        the phases in program order on this thread.  Mutates no state on
-        ``self``; :meth:`__call__` wraps this and keeps ``last_lowering``
-        for the last call."""
+        """Execute and return ``(outputs, per-TM-phase lowering reports)``.
+
+        With ``runtime`` (a :class:`~repro_torch.runtime.streams.StreamRuntime`)
+        the phase DAG dispatches stream-ordered and this call synchronizes
+        only at the sinks; without it the phases run in program order on
+        this thread.  Mutates no state on ``self``; :meth:`__call__` wraps
+        this and keeps ``last_lowering`` for the last call."""
         env = self.bind_inputs(*args)
-        reports = [self.run_phase(phase, env, backend=backend,
-                                  fuse_chains=fuse_chains,
-                                  quarantine=quarantine)
-                   for phase in self.partition_report.phases]
+        reports: list[LoweringReport | TPUPhaseReport] = []
+        if runtime is not None:
+            events = self.run_async(env, runtime=runtime, backend=backend,
+                                    fuse_chains=fuse_chains, tracer=tracer,
+                                    quarantine=quarantine)
+            for ev in events:   # sink sync: deps complete transitively
+                reports.append(ev.wait()[1])
+            if self.device.type == "cuda":
+                # the outputs were made on the engine streams; this thread
+                # reads them on its own
+                _record_reads(self.graph.outputs, env, self.device)
+        else:
+            for phase in self.partition_report.phases:
+                reports.append(self.run_phase(phase, env, backend=backend,
+                                              fuse_chains=fuse_chains,
+                                              tracer=tracer,
+                                              quarantine=quarantine))
         lowerings = [r for r in reports if isinstance(r, LoweringReport)]
         return self.outputs_from(env), lowerings
 
     def __call__(self, *args, backend: str = "fused",
-                 fuse_chains: bool = False):
+                 fuse_chains: bool = False, runtime=None, tracer=None):
         out, lowerings = self.run(*args, backend=backend,
-                                  fuse_chains=fuse_chains)
+                                  fuse_chains=fuse_chains, runtime=runtime,
+                                  tracer=tracer)
         self.last_lowering = lowerings
         return out
 
 
+def _record_reads(names, env: dict[str, Any], device: torch.device) -> None:
+    """Mark ``env``'s CUDA tensors under ``names`` as used on the current
+    stream (``Tensor.record_stream``)."""
+    stream = torch.cuda.current_stream(device)
+    for n in names:
+        t = env.get(n)
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            t.record_stream(stream)
+
+
 def tm_compile(fn, *example_args, params: CycleParams | None = None,
-               cross_engine: bool = False) -> CompiledTMProgram:
+               cross_engine: bool = False, tracer=None) -> CompiledTMProgram:
     """Trace ``fn`` at ``example_args`` and lower it through the pipeline:
 
     make_fx graph -> TM IR (trace) -> passes (map composition, copy
@@ -275,7 +389,12 @@ def tm_compile(fn, *example_args, params: CycleParams | None = None,
     programs is byte-identical with the flag in either state.
 
     The example arguments are tensors (in any pytree); the program runs on
-    their device (one device for all of them)."""
+    their device (one device for all of them).
+
+    ``tracer`` (a :class:`repro_torch.obs.Tracer`) records each stage as a
+    nested span under ``compile`` with the stage's report summary
+    attached."""
+    tracer = NULL_TRACER if tracer is None else tracer
     flat_in, in_tree = pytree.tree_flatten(example_args)
     if not all(isinstance(a, torch.Tensor) for a in flat_in):
         raise TypeError("tm_compile: every example argument must be a "
@@ -292,12 +411,25 @@ def tm_compile(fn, *example_args, params: CycleParams | None = None,
         leaves, holder["out_tree"] = pytree.tree_flatten(out)
         return leaves
 
-    with tag_tm_ops(), torch.inference_mode(False), torch.no_grad():
-        gm = make_fx(flat_fn)(*flat_in)
-    graph = graph_from_fx(gm)
-    pass_report = run_pipeline(graph)
-    part = partition(graph, params, cross_engine=cross_engine)
-    scratch = allocate(graph, part, params)
+    with tracer.span("compile") as root:
+        with tracer.span("compile/trace") as sp:
+            with _TRACE_LOCK, tag_tm_ops(), torch.inference_mode(False), \
+                    torch.no_grad():
+                gm = make_fx(flat_fn)(*flat_in)
+            graph = graph_from_fx(gm)
+            sp.set(summary=graph.summary())
+        with tracer.span("compile/passes") as sp:
+            pass_report = run_pipeline(graph)
+            sp.set(summary=pass_report.summary())
+        with tracer.span("compile/partition") as sp:
+            part = partition(graph, params, cross_engine=cross_engine)
+            sp.set(summary=part.summary(), phases=len(part.phases),
+                   dag_edges=part.dag_edges)
+        with tracer.span("compile/allocate") as sp:
+            scratch = allocate(graph, part, params)
+            sp.set(summary=scratch.summary())
+        root.set(phases="".join(_KIND_CHARS.get(p.kind, "?")
+                                for p in part.phases))
     return CompiledTMProgram(graph=graph, pass_report=pass_report,
                              partition_report=part, scratch_plan=scratch,
                              in_tree=in_tree, out_tree=holder["out_tree"],

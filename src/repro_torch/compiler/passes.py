@@ -24,9 +24,11 @@ from __future__ import annotations
 
 import dataclasses
 
+from torch.utils import _pytree as pytree
+
 from repro_torch.core.affine import compose_maps
 from repro_torch.core.instr import TMInstr, TMOpcode
-from repro_torch.compiler.ir import TMGraph, TMNode
+from repro_torch.compiler.ir import BufRef, TMGraph, TMNode
 
 
 @dataclasses.dataclass
@@ -178,6 +180,12 @@ def eliminate_copies(graph: TMGraph, report: PassReport) -> None:
                     ins, srcs=tuple(src if s == dst else s for s in ins.srcs)),
                     matched=n.matched)
             else:
+                # a compute node reads through the BufRefs of its call's
+                # arguments: rewire those with its src_names
+                def rewire(a):
+                    return BufRef(src) if a == BufRef(dst) else a
+                n.args = pytree.tree_map(rewire, n.args)
+                n.kwargs = pytree.tree_map(rewire, n.kwargs)
                 n.src_names = tuple(src if s == dst else s
                                     for s in n.src_names)
         del graph.nodes[i]

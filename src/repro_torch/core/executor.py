@@ -72,6 +72,11 @@ class TMExecutor:
     # the chained RME evaluate); a chain no rule claims lowers per
     # instruction
     fuse_chains: bool = False
+    # duck-typed repro_torch.obs Tracer: per-instruction / per-chain spans
+    # on the calling thread's track, recorded only at Tracer(detail="instr")
+    # (None or the no-op tracer = tracing off; the hot path pays one
+    # attribute check per instruction)
+    tracer: object = None
     # cuda backend on the CPU only: the degradation-ladder quarantine (a
     # mutable set).  When set, a rule whose plain version raises is
     # quarantined and the instruction falls through to the next rule / the
@@ -120,20 +125,54 @@ class TMExecutor:
         chain_at: dict[int, ForwardChain] = {}
         if self.backend == "cuda" and self.fuse_chains:
             chain_at = {c.instrs[0]: c for c in forwarding_chains(prog)}
+        tr = self.tracer
+        # instruction/chain spans only at Tracer(detail="instr") — at the
+        # default "phase" detail a traced serving run stays lock-cheap
+        traced = (tr is not None and tr.enabled
+                  and getattr(tr, "detail", "phase") == "instr")
         i = 0
         while i < len(prog.instrs):  # Fetch
             chain = chain_at.get(i)
             if chain is not None:
-                self._run_chain(chain, prog, bufs, batch_dims, lowering)
+                if traced:
+                    with tr.span(f"chain/{prog.instrs[chain.instrs[-1]].dst}",
+                                 instrs=len(chain.instrs)):
+                        self._run_chain(chain, prog, bufs, batch_dims,
+                                        lowering)
+                else:
+                    self._run_chain(chain, prog, bufs, batch_dims, lowering)
                 i = chain.instrs[-1] + 1
                 continue
             ins = prog.instrs[i]
-            bufs[ins.dst] = self._dispatch(ins, bufs, batch_dims, lowering)
+            if traced:
+                with tr.span(f"instr/{ins.opcode.value}/{ins.dst}"):
+                    bufs[ins.dst] = self._dispatch(ins, bufs, batch_dims,
+                                                   lowering)
+            else:
+                bufs[ins.dst] = self._dispatch(ins, bufs, batch_dims,
+                                               lowering)
             i += 1
         missing = [o for o in prog.outputs if o not in bufs]
         if missing:
             raise KeyError(f"program did not produce outputs: {missing}")
         return {o: bufs[o] for o in prog.outputs}, lowering, fusion
+
+    def run_async(self, prog: TMProgram, buffers, *, runtime, deps=(),
+                  batch_dims: int = 0, label: str = "tm-program"):
+        """Submit ``prog`` onto ``runtime``'s TMU stream instead of running
+        it on the calling thread.
+
+        ``buffers`` is the input dict, or a zero-arg callable resolved on
+        the stream thread (so inputs produced by the ``deps`` events bind
+        after those events complete).  Returns the
+        :class:`~repro_torch.runtime.streams.StreamEvent`; its result is
+        this executor's ``(outputs, lowering, fusion)`` triple once the
+        work — not merely its launch — has finished (on the card: the
+        engine's CUDA stream reached it)."""
+        def task():
+            bufs = buffers() if callable(buffers) else buffers
+            return self.run(prog, bufs, batch_dims=batch_dims)
+        return runtime.submit("tmu", task, deps=deps, label=label)
 
     def _run_chain(self, chain: ForwardChain, prog: TMProgram, bufs: dict,
                    batch_dims: int, lowering: LoweringReport) -> None:

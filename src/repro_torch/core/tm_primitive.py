@@ -16,33 +16,42 @@ implementation that is the engine, so a tagged graph evaluated op by op
 still computes the right values — tagging never changes semantics, only
 visibility.  The counterpart of the JAX package's ``tm_map`` /
 ``tm_route`` / ``tm_resize`` / ``tm_evaluate`` primitives.
+
+Each op also has a vmap rule, the counterpart of the JAX batchers, so
+``torch.func.vmap`` of a tagged function (what the serving layer compiles)
+leaves ONE node per op, not one per sample: the mapped axis moves to the
+front and ``batch_dims`` grows by one.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import threading
 
 import torch
 
-_TAGGING = False
+# per thread: the serving layer compiles on its admission threads while
+# other threads run the same tm_ops eagerly
+_STATE = threading.local()
 
 
 def tagging() -> bool:
-    """True inside a :func:`tag_tm_ops` context (compiler trace in progress)."""
-    return _TAGGING
+    """True inside a :func:`tag_tm_ops` context (compiler trace in progress)
+    on this thread."""
+    return getattr(_STATE, "tagging", False)
 
 
 @contextlib.contextmanager
 def tag_tm_ops():
-    """Make tm_ops callables call the tagging ops instead of executing."""
-    global _TAGGING
-    prev = _TAGGING
-    _TAGGING = True
+    """Make tm_ops callables call the tagging ops instead of executing, on
+    this thread."""
+    prev = tagging()
+    _STATE.tagging = True
     try:
         yield
     finally:
-        _TAGGING = prev
+        _STATE.tagging = prev
 
 
 def decode_map(map_json: str):
@@ -72,6 +81,11 @@ def _(x, map_json, batch_dims):
     return x.new_empty(tuple(x.shape[:batch_dims]) + tuple(m.out_shape))
 
 
+@tm_map.register_vmap
+def _(info, in_dims, x, map_json, batch_dims):
+    return tm_map(x.movedim(in_dims[0], 0), map_json, batch_dims + 1), 0
+
+
 def bind_map(m, x: torch.Tensor, batch_dims: int = 0) -> torch.Tensor:
     return tm_map(x, encode_map(m), batch_dims)
 
@@ -97,6 +111,15 @@ def _(xs, maps_json, batch_dims):
                            + tuple(m.out_shape))
 
 
+@tm_route.register_vmap
+def _(info, in_dims, xs, maps_json, batch_dims):
+    # unmapped bands are broadcast along the new axis, as the JAX batcher
+    # broadcasts them
+    xs = [x.expand((info.batch_size,) + tuple(x.shape)) if d is None
+          else x.movedim(d, 0) for x, d in zip(xs, in_dims[0])]
+    return tm_route(xs, maps_json, batch_dims + 1), 0
+
+
 def bind_route(maps, xs, batch_dims: int = 0) -> torch.Tensor:
     return tm_route(list(xs), [encode_map(m) for m in maps], batch_dims)
 
@@ -116,6 +139,13 @@ def _(x, out_h, out_w):
     return x.new_empty(tuple(x.shape[:-3]) + (out_h, out_w, x.shape[-1]))
 
 
+# resize and evaluate work on trailing core axes natively, so vmap is just
+# "mapped axis to the front"
+@tm_resize.register_vmap
+def _(info, in_dims, x, out_h, out_w):
+    return tm_resize(x.movedim(in_dims[0], 0), out_h, out_w), 0
+
+
 # ---------------------------------------------------------------------------
 # tm_evaluate — fine-grained RME evaluate (Bboxcal rows), leading batch axes
 # ---------------------------------------------------------------------------
@@ -130,3 +160,9 @@ def tm_evaluate(x: torch.Tensor, threshold: float, capacity: int, cmp: str,
 @tm_evaluate.register_fake
 def _(x, threshold, capacity, cmp, score_index):
     return x.new_empty(tuple(x.shape[:-2]) + (capacity, x.shape[-1]))
+
+
+@tm_evaluate.register_vmap
+def _(info, in_dims, x, threshold, capacity, cmp, score_index):
+    return tm_evaluate(x.movedim(in_dims[0], 0), threshold, capacity, cmp,
+                       score_index), 0

@@ -58,7 +58,10 @@ from repro_torch.models.cnn import conv2d_nhwc, conv_out_hw
 class Gemm:
     """The compute op as an implicit GEMM, out[m, n] = sum_k A(m, k) B(k, n)
     (``csrc/igemm.cuh``): ``mm`` of x (M, K) by w (K, N), or ``conv`` of
-    an NHWC x by HWIO w with ``stride`` and ``padding`` (SAME or VALID)."""
+    an NHWC x by HWIO w with ``stride`` and ``padding`` (SAME or VALID).
+    A conv's x may carry more than one leading batch axis (a vmapped
+    model's), which the product folds into one: its batch is their
+    product."""
 
     kind: str
     x_shape: tuple[int, ...]
@@ -70,10 +73,15 @@ class Gemm:
     def out_shape(self) -> tuple[int, ...]:
         if self.kind == "mm":
             return (self.x_shape[0], self.w_shape[1])
-        B, H, W, _ = self.x_shape
+        H, W, _ = self.x_shape[-3:]
         OH, OW, _, _ = conv_out_hw(H, W, self.w_shape[0], self.w_shape[1],
                                    self.stride, self.padding)
-        return (B, OH, OW, self.w_shape[3])
+        return tuple(self.x_shape[:-3]) + (OH, OW, self.w_shape[3])
+
+    @property
+    def batch(self) -> int:
+        """A conv's images: the product of x's leading axes."""
+        return math.prod(self.x_shape[:-3])
 
     def words(self) -> list[int]:
         """The kernel's geometry table: kind, M, N, K, ldb, col0, then the
@@ -84,7 +92,7 @@ class Gemm:
         if self.kind == "mm":
             (M, K), N = self.x_shape, self.w_shape[1]
             return [0, M, N, K, N, 0] + [0] * 11
-        B, H, W, C = self.x_shape
+        B, (H, W, C) = self.batch, self.x_shape[-3:]
         kh, kw, _, OC = self.w_shape
         OH, OW, pt, pl = conv_out_hw(H, W, kh, kw, self.stride, self.padding)
         if (kh, kw, self.stride, OH, OW) == (1, 1, 1, H, W):
@@ -105,7 +113,7 @@ def gemm_of(node) -> Gemm | None:
     (xs, _), (ws, _) = node.in_avals
     if node.op_name == "aten::mm" and len(xs) == 2 and len(ws) == 2:
         return Gemm("mm", tuple(xs), tuple(ws))
-    if node.op_name == "repro_torch::conv2d_nhwc" and len(xs) == 4 \
+    if node.op_name == "repro_torch::conv2d_nhwc" and len(xs) >= 4 \
             and len(ws) == 4 and len(node.args) == 4:
         return Gemm("conv", tuple(xs), tuple(ws), int(node.args[2]),
                     str(node.args[3]))
@@ -123,7 +131,8 @@ def op_plain(g: Gemm, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return conv2d_nhwc(x, w, g.stride, g.padding)
     from repro_torch.core.affine import img2col_map
     from repro_torch.core.engine import apply_map
-    B, H, W, C = g.x_shape
+    B, (H, W, C) = g.batch, g.x_shape[-3:]
+    x = x.reshape(B, H, W, C)
     kh, kw, _, OC = g.w_shape
     OH, OW, pt, pl = conv_out_hw(H, W, kh, kw, g.stride, g.padding)
     # pad (or crop) the far sides to exactly the windows' extent, then
@@ -134,7 +143,7 @@ def op_plain(g: Gemm, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     m = img2col_map(tuple(xp.shape[1:]), kh, kw, g.stride, 0)
     patches = apply_map(m, xp, batch_dims=1).reshape(B * OH * OW, -1)
     return _product(patches, w.reshape(kh * kw * C, OC)).reshape(
-        B, OH, OW, OC)
+        g.out_shape)
 
 
 # ---------------------------------------------------------------------------

@@ -50,29 +50,48 @@ def conv_out_hw(H: int, W: int, kh: int, kw: int, stride: int,
 # traced graph (torch.fx make_fx) as ONE node, as conv_general_dilated and
 # reduce_window do in a jaxpr: aten would otherwise show the NCHW permutes
 # and the padding around them, which the compiler would claim as TM work.
+# Both take any number of leading batch axes (folded into one inside the
+# op), so their vmap rule moves the mapped axis to the front and calls the
+# op again: a ``torch.func.vmap`` of a model leaves one node per op, and
+# no reshape around it that the compiler would claim as TM work.
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """(*lead, H, W, C) -> (prod(lead), H, W, C), a view of contiguous x."""
+    return x.reshape((-1,) + tuple(x.shape[-3:]))
+
 
 @torch.library.custom_op("repro_torch::conv2d_nhwc", mutates_args=())
 def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int,
                 padding: str) -> torch.Tensor:
-    """x: (B, H, W, C); w: (kh, kw, C, OC) -> (B, OH, OW, OC)."""
+    """x: (*lead, H, W, C); w: (kh, kw, C, OC) -> (*lead, OH, OW, OC)."""
     kh, kw = w.shape[0], w.shape[1]
-    xn = x.permute(0, 3, 1, 2)          # NCHW view of NHWC memory
+    xn = _fold(x).permute(0, 3, 1, 2)   # NCHW view of NHWC memory
     if padding == "SAME":
-        (t, bo), (le, r) = (_same_pad(x.shape[1], kh, stride),
-                            _same_pad(x.shape[2], kw, stride))
+        (t, bo), (le, r) = (_same_pad(x.shape[-3], kh, stride),
+                            _same_pad(x.shape[-2], kw, stride))
         if t or bo or le or r:
             xn = F.pad(xn, (le, r, t, bo))
     elif padding != "VALID":
         raise ValueError(f"unknown padding {padding!r}")
     out = F.conv2d(xn, w.permute(3, 2, 0, 1), stride=stride)
-    return out.permute(0, 2, 3, 1).contiguous()
+    out = out.permute(0, 2, 3, 1).contiguous()
+    return out.reshape(tuple(x.shape[:-3]) + tuple(out.shape[1:]))
 
 
 @conv2d_nhwc.register_fake
 def _(x, w, stride, padding):
-    OH, OW, _, _ = conv_out_hw(x.shape[1], x.shape[2], w.shape[0],
+    OH, OW, _, _ = conv_out_hw(x.shape[-3], x.shape[-2], w.shape[0],
                                w.shape[1], stride, padding)
-    return x.new_empty((x.shape[0], OH, OW, w.shape[3]))
+    return x.new_empty(tuple(x.shape[:-3]) + (OH, OW, w.shape[3]))
+
+
+@conv2d_nhwc.register_vmap
+def _(info, in_dims, x, w, stride, padding):
+    dx, dw = in_dims[0], in_dims[1]
+    if dw is not None:
+        raise NotImplementedError("conv2d_nhwc under vmap: the weights must "
+                                  "not be mapped")
+    return conv2d_nhwc(x.movedim(dx, 0), w, stride, padding), 0
 
 
 def conv2d(x, w, b=None, *, stride=1, pad="SAME"):
@@ -85,19 +104,27 @@ def conv2d(x, w, b=None, *, stride=1, pad="SAME"):
 
 @torch.library.custom_op("repro_torch::max_pool_nhwc", mutates_args=())
 def max_pool_nhwc(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
-    """Max pooling with SAME padding (padded positions never win)."""
-    xn = x.permute(0, 3, 1, 2)
-    (t, bo), (le, r) = (_same_pad(x.shape[1], k, stride),
-                        _same_pad(x.shape[2], k, stride))
+    """Max pooling with SAME padding (padded positions never win); x:
+    (*lead, H, W, C)."""
+    xn = _fold(x).permute(0, 3, 1, 2)
+    (t, bo), (le, r) = (_same_pad(x.shape[-3], k, stride),
+                        _same_pad(x.shape[-2], k, stride))
     if t or bo or le or r:
         xn = F.pad(xn, (le, r, t, bo), value=-float("inf"))
-    return F.max_pool2d(xn, k, stride).permute(0, 2, 3, 1).contiguous()
+    out = F.max_pool2d(xn, k, stride).permute(0, 2, 3, 1).contiguous()
+    return out.reshape(tuple(x.shape[:-3]) + tuple(out.shape[1:]))
 
 
 @max_pool_nhwc.register_fake
 def _(x, k, stride):
-    return x.new_empty((x.shape[0], -(-x.shape[1] // stride),
-                        -(-x.shape[2] // stride), x.shape[3]))
+    return x.new_empty(tuple(x.shape[:-3]) + (-(-x.shape[-3] // stride),
+                                              -(-x.shape[-2] // stride),
+                                              x.shape[-1]))
+
+
+@max_pool_nhwc.register_vmap
+def _(info, in_dims, x, k, stride):
+    return max_pool_nhwc(x.movedim(in_dims[0], 0), k, stride), 0
 
 
 def max_pool_same(x: torch.Tensor, k: int = 2, stride: int = 2) -> torch.Tensor:

@@ -4,7 +4,7 @@ One config dataclass (field for field the JAX package's, with torch dtypes)
 and one forward.  The ``dense`` family (GQA attention + SwiGLU: phi4-mini,
 granite, mistral-nemo, command-r+) runs here; ``moe``, ``ssm`` and
 ``hybrid`` and the ``audio_stub``/``vision_stub`` frontends raise
-``NotImplementedError`` until their slice (ROADMAP queue 1, item 8).
+``NotImplementedError`` until their slice (ROADMAP queue 1, item 6).
 
 Parameters keep the JAX tree: ``embed``, ``final_norm`` and ``blocks``,
 whose leaves are stacked with a leading layer axis, so a JAX tree carried
@@ -32,7 +32,7 @@ PENDING_FAMILIES = {"moe", "ssm", "hybrid"}
 def _pending(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it arrives with the remaining families "
-        f"(ROADMAP queue 1, item 8); the port runs the dense family")
+        f"(ROADMAP queue 1, item 6); the port runs the dense family")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1435,3 +1435,72 @@ def test_slice5_serve_launch_counts_on_card(cuda):
     assert fa.flash_attention.launches == cfg.n_layers
     assert fa.flash_decode.launches == cfg.n_layers * 4
     assert stats["tokens_per_s"] > 0
+
+
+@pytest.mark.gpu
+def test_vmap_of_the_cnn_blocks_has_no_fallback_on_card(cuda):
+    """torch.func.vmap of the demo blocks reaches every custom op through
+    its vmap rule on the card too: with the per-sample fallback turned off
+    the compile succeeds, with the unbatched call's TM instructions."""
+    from repro_torch.compiler import tm_compile
+    from repro_torch.models import cnn
+    ft = torch._C._functorch
+    rng = np.random.RandomState(3)
+    u = torch.tensor(rng.rand(4, 1, 4, 6, 6).astype(np.float32)).to(cuda)
+    skip = torch.tensor(rng.rand(4, 1, 8, 12, 3).astype(np.float32)).to(cuda)
+    prev = ft._is_vmap_fallback_enabled()
+    ft._set_vmap_fallback_enabled(False)
+    try:
+        c = tm_compile(torch.func.vmap(cnn.yolo_neck), u, skip)
+    finally:
+        ft._set_vmap_fallback_enabled(prev)
+    b = tm_compile(cnn.yolo_neck, u[:, 0], skip[:, 0])
+    assert c.phase_kinds == b.phase_kinds == "m"
+    assert [len(p.instrs) for p in c.tm_programs] == \
+        [len(p.instrs) for p in b.tm_programs]
+    out = c(u, skip, backend="cuda")
+    assert torch.equal(out[:, 0], cnn.yolo_neck(u[:, 0], skip[:, 0]))
+
+
+@pytest.mark.gpu
+def test_served_requests_on_card_and_a_failing_kernel_fails_them(cuda):
+    """TMServer on the card: served yolo_neck requests equal the direct
+    call; with a kernel lowering that raises, every request of the group
+    fails with that error — no degradation ladder, no quarantine."""
+    from repro_torch.core import dispatch
+    from repro_torch.models import cnn
+    from repro_torch.serving import ServerConfig, TMServer
+    rng = np.random.RandomState(0)
+
+    def arr(*shape):
+        return torch.tensor(rng.rand(*shape).astype(np.float32)).to(cuda)
+
+    reqs = [(arr(1, 4, 6, 6), arr(1, 8, 12, 3)) for _ in range(4)]
+
+    def boom(site, what):
+        if site == "lowering":
+            raise RuntimeError(f"injected kernel fault at {what}")
+
+    # per instruction, so every TM instruction goes through lower_instr
+    cfg = ServerConfig(backend="cuda", max_batch=4, batch_timeout_s=0.01,
+                       select_chaining=False, select_xengine=False,
+                       retry_attempts=1)
+    with TMServer(cfg) as srv:
+        futs = [srv.submit(cnn.yolo_neck, *a, fn_key="neck") for a in reqs]
+        for a, f in zip(reqs, futs):
+            assert torch.equal(f.result(timeout=300), cnn.yolo_neck(*a))
+        dispatch.fault_hook = boom
+        try:
+            futs = [srv.submit(cnn.yolo_neck, *a, fn_key="neck")
+                    for a in reqs]
+            for f in futs:
+                with pytest.raises(RuntimeError, match="injected"):
+                    f.result(timeout=300)
+        finally:
+            dispatch.fault_hook = None
+        snap = srv.snapshot_stats()
+        entries = list(srv.cache._entries.values())
+    assert snap["failed"] == 4 and snap["completed"] == 4
+    assert snap["degraded_phases"] == 0
+    assert all(e.quarantine is None and not e.degraded_phases
+               for e in entries)
