@@ -1856,6 +1856,364 @@ def served_traffic(dev, img_shape=IMG, n_classes=N_CLASSES,
     return dict(cold=cold[3], warm=warm[3], entries=entries)
 
 
+# ---------------------------------------------------------------------------
+# slice 12: fault tolerance and position-bucketed decode through TMServer
+# ---------------------------------------------------------------------------
+
+class _Recorder:
+    """A TMServer mixin that keeps every group it executed — served
+    (``_finalize``) or re-executed by isolation (``_execute_direct``) —
+    with its height and entry, for the checks after the server stopped."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.groups = []
+
+    def _finalize(self, prep, err):
+        self.groups.append((list(prep.batch), prep.size, prep.entry))
+        super()._finalize(prep, err)
+
+    def _execute_direct(self, members):
+        from repro_torch.serving.batcher import bucket_size, coalesce
+        from repro_torch.serving.cache import CacheKey
+        out = super()._execute_direct(members)  # raises on a failed retry
+        size = bucket_size(len(members), self.config.max_batch)
+        key = CacheKey.for_call(members[0].fn, coalesce(members, size)[0],
+                                backend=self.config.backend, params=None,
+                                fn_key=members[0].fn_key)
+        self.groups.append((list(members), size, self.cache._entries[key]))
+        return out
+
+
+def faults_on_card(dev, img_shape=IMG, n_classes=N_CLASSES,
+                   max_batch=8) -> dict:
+    """YOLOv3-Tiny 448x448 served in batch-8 groups by
+    ``TMServer(backend="cuda", max_batch=8, phase_timeout_factor=20)``
+    (isolation on, two retries) under one seeded ``FaultPlan`` of three
+    faults, each installed for its own round so it hits its own group:
+    (1) a hang at the stream site of one warm group's first phase — the
+    watchdog poisons it with ``PhaseTimeoutError``, the engine serves the
+    next group, isolation re-executes the hung one; (2) a one-shot
+    kernel-lowering fault — bisect-retry rescues every request; (3) a
+    persistent compile fault matched to one request's ``fn_key`` — that
+    request alone fails.  Every response that resolved is bit-exact against
+    its entry's program run directly on the same stacked batch."""
+    import math
+
+    from repro_torch.ft import (FaultInjector, FaultPlan, FaultSpec,
+                                InjectedFault, PhaseTimeoutError)
+    from repro_torch.models import cnn
+    from repro_torch.serving import ServerConfig, TMServer
+    from repro_torch.serving.batcher import coalesce, split
+
+    yolo = cnn.init_yolov3_tiny(torch.Generator().manual_seed(SEED),
+                                n_classes=n_classes, device=dev)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    plan = FaultPlan(seed=SEED, specs=(
+        FaultSpec(site="stream", match=f"yolox{max_batch}#0:", mode="hang",
+                  count=1, delay_s=120.0),
+        FaultSpec(site="lowering", mode="fail", count=1),
+        FaultSpec(site="compile", match="yolo-poison", mode="fail",
+                  count=math.inf)))
+
+    def images(n):
+        return [torch.rand((1,) + tuple(img_shape[1:]), generator=gen)
+                .to(dev) for _ in range(n)]
+
+    class Server(_Recorder, TMServer):
+        pass
+
+    cfg = ServerConfig(backend="cuda", max_batch=max_batch,
+                       batch_timeout_s=0.05, retry_attempts=2,
+                       phase_timeout_factor=20.0, phase_timeout_floor_s=2.0,
+                       device=dev)
+    futs: list = []
+    rows = []
+    keys = ("phase_timeouts", "isolation_retries", "rescued_requests",
+            "victim_requests", "failed", "completed")
+    with no_vmap_fallback(), Server(cfg) as srv:
+        runtime = srv.sched.runtime
+
+        def round_of(name, spec, reqs, expect):
+            before = srv.snapshot_stats()
+            t0 = time.perf_counter()
+            with FaultInjector(FaultPlan(specs=(spec,) if spec else (),
+                                         seed=plan.seed)) as inj:
+                fs = [srv.submit(yolo, x, fn_key=k) for k, x in reqs]
+                outcome = []
+                for f in fs:
+                    try:
+                        f.result(timeout=600)
+                        outcome.append("ok")
+                    except (PhaseTimeoutError, InjectedFault) as e:
+                        outcome.append(type(e).__name__)
+            wall = time.perf_counter() - t0
+            after = srv.snapshot_stats()
+            delta = {k: after[k] - before[k] for k in keys}
+            futs.extend(zip(reqs, fs))
+            log(f"faults {name}: {len(reqs)} requests in {wall * 1e3:.3f} ms,"
+                f" fired {inj.fired}; " + ", ".join(
+                    f"{k} {v}" for k, v in delta.items()))
+            if outcome != expect or inj.fired < (1 if spec else 0):
+                raise AssertionError(f"faults {name}: outcomes {outcome}, "
+                                     f"expected {expect}; fired {inj.fired}")
+            rows.append({"round": name, "wall_s": wall, **delta})
+            return delta
+
+        ok = ["ok"] * max_batch
+        round_of("warm-up", None, [("yolo", x) for x in images(max_batch)],
+                 ok)
+        d = round_of("hang", plan.specs[0],
+                     [("yolo", x) for x in images(2 * max_batch)], ok + ok)
+        wd = srv.watchdog
+        if d["phase_timeouts"] != 1 or len(wd.poisoned_at) != 1:
+            raise AssertionError(f"hang round: {d['phase_timeouts']} phase "
+                                 f"timeouts, expected 1")
+        t_poison = wd.poisoned_at[0]
+        after = [ev.t_end for ev in runtime.timeline()
+                 if ev.t_start is not None and ev.t_end is not None
+                 and ev.t_end > t_poison]
+        if not after:
+            raise AssertionError("no phase completed after the poison")
+        to_next = min(after) - t_poison
+        log(f"faults hang: watchdog timeouts {wd.timeouts}, poison to the "
+            f"next completed phase {to_next * 1e3:.3f} ms; the hung group "
+            f"rescued by isolation ({d['rescued_requests']} requests)")
+        d = round_of("lowering", plan.specs[1],
+                     [("yolo", x) for x in images(max_batch)], ok)
+        if d["rescued_requests"] != max_batch or d["victim_requests"]:
+            raise AssertionError(f"lowering round: {d}")
+        reqs = [("yolo", x) for x in images(max_batch - 1)]
+        reqs.insert(3, ("yolo-poison", images(1)[0]))
+        expect = ok[:]
+        expect[3] = "InjectedFault"
+        d = round_of("persistent", plan.specs[2], reqs, expect)
+        if d["victim_requests"] != 1:
+            raise AssertionError(f"persistent round: {d}")
+        groups = list(srv.groups)
+        snap = srv.snapshot_stats()
+    # every response that resolved, against its entry's program on the
+    # same stacked batch
+    n_checked = 0
+    for batch, size, entry in groups:
+        live = [r for r in batch if r.future.exception() is None]
+        if not live:
+            continue
+        stacked, _ = coalesce(batch, size)
+        direct, _ = entry.compiled.run(*stacked, backend=entry.backend,
+                                       fuse_chains=entry.fuse_chains)
+        for r, part in zip(batch, split(direct, len(batch))):
+            if r.future.exception() is not None:
+                continue
+            for a, b in zip(r.future.result(timeout=0), part):
+                require_equal(a, b, f"faults: {r.fn_key} response vs its "
+                                    f"entry's program")
+            n_checked += 1
+    n_ok = sum(1 for _, f in futs if f.exception() is None)
+    if n_checked < n_ok:
+        raise AssertionError(f"checked {n_checked} of {n_ok} responses")
+    log(f"faults: {n_ok} responses bit-exact against their entries' "
+        f"programs on the same stacked batches; totals: phase timeouts "
+        f"{snap['phase_timeouts']}, isolation retries "
+        f"{snap['isolation_retries']}, rescued {snap['rescued_requests']}, "
+        f"victims {snap['victim_requests']}")
+    return {"rounds": rows, "poison_to_next_s": to_next}
+
+
+DECODE_BATCH, DECODE_PROMPT, DECODE_STEPS, DECODE_MAX_LEN = 4, 64, 32, 128
+
+
+def _forced(step_fn, prompts, toks, caches):
+    """The eager step functions fed ``toks`` (the served choices) from
+    ``caches``: the last-position logits and the caches of every step."""
+    P = prompts.shape[1]
+    lg, ck, cv = step_fn(0)(prompts, *caches)
+    logits, out = [lg[:, -1]], [(ck, cv)]
+    for i in range(toks.shape[1] - 1):
+        lg, ck, cv = step_fn(P + i)(toks[:, i:i + 1], ck, cv)
+        logits.append(lg[:, -1])
+        out.append((ck, cv))
+    return logits, out
+
+
+def decode_full_width(dev) -> dict:
+    """``DecodeSession`` on Phi-4-mini 3.8B's full published config (bf16,
+    random weights from seed 0, nothing cut): batch 4, 64-token prompts,
+    prefill + 32 decode steps (33 pinned programs, one per position),
+    ``max_len`` 128, on the cuda backend; a cold pass, then a warm one.
+    Every step's caches bit-exact against the same step functions run
+    eagerly on the card with the served tokens, every step's logits
+    within slice 5's bound (2x the bf16 eager run's distance from an f32
+    run of the same weights, plus LM_FLOOR_ULPS bf16 ulps); the 33
+    programs close over one copy of the weights."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving import DecodeSession, make_layer_step
+    from repro_torch.serving.stats import latency_percentiles
+
+    cfg = get_config(LM_ARCH)
+    B, P, N = DECODE_BATCH, DECODE_PROMPT, DECODE_STEPS + 1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sess = DecodeSession(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+        device=dev, max_len=DECODE_MAX_LEN)
+    prompts = torch.randint(
+        0, cfg.vocab, (B, P), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 1)
+    ).to(torch.int32)
+    weights = torch.cuda.memory_allocated(dev)
+    with sess:
+        served: list = []
+        t0 = time.perf_counter()
+        toks, logits = sess.generate(prompts, N, caches=served)
+        _sync(dev)
+        cold = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_cold = len(sess.stats.step_latency_s)
+        before = sess.server.snapshot_stats()
+        cold_snap = before["cache"]
+        t0 = time.perf_counter()
+        toks2, logits2 = sess.generate(prompts, N)
+        _sync(dev)
+        warm = time.perf_counter() - t0
+        after = sess.server.snapshot_stats()
+        snap = after["cache"]
+        # the engines' busy time in the warm pass: the phase intervals of
+        # both streams (a phase ends when an event after its work synced)
+        busy = {k: v - before["engine_busy_s"].get(k, 0.0)
+                for k, v in after["engine_busy_s"].items()}
+        entries = list(sess.server.cache._entries.values())
+        stats = sess.stats
+        if snap["entries"] != N or snap["misses"] - cold_snap["misses"]:
+            raise AssertionError(f"decode: {snap['entries']} cache entries "
+                                 f"(expected {N}), "
+                                 f"{snap['misses'] - cold_snap['misses']} "
+                                 f"warm misses (expected 0)")
+        if not torch.equal(toks, toks2):
+            raise AssertionError("decode: the warm pass chose other tokens")
+        # the weights exist once: every program's constants are the
+        # session's parameter tensors or small folded values
+        params = sess.params
+        ptrs = {t.data_ptr() for t in (params["embed"]["e"],
+                                       params["final_norm"]["g"])}
+        stack = [params["blocks"]]
+        while stack:
+            t = stack.pop()
+            if isinstance(t, dict):
+                stack.extend(t.values())
+            else:
+                ptrs.add(t.data_ptr())
+        folded = []
+        for e in entries:
+            consts = e.compiled.graph.consts.values()
+            if params["embed"]["e"].data_ptr() not in {
+                    c.data_ptr() for c in consts}:
+                raise AssertionError(f"{e.key.fn_key}: the embedding is "
+                                     f"not the session's own tensor")
+            folded.append(sum(c.numel() * c.element_size() for c in consts
+                              if c.data_ptr() not in ptrs))
+        if max(folded) > 64 << 20:
+            raise AssertionError(f"decode: a program holds "
+                                 f"{max(folded)} bytes of folded constants")
+        # one decode step's program: its TM share, kinds and paths
+        e = next(x for x in entries if x.key.fn_key.endswith(f"p{P}s1"))
+        mix = e.compiled.partition_report.phase_mix()
+        n_tpu = len(e.compiled.graph.tpu_nodes())
+        ck, cv = served[0]
+        _, reps = e.compiled.run(toks[None, :, :1], ck[None], cv[None],
+                                 backend="cuda", fuse_chains=e.fuse_chains,
+                                 exact=True)
+        tm_phases = [p for p in e.compiled.partition_report.phases
+                     if p.kind == "tmu"]
+        log(f"decode step p{P}: {len(e.compiled.partition_report.phases)} "
+            f"phases {e.compiled.phase_kinds}, "
+            f"{mix['tmu_instrs']} TM instructions of "
+            f"{mix['tmu_instrs'] + n_tpu} (share "
+            f"{mix['tmu_instrs'] / (mix['tmu_instrs'] + n_tpu):.3f}), "
+            f"fuse_chains {e.fuse_chains}; TM phase paths: " + "; ".join(
+                f"{ph.index}: " + ",".join(r.path for r in rep.records)
+                for ph, rep in zip(tm_phases, reps)))
+        compile_s = sorted(x.compile_s for x in entries
+                           if x.key.fn_key.endswith("s1"))
+        pre = [x.compile_s for x in entries
+               if x.key.fn_key.endswith(f"p0s{P}")]
+        pct = latency_percentiles(stats.step_latency_s[n_cold:], "w")
+        log(f"decode {cfg.name} full width, batch {B}, prompt {P}, "
+            f"{DECODE_STEPS} decode steps, max_len {DECODE_MAX_LEN}: cold "
+            f"{B * N / cold:.3f} tokens/s ({cold:.3f} s), warm "
+            f"{B * N / warm:.3f} tokens/s ({warm:.3f} s); warm step p50 "
+            f"{pct['w_p50_s'] * 1e3:.3f} / p99 {pct['w_p99_s'] * 1e3:.3f} "
+            f"ms; prefill {stats.prefill_latency_s[0] * 1e3:.3f} ms cold, "
+            f"{stats.prefill_latency_s[1] * 1e3:.3f} ms warm; compile "
+            f"{pre[0]:.3f} s prefill, per decode position min "
+            f"{compile_s[0]:.3f} / median {compile_s[len(compile_s) // 2]:.3f}"
+            f" / max {compile_s[-1]:.3f} s; cache {snap['entries']} entries, "
+            f"warm misses 0; warm pass engine busy " + ", ".join(
+                f"{k} {v * 1e3:.3f} ms" for k, v in busy.items())
+            + f" of {warm * 1e3:.3f} ms wall; memory: weights "
+            f"{weights / 2**30:.3f} GiB, "
+            f"peak after the cold pass {peak / 2**30:.3f} GiB, folded "
+            f"constants {sum(folded) / 2**20:.3f} MiB over {len(entries)} "
+            f"programs")
+        # the eager step functions on the card, fed the served tokens
+        ref_logits, ref_caches = _forced(sess.step_fn, prompts, toks,
+                                         sess.init_cache(B))
+        for i, ((a, b), (c, d)) in enumerate(zip(served, ref_caches)):
+            require_equal(a, c, f"decode step {i} K cache")
+            require_equal(b, d, f"decode step {i} V cache")
+        exact = sum(bool(torch.equal(a, b))
+                    for a, b in zip(logits, ref_logits))
+        # the same weights in f32 (exact), the same step functions
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        p32 = {"embed": {"e": params["embed"]["e"].float()},
+               "final_norm": {"g": params["final_norm"]["g"].float()},
+               "blocks": _tree(lambda t: t[:1].float(), params["blocks"])}
+        steps32: dict = {}
+
+        def step32(pos):
+            if pos not in steps32:
+                steps32[pos] = make_layer_step(cfg32, p32, position=pos)
+            return steps32[pos]
+
+        z = torch.zeros((B, DECODE_MAX_LEN, cfg.n_kv_heads, cfg.hd),
+                        device=dev)
+        f32_logits, _ = _forced(step32, prompts, toks, (z, z))
+        del p32, steps32
+        served_lg = torch.stack([x.float() for x in logits])
+        plain = torch.stack([x.float() for x in ref_logits])
+        ref = torch.stack(f32_logits)
+        for what, lg in (("served", served_lg), ("eager bf16", plain),
+                         ("f32", ref)):
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"decode {what}: non-finite logits")
+        d_srv = (served_lg - ref).abs().flatten(1).amax(dim=1)
+        d_plain = (plain - ref).abs().flatten(1).amax(dim=1)
+        floor = LM_FLOOR_ULPS * bf16_ulp(
+            ref.abs().flatten(1).amax(dim=1)).float()
+        worst = float((d_srv / (2 * d_plain + floor)).max())
+        log(f"decode checks: caches bit-exact on all {N} steps against the "
+            f"eager steps on the card; logits bit-exact on {exact} of {N} "
+            f"steps (reported, not required: cuBLAS may pick another "
+            f"algorithm for the compiled shapes); vs the f32 run, max over "
+            f"steps: served {float(d_srv.max()):.4g}, eager bf16 "
+            f"{float(d_plain.max()):.4g}, floor {float(floor.max()):.4g}; "
+            f"worst step served / (2 eager + floor) = {worst:.3f} (must be "
+            f"<= 1)")
+        if worst > 1:
+            raise AssertionError(f"decode logits past slice 5's bound: "
+                                 f"{worst:.3f}")
+    return {"cold_s": cold, "warm_s": warm, "entries": snap["entries"],
+            "peak": peak, "exact_steps": exact}
+
+
+def _tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 KERNELS = {  # slice -> the kernels its path must launch
     1: ("tm_affine_block", "tm_affine_gather", "rme_evaluate"),
     2: ("tm_chain", "rme_evaluate_chained", "rme_assemble"),
@@ -1863,6 +2221,9 @@ KERNELS = {  # slice -> the kernels its path must launch
     4: ("matmul_tm", "xchain_commit", "xchain_prologue"),
     5: ("flash_attention", "flash_decode"),
     11: ("tm_affine_gather", "tm_chain", "xchain_commit", "xchain_prologue"),
+    # slice 12 ports no kernel: its two paths reach earlier slices' kernels
+    "12a": ("tm_chain", "xchain_prologue"),
+    "12b": ("tm_affine_block", "tm_affine_gather"),
 }
 
 
@@ -2007,12 +2368,15 @@ def main() -> int:
             return served_traffic(dev)
 
         _, counts11 = run_path(11, slice11)
+        _, counts12a = run_path("12a", lambda: faults_on_card(dev))
+        torch.cuda.empty_cache()
+        _, counts12b = run_path("12b", lambda: decode_full_width(dev))
     if (n_unf, n_chn, n_convs) != (8, 4, 144):
         raise AssertionError(f"TM launches per forward {n_unf} unfused, "
                              f"{n_chn} chained, EDSR conv launches "
                              f"{n_convs}; expected 8, 4 and 144")
     by_slice = {1: counts1, 2: counts2, 3: counts3, 4: counts4, 5: counts5,
-                11: counts11}
+                11: counts11, "12a": counts12a, "12b": counts12b}
     # each kernel's launches from the path of the slice that ported it
     counts: dict[str, int] = {}
     for s_no, names in KERNELS.items():

@@ -42,7 +42,8 @@ from repro_torch.core.schedule import CycleParams
 from repro_torch.core.tm_primitive import tag_tm_ops
 from repro_torch.obs.tracer import NULL_TRACER
 from repro_torch.compiler.allocate import ScratchPlan, allocate
-from repro_torch.compiler.ir import TMGraph, eval_tpu_node, itemsize
+from repro_torch.compiler.ir import (TMGraph, eval_tpu_node,
+                                     eval_tpu_node_exact, itemsize)
 from repro_torch.compiler.partition import (
     _KIND_CHARS, PartitionReport, Phase, partition)
 from repro_torch.compiler.passes import PassReport, run_pipeline
@@ -51,6 +52,10 @@ from repro_torch.compiler.trace import graph_from_fx
 # make_fx keeps its tracer in module state, so two threads may not trace at
 # once (the serving layer compiles on its admission threads)
 _TRACE_LOCK = threading.Lock()
+
+# repro_torch.ft.FaultInjector.install() points this at its fire() method;
+# None in production — run_phase pays one attribute load per phase
+fault_hook = None
 
 
 @dataclasses.dataclass
@@ -156,7 +161,8 @@ class CompiledTMProgram:
 
     def run_phase(self, phase: Phase, env: dict[str, Any], *,
                   backend: str = "fused", fuse_chains: bool = False,
-                  tracer=None, quarantine: set | None = None,
+                  exact: bool = False, tracer=None,
+                  quarantine: set | None = None,
                   ) -> LoweringReport | TPUPhaseReport:
         """Execute one partition phase against ``env`` (mutated in place).
 
@@ -168,6 +174,14 @@ class CompiledTMProgram:
         each forwarding chain of a TM phase as ONE kernel.  ``quarantine``
         arms the degradation ladder, on the CPU only.
 
+        ``exact`` asks for bit-exact parity with the eager program: compute
+        nodes run one aten call each with their literals as traced
+        (:func:`~repro_torch.compiler.ir.eval_tpu_node_exact`, which is how
+        they always run in the port), and a fused cross-engine phase takes
+        its split path, so its compute op runs the same library call eager
+        code makes.  TM phases are data movement and bit-exact in every
+        mode.
+
         ``tracer`` (a :class:`repro_torch.obs.Tracer`) wraps the execution
         in a ``phase/{index}/{kind}`` span; at ``Tracer(detail="instr")``
         the span also carries the phase's launch/segment accounting and the
@@ -177,16 +191,19 @@ class CompiledTMProgram:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of "
                              f"{BACKENDS}")
+        hook = fault_hook
+        if hook is not None:
+            hook("phase", f"phase/{phase.index}/{phase.kind}")
         tracer = NULL_TRACER if tracer is None else tracer
         if not tracer.enabled:
             return self._exec_phase(phase, env, backend=backend,
-                                    fuse_chains=fuse_chains,
+                                    fuse_chains=fuse_chains, exact=exact,
                                     quarantine=quarantine)
         with tracer.span(f"phase/{phase.index}/{phase.kind}",
                          backend=backend) as sp:
             rep = self._exec_phase(phase, env, backend=backend,
-                                   fuse_chains=fuse_chains, tracer=tracer,
-                                   quarantine=quarantine)
+                                   fuse_chains=fuse_chains, exact=exact,
+                                   tracer=tracer, quarantine=quarantine)
             if tracer.detail == "instr":
                 if isinstance(rep, TPUPhaseReport):
                     sp.set(n_ops=rep.n_ops)
@@ -202,16 +219,17 @@ class CompiledTMProgram:
         return rep
 
     def _exec_phase(self, phase: Phase, env: dict[str, Any], *,
-                    backend: str, fuse_chains: bool, tracer=None,
-                    quarantine: set | None = None,
+                    backend: str, fuse_chains: bool, exact: bool = False,
+                    tracer=None, quarantine: set | None = None,
                     ) -> LoweringReport | TPUPhaseReport:
         if phase.kind == "fused":
             return self._exec_fused(phase, env, backend=backend,
-                                    fuse_chains=fuse_chains, tracer=tracer,
-                                    quarantine=quarantine)
+                                    fuse_chains=fuse_chains, exact=exact,
+                                    tracer=tracer, quarantine=quarantine)
         if phase.kind == "tpu":
+            run_node = eval_tpu_node_exact if exact else eval_tpu_node
             for i in phase.node_indices:
-                eval_tpu_node(self.graph.nodes[i], env)
+                run_node(self.graph.nodes[i], env)
             return TPUPhaseReport(phase_index=phase.index,
                                   n_ops=len(phase.node_indices))
         ex = self._executor(backend, fuse_chains, quarantine, tracer)
@@ -221,21 +239,24 @@ class CompiledTMProgram:
         return lowering
 
     def _exec_fused(self, phase: Phase, env: dict[str, Any], *,
-                    backend: str, fuse_chains: bool, tracer=None,
-                    quarantine: set | None = None) -> LoweringReport:
+                    backend: str, fuse_chains: bool, exact: bool = False,
+                    tracer=None, quarantine: set | None = None,
+                    ) -> LoweringReport:
         """Execute a cross-engine fused phase: the compute op + its TM run
         as ONE kernel launch (cuda backend), the crossing buffer never
         written to device memory.  Any decline — unsupported geometry, the
         budget kept from the JAX package, a quarantined kernel, the
-        reference/fused backends — takes the split path (op and TM run
-        separately), whose op record says why in ``reason``."""
+        reference/fused backends, exact mode — takes the split path (op and
+        TM run separately), whose op record says why in ``reason``."""
         xe = phase.xengine
         node = self.graph.nodes[xe.eqn_index]
         instrs = [self.graph.nodes[i].instr for i in xe.tm_indices]
         direction = xe.direction
         report = LoweringReport(backend=backend)
         reason = "cross-engine lowering declined: split path"
-        if backend == "cuda":
+        if exact:
+            reason += " (exact mode)"
+        elif backend == "cuda":
             streamed = set(xe.chain.buffers) | {xe.buffer}
             tm_srcs = [[None if s in streamed else env[s] for s in ins.srcs]
                        for ins in instrs]
@@ -260,7 +281,7 @@ class CompiledTMProgram:
         # split path: the op and the TM run in dataflow order — exactly
         # what the non-crossing partition executes
         def run_eqn():
-            eval_tpu_node(node, env)
+            (eval_tpu_node_exact if exact else eval_tpu_node)(node, env)
             report.records.append(Lowering(
                 dst=node.dst_names[0], opcode="tpu",
                 path=f"torch.{node.primitive_name}", reason=reason))
@@ -286,7 +307,7 @@ class CompiledTMProgram:
 
     def run_async(self, env: dict[str, Any], *, runtime,
                   backend: str = "fused", fuse_chains: bool = False,
-                  label: str = "", tracer=None,
+                  exact: bool = False, label: str = "", tracer=None,
                   quarantine: set | None = None):
         """Submit every phase of the DAG onto ``runtime``'s engine streams.
 
@@ -312,20 +333,21 @@ class CompiledTMProgram:
         for phase in self.partition_report.phases:
             def task(ph=phase):
                 rep = self.run_phase(ph, env, backend=backend,
-                                     fuse_chains=fuse_chains, tracer=tracer,
-                                     quarantine=quarantine)
+                                     fuse_chains=fuse_chains, exact=exact,
+                                     tracer=tracer, quarantine=quarantine)
                 if on_card:
                     _record_reads(ph.reads, env, self.device)
                 return [env[n] for n in ph.writes], rep
             events.append(runtime.submit(
                 phase.engine, task, deps=[events[d] for d in phase.deps],
                 label=f"{label}phase{phase.index}:{phase.kind}",
-                exclusive=(on_card and backend == "cuda"
+                exclusive=(on_card and backend == "cuda" and not exact
                            and phase.kind == "fused")))
         return events
 
     def run(self, *args, backend: str = "fused", fuse_chains: bool = False,
-            runtime=None, tracer=None, quarantine: set | None = None,
+            exact: bool = False, runtime=None, tracer=None,
+            quarantine: set | None = None,
             ) -> tuple[Any, list[LoweringReport]]:
         """Execute and return ``(outputs, per-TM-phase lowering reports)``.
 
@@ -338,8 +360,8 @@ class CompiledTMProgram:
         reports: list[LoweringReport | TPUPhaseReport] = []
         if runtime is not None:
             events = self.run_async(env, runtime=runtime, backend=backend,
-                                    fuse_chains=fuse_chains, tracer=tracer,
-                                    quarantine=quarantine)
+                                    fuse_chains=fuse_chains, exact=exact,
+                                    tracer=tracer, quarantine=quarantine)
             for ev in events:   # sink sync: deps complete transitively
                 reports.append(ev.wait()[1])
             if self.device.type == "cuda":
@@ -350,16 +372,17 @@ class CompiledTMProgram:
             for phase in self.partition_report.phases:
                 reports.append(self.run_phase(phase, env, backend=backend,
                                               fuse_chains=fuse_chains,
-                                              tracer=tracer,
+                                              exact=exact, tracer=tracer,
                                               quarantine=quarantine))
         lowerings = [r for r in reports if isinstance(r, LoweringReport)]
         return self.outputs_from(env), lowerings
 
     def __call__(self, *args, backend: str = "fused",
-                 fuse_chains: bool = False, runtime=None, tracer=None):
+                 fuse_chains: bool = False, exact: bool = False,
+                 runtime=None, tracer=None):
         out, lowerings = self.run(*args, backend=backend,
-                                  fuse_chains=fuse_chains, runtime=runtime,
-                                  tracer=tracer)
+                                  fuse_chains=fuse_chains, exact=exact,
+                                  runtime=runtime, tracer=tracer)
         self.last_lowering = lowerings
         return out
 

@@ -114,6 +114,21 @@ def eval_tpu_node(node: TPUNode, env: dict) -> None:
         env[name] = val
 
 
+def eval_tpu_node_exact(node: TPUNode, env: dict) -> None:
+    """Execute one opaque aten call bit-exactly vs the eager program.
+
+    The JAX package needs a separate evaluator here: its compute phases
+    normally run as one XLA computation each, whose cross-op rewrites (the
+    ``rsqrt(x/c + eps)`` class) and runtime literals change the rounding,
+    so its exact mode jits each eqn alone with its literals baked.  The
+    port's compute phases already dispatch exactly as eager PyTorch does —
+    one aten call per node, with the traced Python scalars as its literals
+    — so this is :func:`eval_tpu_node`; exact mode differs only where a
+    fused cross-engine phase would have run its op inside a TM kernel (see
+    ``CompiledTMProgram.run_phase``)."""
+    eval_tpu_node(node, env)
+
+
 @dataclasses.dataclass
 class TMGraph:
     """The compiler's unit of work: ordered nodes + buffer declarations."""

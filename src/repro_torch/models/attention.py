@@ -127,14 +127,19 @@ def band_start(cache_index: int, T: int, S: int) -> int:
 def attention_block(p, x, inv_freq, *, n_heads: int, n_kv: int,
                     head_dim: int, positions=None, cache=None,
                     cache_index: int | None = None, causal: bool = True,
-                    chunk: int = 1024, attention: str = "flash"):
+                    chunk: int = 1024, attention: str = "flash",
+                    inplace: bool = True):
     """Full attention block.  With ``cache`` (serving): append the new K/V
     at ``cache_index`` (TM Route band write) and attend to the cache.
 
-    The band is written **in place** into the caller's ``cache`` tensors,
-    where the JAX package builds a new cache with ``dynamic_update_slice``:
-    its serve loop donates the caches, so nothing observable changes, and
-    the returned cache is the same dict.  The band lands at
+    With ``inplace`` (the serve loop) the band is written into the caller's
+    ``cache`` tensors, where the JAX package builds a new cache with
+    ``dynamic_update_slice``: its serve loop donates the caches, so nothing
+    observable changes, and the returned cache is the same dict.  Without
+    it the new caches are built with ``torch.slice_scatter`` (the
+    functional form ``make_fx``, ``tm_compile`` and ``torch.func.vmap``
+    take, which the compiler matches as an overlay Route) and the caller's
+    tensors are left as they were.  The band lands at
     :func:`band_start` (a start past the cache or below 0 is wrapped and
     clamped as lax does), while the decode length stays ``cache_index +
     S``, unclamped, as in JAX.  Returns ``(out, new_cache)``.
@@ -155,14 +160,20 @@ def attention_block(p, x, inv_freq, *, n_heads: int, n_kv: int,
     if cache is not None:
         # TM Route: write the new band into the KV cache at cache_index
         start = band_start(cache_index, cache["k"].shape[1], S)
-        cache["k"][:, start:start + S] = k
-        cache["v"][:, start:start + S] = v
-        new_cache = cache
+        if inplace:
+            cache["k"][:, start:start + S] = k
+            cache["v"][:, start:start + S] = v
+            new_cache = cache
+        else:
+            new_cache = {n: torch.slice_scatter(
+                cache[n], t.to(cache[n].dtype), dim=1, start=start,
+                end=start + S) for n, t in (("k", k), ("v", v))}
         if S == 1:
             kv_len = cache_index + S
-            out = (flash_decode(q, cache["k"], cache["v"], kv_len) if flash
-                   else full_attention(q, cache["k"], cache["v"],
-                                       causal=False, kv_len=kv_len))
+            ck, cv = new_cache["k"], new_cache["v"]
+            out = (flash_decode(q, ck, cv, kv_len) if flash
+                   else full_attention(q, ck, cv, causal=False,
+                                       kv_len=kv_len))
             return out.reshape(B, S, n_heads * head_dim) @ p["wo"], new_cache
         # prefill: causal within the fresh segment (the cache is empty
         # before cache_index == 0)
@@ -177,14 +188,21 @@ def attention_block(p, x, inv_freq, *, n_heads: int, n_kv: int,
 
 def cached_attention_step(p, x, inv_freq, cache_k, cache_v, *,
                           n_heads: int, n_kv: int, head_dim: int,
-                          position: int, attention: str = "flash"):
-    """Attention of a step at a static ``position`` (a Python int); the
-    cache tensors are updated in place.  Returns
-    ``(out, new_cache_k, new_cache_v)``."""
+                          position: int, attention: str = "plain"):
+    """Static-position cached attention for the TMU serving path.
+
+    ``position`` is a Python int (coerced here): closed over the traced
+    function, the KV append is a ``slice_scatter`` at a constant start —
+    the form the compiler matches as an overlay Route TM instruction — and
+    the RoPE angles fold to trace-time constants.  The caches are not
+    written in place: new ones are built and returned (flat, vmap and
+    submit friendly) as ``(out, new_cache_k, new_cache_v)``.  The attention
+    itself is a compute node, as in the JAX step (``full_attention``):
+    ``attention="plain"``."""
     out, new_cache = attention_block(
         p, x, inv_freq, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
         cache={"k": cache_k, "v": cache_v}, cache_index=int(position),
-        attention=attention)
+        attention=attention, inplace=False)
     return out, new_cache["k"], new_cache["v"]
 
 

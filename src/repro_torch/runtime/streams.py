@@ -420,6 +420,11 @@ class Stream:
                 hook = fault_hook
                 if hook is not None:
                     hook("stream", f"{self.engine}:{event.label}")
+                    with self._cond:
+                        if gen != self._gen or event.done:
+                            # poisoned while the hook hung: a disowned
+                            # worker must launch nothing when it wakes
+                            return False
                 result = self._issue(task)
             except BaseException as e:  # noqa: BLE001 — delivered via event
                 err = e

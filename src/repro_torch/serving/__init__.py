@@ -15,10 +15,10 @@ program; this subsystem applies the same scheme at *request* granularity:
   :mod:`repro_torch.runtime.streams`, double-buffering requests across engines;
 * :class:`ServerStats` (stats.py) — throughput/latency accounting + the
   measured-from-event-timestamps overlap ratio next to the cycle model's
-  prediction.
-
-``DecodeSession`` (the LM decode path through the server) is not ported
-yet: ROADMAP queue 1, item 5.
+  prediction;
+* :class:`DecodeSession` (decode.py) — position-bucketed LM decode: one
+  decoder layer per step through the server, one pinned program per
+  ``(position, seq_len)``, the KV cache riding the request path.
 
 Observability: ``ServerConfig(trace=True)`` (or ``trace=<repro_torch.obs.Tracer>``)
 threads one span timeline through admission, compile, phase execution and
@@ -35,6 +35,8 @@ from repro_torch.serving.server import (DrainTimeoutError, ServerConfig,
                                         select_chain_fusion,
                                         select_cycle_params)
 from repro_torch.serving.stats import ServerStats, latency_percentiles
+from repro_torch.serving.decode import (DecodeSession, DecodeStats,
+                                        make_layer_step)
 
 __all__ = [
     "BucketKey", "Request", "bucket_size", "coalesce", "split",
@@ -44,4 +46,5 @@ __all__ = [
     "predict_overlap", "predict_phase_cycles", "select_chain_fusion",
     "select_cycle_params",
     "ServerStats", "latency_percentiles",
+    "DecodeSession", "DecodeStats", "make_layer_step",
 ]

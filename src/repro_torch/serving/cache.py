@@ -110,6 +110,9 @@ class CacheEntry:
     #   ladder settled on after the entry's own backend failed that phase
     quarantine: set | None = None
     degraded_phases: dict = dataclasses.field(default_factory=dict)
+    # per-phase cycle-model prices, the watchdog's deadline input (computed
+    # once, at the entry's first execution under a watchdog)
+    phase_cycle_pred: tuple | None = None
 
 
 class CompileCache:

@@ -30,9 +30,10 @@ is re-executed in halves down to singletons so only the request(s) actually
 poisoning it keep the error and innocents resolve bit-exact.  On the CPU a
 TMU phase whose kernel path raises falls down the ``degrade_backends``
 ladder and the entry remembers the working backend; on the card there is
-no ladder and no quarantine: a failing kernel fails the request.  The
-phase watchdog (``phase_timeout_factor``) arrives with the fault-tolerance
-slice (ROADMAP queue 1, item 4); until then a factor above 0 raises.
+no ladder and no quarantine: a failing kernel fails the request.  A hung
+phase is poisoned by the :class:`~repro_torch.ft.watchdog.PhaseWatchdog`
+(enabled by ``phase_timeout_factor > 0``) and its group goes to the same
+isolation.
 
 ``ServerConfig.device`` (None: the card) is where the server runs: the
 engines' streams, the compiled programs and the stacked batches.
@@ -92,9 +93,10 @@ class ServerConfig:
     # where the server runs (the JAX package's ``interpret`` has no
     # meaning here): None = the card, "cpu" = the kernels' plain versions
     device: Any = None
-    # the JAX package's bit-exact TPU phases for the decode gate; the port's
-    # compute phases already run op by op, and its ``exact`` mode arrives
-    # with the decode slice (ROADMAP queue 1, item 5): True raises until then
+    # bit-exact compute phases for the decode gate: each compute node one
+    # aten call (as always in the port) and fused cross-engine phases on
+    # their split path, so every compute op is the library call eager code
+    # makes
     exact: bool = False
     max_batch: int = 8              # micro-batch height cap (power of two)
     batch_timeout_s: float = 0.005  # max straggler wait before dispatch
@@ -140,9 +142,7 @@ class ServerConfig:
     retry_backoff_s: float = 0.01
     # per-phase watchdog: deadline = max(floor, factor * predicted wall),
     # attached to WARM (cache-hit) executions only — cold runs include
-    # tracing and would false-trip.  factor 0.0 disables the watchdog; a
-    # factor above 0 raises until the watchdog is ported (ROADMAP queue 1,
-    # item 4)
+    # tracing and would false-trip.  factor 0.0 disables the watchdog
     phase_timeout_factor: float = 0.0
     phase_timeout_floor_s: float = 0.25
     # backend ladder a failing TMU phase falls down (in order, skipping the
@@ -167,14 +167,6 @@ class ServerConfig:
         if self.phase_timeout_factor < 0:
             raise ValueError(f"phase_timeout_factor must be >= 0, "
                              f"got {self.phase_timeout_factor}")
-        if self.phase_timeout_factor > 0:
-            raise NotImplementedError(
-                "phase_timeout_factor > 0 needs the phase watchdog, which "
-                "is not ported yet (ROADMAP queue 1, item 4)")
-        if self.exact:
-            raise NotImplementedError(
-                "exact=True is not ported yet: it arrives with the decode "
-                "slice (ROADMAP queue 1, item 5)")
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +331,9 @@ class _AdmittedBatch:
     # per-phase: a cooperative launch (a fused phase on the card), busy
     # time that the overlap accounting never counts as overlapped
     step_exclusive: list | None = None
+    # per-phase watchdog deadlines (seconds; None = unbounded): set only
+    # for WARM executions when the watchdog is enabled
+    step_timeouts: list | None = None
 
 
 class TMServer:
@@ -368,6 +363,7 @@ class TMServer:
         self._retry_pool: concurrent.futures.ThreadPoolExecutor | None = None
         self._stopping = False
         self._started = False
+        self.watchdog = None            # PhaseWatchdog when enabled
         self._outstanding = 0
         self._idle = threading.Condition()
         if self.config.scheduler == "fifo":
@@ -409,6 +405,17 @@ class TMServer:
             self._batcher.start()
         else:
             self.sched.start()
+        if self.config.phase_timeout_factor > 0:
+            # deferred import: repro_torch.ft imports the serving layer's
+            # hosts
+            from repro_torch.ft.watchdog import PhaseWatchdog
+            runtime = (self.pipeline.runtime if self.pipeline is not None
+                       else self.sched.runtime)
+            self.watchdog = PhaseWatchdog(
+                runtime, floor_s=self.config.phase_timeout_floor_s,
+                factor=self.config.phase_timeout_factor,
+                tracer=self.tracer, stats=self.stats)
+            self.watchdog.start()
         return self
 
     def stop(self) -> None:
@@ -427,6 +434,9 @@ class TMServer:
             self._stopping = True
             self.sched.stop()          # drains queued + in-flight groups
             self._admit_pool.shutdown(wait=True)
+        if self.watchdog is not None:
+            self.watchdog.stop()
+            self.watchdog = None
         # last: isolation re-executes blocking (no streams), so failed
         # groups handed off before the drain still resolve their futures
         self._retry_pool.shutdown(wait=True)
@@ -621,7 +631,8 @@ class TMServer:
                 steps=prep.steps, deps=prep.deps,
                 on_done=lambda err: self._finalize(prep, err),
                 label=prep.label, step_labels=prep.step_labels,
-                step_exclusive=prep.step_exclusive))
+                step_exclusive=prep.step_exclusive,
+                step_timeouts=prep.step_timeouts))
         except BaseException as e:  # noqa: BLE001 — shutdown race
             self._fail_batch(prep.batch, e, cold=not prep.hit)
 
@@ -700,16 +711,38 @@ class TMServer:
             for r in batch:
                 self.stats.record_queue_delay(t - r.t_submit)
 
-        # (the phase watchdog's deadlines and calibration arrive with the
-        # fault-tolerance slice, ROADMAP queue 1 item 4)
-        def make_step(ph):
+        # watchdog deadlines: every phase execution calibrates the
+        # seconds-per-cycle estimate; deadlines attach to WARM runs only
+        # (a cold run includes tracing and would false-trip the monitor)
+        wd = self.watchdog
+        pred = None
+        if wd is not None:
+            pred = entry.phase_cycle_pred
+            if pred is None:
+                pred = tuple(predict_phase_cycles(compiled, p,
+                                                  entry.fuse_chains)
+                             for p in phases)
+                entry.phase_cycle_pred = pred
+        step_timeouts = ([wd.deadline_for(c) for c in pred]
+                         if wd is not None and hit else None)
+
+        def make_step(ph, pred_cycles):
             def run():
                 mark_started()
-                return self._run_phase(compiled, ph, env, entry,
-                                       traced=detail == "instr")
+                t0 = time.monotonic()
+                out = self._run_phase(compiled, ph, env, entry,
+                                      traced=detail == "instr")
+                if wd is not None and pred_cycles:
+                    # the wall of the phase's work: on the card the stream
+                    # waits for it after run() returns, so this is its
+                    # host issue time there, a lower bound of the wall
+                    wd.calibrate(pred_cycles, time.monotonic() - t0)
+                return out
             return run
 
-        steps = [(phase.engine, make_step(phase)) for phase in phases]
+        steps = [(phase.engine,
+                  make_step(phase, pred[i] if pred is not None else 0.0))
+                 for i, phase in enumerate(phases)]
         deps = [phase.deps for phase in phases]
         step_labels = ([f"phase/{p.index}/{p.kind}" for p in phases]
                        if detail == "phase" else None)
@@ -719,7 +752,8 @@ class TMServer:
                               entry=entry, env=env, phases=phases,
                               steps=steps, deps=deps, step_labels=step_labels,
                               label=f"{batch[0].fn_key}x{size}",
-                              step_exclusive=step_exclusive)
+                              step_exclusive=step_exclusive,
+                              step_timeouts=step_timeouts)
 
     def _finalize(self, prep: _AdmittedBatch,
                   err: BaseException | None) -> None:
@@ -769,7 +803,8 @@ class TMServer:
             compiled.run_phase(phase, env, backend=backend,
                                fuse_chains=(entry.fuse_chains
                                             and backend == entry.backend),
-                               tracer=tracer, quarantine=entry.quarantine)
+                               exact=cfg.exact, tracer=tracer,
+                               quarantine=entry.quarantine)
         except Exception as e:  # noqa: BLE001 — degradation ladder below
             if phase.kind != "tmu" or self.device.type == "cuda":
                 # TPU phases have no alternative backend to fall to, and on
@@ -783,7 +818,8 @@ class TMServer:
                     # phase thunks are pure writes into env, so the retry
                     # simply overwrites whatever the failed attempt left
                     compiled.run_phase(phase, env, backend=rung,
-                                       fuse_chains=False, tracer=tracer,
+                                       fuse_chains=False, exact=cfg.exact,
+                                       tracer=tracer,
                                        quarantine=entry.quarantine)
                 except Exception as e2:  # noqa: BLE001 — next rung
                     err = e2
@@ -902,7 +938,7 @@ class TMServer:
             key, lambda: self._build_entry(key, members[0].fn, stacked))
         outs, _ = entry.compiled.run(
             *stacked, backend=entry.backend, fuse_chains=entry.fuse_chains,
-            quarantine=entry.quarantine)
+            exact=cfg.exact, quarantine=entry.quarantine)
         return split(outs, len(members))
 
     def _sync(self) -> None:
@@ -962,7 +998,8 @@ class TMServer:
                 fuse_chains = rows["realized_chains"] > 0
             selection["fuse_chains"] = {"winner": fuse_chains, **rows}
         cross_engine = False
-        if cfg.select_xengine and backend == "cuda":
+        # exact mode runs every crossing split: nothing to probe
+        if cfg.select_xengine and backend == "cuda" and not cfg.exact:
             part_x = partition(compiled.graph, compiled.params,
                                cross_engine=True)
             if part_x.xengine_phases:

@@ -1504,3 +1504,132 @@ def test_served_requests_on_card_and_a_failing_kernel_fails_them(cuda):
     assert snap["degraded_phases"] == 0
     assert all(e.quarantine is None and not e.degraded_phases
                for e in entries)
+
+
+# ---------------------------------------------------------------------------
+# fault tolerance and decode on the card
+# ---------------------------------------------------------------------------
+
+def _neck_requests(cuda, n, seed=0):
+    rng = np.random.RandomState(seed)
+
+    def arr(*shape):
+        return torch.tensor(rng.rand(*shape).astype(np.float32)).to(cuda)
+
+    return [(arr(1, 4, 6, 6), arr(1, 8, 12, 3)) for _ in range(n)]
+
+
+@pytest.mark.gpu
+def test_watchdog_poisons_a_hung_phase_on_a_cuda_stream(cuda):
+    """A hang injected at the stream site of a warm group is poisoned by
+    the watchdog; the engine's fresh worker keeps its CUDA stream and the
+    next group completes bit-exact against the direct call."""
+    from repro_torch.ft import (FaultInjector, FaultPlan, FaultSpec,
+                                PhaseTimeoutError)
+    from repro_torch.models import cnn
+    from repro_torch.serving import ServerConfig, TMServer
+    reqs = _neck_requests(cuda, 2)
+    cfg = ServerConfig(backend="cuda", max_batch=1, batch_timeout_s=0.0,
+                       retry_attempts=0, phase_timeout_factor=20.0,
+                       phase_timeout_floor_s=0.5)
+    with TMServer(cfg) as srv:
+        streams = {k: s.cuda_stream for k, s in srv.sched.runtime
+                   .streams.items()}
+        assert torch.equal(srv(cnn.yolo_neck, *reqs[0], fn_key="neck"),
+                           cnn.yolo_neck(*reqs[0]))          # warm
+        plan = FaultPlan(specs=(FaultSpec(site="stream", mode="hang",
+                                          count=1, delay_s=10.0),), seed=7)
+        with FaultInjector(plan):
+            fut = srv.submit(cnn.yolo_neck, *reqs[0], fn_key="neck")
+            with pytest.raises(PhaseTimeoutError):
+                fut.result(timeout=120)
+        got = srv(cnn.yolo_neck, *reqs[1], fn_key="neck")
+        assert {k: s.cuda_stream for k, s in srv.sched.runtime
+                .streams.items()} == streams
+        snap = srv.snapshot_stats()
+    torch.cuda.synchronize()
+    assert torch.equal(got, cnn.yolo_neck(*reqs[1]))
+    assert snap["phase_timeouts"] == 1
+
+
+@pytest.mark.gpu
+def test_bisect_retry_rescues_a_lowering_fault_on_card(cuda):
+    """A one-shot kernel-lowering fault fails the group on the card (no
+    ladder); bisect-retry re-executes it on the card and every request
+    resolves bit-exact against its entry's program."""
+    from repro_torch.ft import FaultInjector, FaultPlan, FaultSpec
+    from repro_torch.models import cnn
+    from repro_torch.serving import ServerConfig, TMServer
+    from repro_torch.serving.batcher import split
+    reqs = _neck_requests(cuda, 4, seed=1)
+    cfg = ServerConfig(backend="cuda", max_batch=4, batch_timeout_s=0.05,
+                       select_chaining=False, select_xengine=False,
+                       retry_attempts=2)
+    with TMServer(cfg) as srv:
+        [f.result(timeout=300) for f in
+         [srv.submit(cnn.yolo_neck, *a, fn_key="neck") for a in reqs]]
+        plan = FaultPlan(specs=(FaultSpec(site="lowering", mode="fail",
+                                          count=1),), seed=6)
+        with FaultInjector(plan) as inj:
+            futs = [srv.submit(cnn.yolo_neck, *a, fn_key="neck")
+                    for a in reqs]
+            res = [f.result(timeout=300) for f in futs]
+        snap = srv.snapshot_stats()
+        (entry,) = srv.cache._entries.values()
+    assert inj.fired == 1
+    assert snap["rescued_requests"] == 4 and snap["victim_requests"] == 0
+    assert entry.quarantine is None and not entry.degraded_phases
+    stacked = tuple(torch.stack(xs) for xs in zip(*reqs))
+    direct, _ = entry.compiled.run(*stacked, backend="cuda")
+    for r, want in zip(res, split(direct, 4)):
+        assert torch.equal(r, want)
+
+
+@pytest.mark.gpu
+def test_decode_session_on_card_caches_bit_exact(cuda):
+    """A smoke-config DecodeSession on the card: every step's caches
+    bit-exact against ``reference_generate`` run on the card (the KV
+    append is data movement), the tokens equal, one entry per position."""
+    from repro_torch.configs.phi4_mini_3p8b import smoke_config
+    from repro_torch.serving import DecodeSession
+    cfg = smoke_config()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with DecodeSession(cfg, generator=gen, device=cuda, max_len=16) as sess:
+        prompts = torch.randint(0, cfg.vocab, (2, 4), device=cuda,
+                                generator=torch.Generator(device=cuda)
+                                .manual_seed(1)).to(torch.int32)
+        got, ref = [], []
+        toks, logits = sess.generate(prompts, 5, caches=got)
+        rtoks, rlogits = sess.reference_generate(prompts, 5, caches=ref)
+        entries = sess.server.snapshot_stats()["cache"]["entries"]
+    assert entries == 5
+    for (ak, av), (bk, bv) in zip(got, ref):
+        assert torch.equal(ak, bk) and torch.equal(av, bv)
+    for a, b in zip(logits, rlogits):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_overlay_route_on_card_matches_slice_scatter(cuda):
+    """The KV append's overlay Route on the card (the engine's select: the
+    block and gather kernels decline overlay Routes, as the JAX package's
+    dispatch does) bit-exact against ``torch.slice_scatter``, in four
+    dtypes, unbatched and vmapped."""
+    from repro_torch.compiler import tm_compile
+    rng = np.random.RandomState(3)
+    for dtype in DTYPES:
+        cache = _rand(rng, (2, 16, 2, 8), dtype, cuda)
+        upd = _rand(rng, (2, 3, 2, 8), dtype, cuda)
+
+        def fn(c_, u):
+            return torch.slice_scatter(c_, u, dim=1, start=13, end=16)
+
+        for f, args in ((fn, (cache, upd)),
+                        (torch.func.vmap(fn), (cache[None], upd[None]))):
+            c = tm_compile(f, *args)
+            assert "slice_scatter" in c.matched_prims
+            got, reps = c.run(*args, backend="cuda")
+            assert torch.equal(got, f(*args)), dtype
+            assert [r.path for rep in reps for r in rep.records] == \
+                ["reference.coarse"]

@@ -539,11 +539,17 @@ def test_cached_attention_step_matches_block():
     out, ck2, cv2 = tattn.cached_attention_step(
         tp, x, tlayers.rope_freqs(hd), ck, cv, n_heads=H, n_kv=KV,
         head_dim=hd, position=3)
+    # the step's default is the plain attention (a compute node of the
+    # served step), against the in-place block on the same attention
     want, _ = tattn.attention_block(tp, x, tlayers.rope_freqs(hd),
                                     n_heads=H, n_kv=KV, head_dim=hd,
-                                    cache=c, cache_index=3)
-    assert ck2 is ck and cv2 is cv
-    assert torch.equal(out, want) and torch.equal(ck, c["k"])
+                                    cache=c, cache_index=3,
+                                    attention="plain")
+    # functional append: new caches, the caller's left untouched
+    assert ck2 is not ck and cv2 is not cv
+    assert not ck.any() and not cv.any()
+    assert torch.equal(out, want)
+    assert torch.equal(ck2, c["k"]) and torch.equal(cv2, c["v"])
 
 
 # ---------------------------------------------------------------------------

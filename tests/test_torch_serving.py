@@ -288,10 +288,9 @@ def test_server_config_validation_and_unported_options():
         ServerConfig(backend="pallas")
     with pytest.raises(ValueError, match="power of two"):
         ServerConfig(max_batch=3)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        ServerConfig(phase_timeout_factor=1.0)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        ServerConfig(exact=True)
+    # the watchdog and exact mode are ported: both options are accepted
+    assert ServerConfig(phase_timeout_factor=1.0).phase_timeout_factor == 1.0
+    assert ServerConfig(exact=True).exact
     assert ServerConfig().device is None and ServerConfig().backend == "fused"
 
 
