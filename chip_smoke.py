@@ -92,8 +92,30 @@ phases and fails on any mismatch:
    tolerances against the eager models; requests/s, p50/p99 latency, the
    cache hit rate, mean batch, measured against predicted overlap and each
    entry's selection rows are logged;
-8. the launch counts of each slice's path, read just after it ran with the
-   counts set to 0 just before it: every kernel of the slice > 0; the
+8. slice 12: YOLOv3-Tiny served under a seeded fault plan (12a) and
+   ``DecodeSession`` on Phi-4-mini's full config, layer 0 (12b);
+9. slice 13, the remaining model families: (13a) Qwen2-MoE-A2.7B at its
+   full published config (all 24 layers, 60 routed experts padded to 64,
+   top-4, 4 shared; random bf16 weights from seed 0) through ``serve`` on
+   slice 5's traffic, batch 8, 1024-token prompts, 64 tokens: exactly 24
+   ``rme_assemble`` launches a forward (the MoE dispatch, one launch a
+   layer over the 512 record streams) and 24 / 24 x 63 flash launches; the
+   flash kernels at its attention shape and the assemble kernel at its
+   dispatch shape against their plain versions first; then the dispatch
+   on the card bit-exact against its plain version at the prefill and
+   decode shapes, layer 0 against a bf16 and an f32 plain run (slice 5's
+   rule over the tokens routed alike, the routing decisions that differ
+   at most MOE_FLIP_LIMIT), finite logits at every step and the greedy
+   tokens' agreement with a bf16 plain run (reported); (13b) rwkv6-3b,
+   zamba2-7b, internvl2-1b, musicgen-large at full depth and
+   llama4-scout-17b-a16e at 4 of its 48 layers, full width, each through
+   ``serve`` with batch 4, 512-token prompts, 16 tokens, freed before the
+   next, its launches checked exactly (InternVL2 also prefills from
+   ``vision_prefix`` of a patch grid; rwkv6 and zamba2 hold their step
+   form against one prefill in f32), the flash kernels at each attention
+   shape against their plain versions first;
+10. the launch counts of each slice's path, read just after it ran with
+   the counts set to 0 just before it: every kernel of the slice > 0; the
    ``kernels`` line gives each kernel its launches from the path of the
    slice that ported it.
 
@@ -106,6 +128,7 @@ without a CUDA device or without the repository's ``src`` beside it.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -1012,18 +1035,21 @@ def flash_rows(dev, gen) -> list[dict]:
 
 def _teacher_forced(cfg, params, prompts, toks, attention: str):
     """Prefill, then the decode steps fed ``toks`` (the kernel path's
-    choices): the last-position logits of every step, (gen, B, V) f32."""
-    from repro_torch.models.transformer import init_caches
+    choices), with the family's KV caches and recurrent states: the
+    last-position logits of every step, (gen, B, V) f32."""
+    from repro_torch.models.transformer import init_caches, init_states
     from repro_torch.runtime.step import make_decode_step, make_prefill_step
     B, P = prompts.shape
     caches = init_caches(cfg, B, P + toks.shape[1], dtype=cfg.dtype,
                          device=prompts.device)
-    lg, caches, _ = make_prefill_step(cfg, attention=attention)(
-        params, prompts, caches, None)
+    states = init_states(cfg, B, device=prompts.device)
+    lg, caches, states = make_prefill_step(cfg, attention=attention)(
+        params, prompts, caches, states)
     out = [lg[:, -1].float()]
     decode = make_decode_step(cfg, attention=attention)
     for i, t in enumerate(range(P, P + toks.shape[1] - 1)):
-        _, lg, caches, _ = decode(params, toks[:, i:i + 1], caches, None, t)
+        _, lg, caches, states = decode(params, toks[:, i:i + 1], caches,
+                                       states, t)
         out.append(lg[:, -1].float())
     return torch.stack(out)
 
@@ -2208,6 +2234,396 @@ def decode_full_width(dev) -> dict:
             "peak": peak, "exact_steps": exact}
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the remaining model families
+# ---------------------------------------------------------------------------
+
+# 13a: Qwen2-MoE-A2.7B at its full published config (all 24 layers, 60
+# routed experts padded to 64, top-4, 4 shared), slice 5's traffic
+MOE_ARCH = "qwen2-moe-a2.7b"
+# the share of layer 0's routing decisions (each of a token's top-k expert
+# choices) that may differ from the f32 run in the kernel path or the bf16
+# plain run: a bf16 router score rounds to another value where an earlier
+# sum took another order, and near-ties then flip
+MOE_FLIP_LIMIT = 0.02
+# 13b: the other five new archs at full published width through serve,
+# batch 4, 512-token prompts, 16 tokens; llama4-scout's 48 layers (about
+# 105 B parameters) do not fit one card, so it runs 4 of them
+FAMILY_ARCHS = ("rwkv6-3b", "zamba2-7b", "internvl2-1b", "musicgen-large",
+                "llama4-scout-17b-a16e")
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 4, 512, 16
+LLAMA4_LAYERS = 4
+# InternVL2's frontend: one InternViT patch grid a request
+VISION_GRID = (FAMILY_BATCH, 32, 32, 1024)
+# the serving steps of rwkv6 and zamba2 (the step form of the recurrence)
+# against one prefill of the whole sequence (the chunked form), both in
+# f32 on the same weights: the two sum in other orders through 32 or 81
+# layers; within 1e-3 of the largest |logit|
+RECUR_RTOL = 1e-3
+
+
+@contextlib.contextmanager
+def plain_dispatch():
+    """MoE dispatch through its plain version for the plain reference runs
+    (on a CUDA tensor ``dispatch_tokens`` launches the assemble kernel)."""
+    from repro_torch.core import rme
+    kernel = rme.dispatch_tokens
+    rme.dispatch_tokens = rme.dispatch_tokens_plain
+    try:
+        yield
+    finally:
+        rme.dispatch_tokens = kernel
+
+
+def _shape_cfg(arch: str):
+    """The arch's config as this slice serves it (llama4-scout cut in
+    depth only)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    if arch == "llama4-scout-17b-a16e":
+        cfg = dataclasses.replace(cfg, n_layers=LLAMA4_LAYERS)
+    return cfg
+
+
+def flash_check(name: str, B: int, S: int, H: int, KV: int, D: int,
+                T: int, dev, gen) -> None:
+    """flash_attention (causal prefill) and flash_decode (at length S + 1
+    of a T-row cache) at one model's attention shape, bf16, each within
+    fp_bounds.attention_tol of its plain version."""
+    from repro_torch.core.fp_bounds import attention_tol
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    bf16 = torch.bfloat16
+    q, k, v = (torch.randn((B, S, n, D), generator=gen).to(dev, bf16)
+               for n in (H, KV, KV))
+    got = fa.flash_attention(q, k, v, causal=True)
+    ref = fa.attention_ref(q, k, v, causal=True)
+    require_within(got, ref, attention_tol(q, k, v, causal=True),
+                   f"{name} flash_attention")
+    e_pre = max_abs_err(got, ref)
+    ck, cv = (torch.randn((B, T, KV, D), generator=gen).to(dev, bf16)
+              for _ in range(2))
+    n = torch.tensor([S + 1], dtype=torch.int32, device=dev)
+    got = fa.flash_decode(q[:, :1], ck, cv, n)
+    ref = fa.decode_ref(q[:, :1], ck, cv, S + 1)
+    require_within(got, ref, attention_tol(q[:, :1], ck, cv, causal=False,
+                                           length=S + 1),
+                   f"{name} flash_decode")
+    log(f"kernel check {name}: q ({B}, {S}, {H}, {D}) k/v KV {KV} "
+        f"(G = {H // KV}) bf16: flash_attention max|err| {e_pre}, "
+        f"flash_decode (cache {T} rows, length {S + 1}) max|err| "
+        f"{max_abs_err(got, ref)}, both within attention_tol")
+
+
+def moe_kernel_checks(cfg, dev, gen) -> None:
+    """Before slice 13a's path: the flash kernels at Qwen2-MoE's attention
+    shape (MHA, G = 1) and the assemble kernel's dispatch timed at the
+    served prefill shape beside its plain version and its byte bound."""
+    from repro_torch.core import rme
+    from repro_torch.kernels.rme_gather import rme_gather as rg
+    from repro_torch.models.moe import capacity_of
+    B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
+    flash_check(cfg.name, B, P, cfg.n_heads, cfg.n_kv_heads, cfg.hd, P + G,
+                dev, gen)
+    E, k = cfg.num_experts_padded, cfg.top_k
+    cap = capacity_of(P, k, cfg.num_experts, cfg.capacity_factor)
+    eo = torch.randint(0, cfg.num_experts, (B, P * k), generator=gen).to(dev)
+    mask = (eo[:, None, :] == torch.arange(E, device=dev)[None, :, None]
+            ).reshape(B * E, P * k)
+    recs = torch.arange(P * k, dtype=torch.int32, device=dev).expand(
+        B * E, P * k)[..., None].contiguous()
+    got, cnt = rg.rme_assemble(recs, mask, cap)
+    want, wcnt = rg.assemble_plain(recs, mask, cap)
+    require_equal(got, want, "rme_assemble at the MoE dispatch shape")
+    require_equal(cnt, wcnt, "rme_assemble counts at the MoE dispatch shape")
+    nbytes = recs.numel() * 4 + mask.numel() + got.numel() * 4 + cnt.numel() * 4
+    ms = graph_ms(lambda: rg.rme_assemble(recs, mask, cap))
+    plain_ms = cuda_ms(lambda: rg.assemble_plain(recs, mask, cap), iters=5)
+    whole_ms = graph_ms(lambda: rme.dispatch_tokens(eo, E, cap))
+    whole_plain = cuda_ms(lambda: rme.dispatch_tokens_plain(eo, E, cap),
+                          iters=5)
+    log(f"kernel rme_assemble at the MoE dispatch: records "
+        f"({B * E}, {P * k}, 1) int32, capacity {cap}: {ms:.4f} ms device "
+        f"(plain {plain_ms:.4f}, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f}"
+        f" by bytes); the whole dispatch_tokens {whole_ms:.4f} ms device "
+        f"(its plain one-hot form {whole_plain:.4f})")
+
+
+def _sets(experts: torch.Tensor) -> torch.Tensor:
+    return torch.sort(experts, dim=-1).values
+
+
+def moe_layer0_check(cfg, params, prompts, dev) -> float:
+    """Layer 0 of the served draw at the served prefill, the kernel path
+    (flash prefill, dispatch on the assemble kernel) against a bf16 plain
+    run and an f32 plain run (the bf16 weights, exactly, in f32), plain
+    dispatch in both: over the tokens whose top-k expert sets agree in all
+    three, the kernel path at most 2x the bf16 plain run's distance from
+    f32 plus LM_FLOOR_ULPS bf16 ulps.  The dispatch on the card equals its
+    plain version bit for bit at the prefill shape and at the decode shape
+    (each sequence's first token).  Returns the share of routing decisions
+    that differ from the f32 run."""
+    import dataclasses
+
+    from repro_torch.core import rme
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.layers import embed, rmsnorm, rope_freqs
+
+    B, S = prompts.shape
+    lp = tt._layer(params["blocks"], 0)
+    x = embed(params["embed"], prompts)
+
+    def layer(c, p, x, attention):
+        inv = rope_freqs(c.hd, c.rope_theta, device=dev)
+        h, _ = attn.attention_block(
+            p["attn"], rmsnorm(p["ln1"], x), inv, n_heads=c.n_heads,
+            n_kv=c.n_kv_heads, head_dim=c.hd, chunk=c.attn_chunk,
+            attention=attention, triangular=c.attn_impl == "triangular")
+        x = x + h
+        u = rmsnorm(p["ln2"], x)
+        _, _, experts = moe_mod.route(p["moe"], u, top_k=c.top_k)
+        m, _ = moe_mod.moe_block(p["moe"], u, num_experts=c.num_experts,
+                                 top_k=c.top_k, n_shared=c.n_shared,
+                                 capacity_factor=c.capacity_factor)
+        return x + m, experts
+
+    kern, e_kern = layer(cfg, lp, x, "flash")
+    inv = rope_freqs(cfg.hd, cfg.rope_theta, device=dev)
+    whole, _, _ = tt._moe_block(cfg, lp, x, inv, attention="flash")
+    require_equal(whole, kern, "layer 0: the model's block against the "
+                  "check's own layer")
+    cap = moe_mod.capacity_of(S, cfg.top_k, cfg.num_experts,
+                              cfg.capacity_factor)
+    E = cfg.num_experts_padded
+    for what, eo, c in (("prefill", e_kern.reshape(B, -1), cap),
+                        ("decode", e_kern[:, 0], moe_mod.capacity_of(
+                            1, cfg.top_k, cfg.num_experts,
+                            cfg.capacity_factor))):
+        got = rme.dispatch_tokens(eo, E, c)
+        want = rme.dispatch_tokens_plain(eo, E, c)
+        require_equal(got[0], want[0], f"MoE dispatch at the {what} shape")
+        require_equal(got[1], want[1], f"MoE dispatch counts ({what})")
+        log(f"MoE dispatch at the {what} shape: expert ids "
+            f"{tuple(eo.shape)} -> ({B}, {E}, {c}) slots, bit-exact "
+            f"against its plain version; {int(got[1].sum())} of "
+            f"{eo.numel()} slots kept")
+    with plain_dispatch():
+        plain, e_plain = layer(cfg, lp, x, "plain")
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        ref, e_ref = layer(cfg32, _tree(lambda t: t.float(), lp), x.float(),
+                           "plain")
+    agree = ((_sets(e_kern) == _sets(e_ref)).all(-1)
+             & (_sets(e_plain) == _sets(e_ref)).all(-1))
+    # a routing decision is one of a token's k expert choices: it differs
+    # where the expert is missing from the f32 run's set in either bf16 run
+    k = cfg.top_k
+    missing = torch.maximum(
+        k - (e_kern[..., :, None] == e_ref[..., None, :]).sum((-1, -2)),
+        k - (e_plain[..., :, None] == e_ref[..., None, :]).sum((-1, -2)))
+    flips = float(missing.sum()) / missing.numel() / k
+    rows = 1.0 - float(agree.float().mean())
+    kern, plain = kern.float()[agree], plain.float()[agree]
+    ref = ref[agree]
+    for what, t in (("kernel", kern), ("plain bf16", plain), ("f32", ref)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"MoE layer 0 {what}: non-finite output")
+    d_kern = float((kern - ref).abs().max())
+    d_plain = float((plain - ref).abs().max())
+    floor = LM_FLOOR_ULPS * float(bf16_ulp(ref.abs().max()))
+    worst = d_kern / (2 * d_plain + floor)
+    log(f"MoE layer 0 at {B}x{S}: routing decisions (a token's k expert "
+        f"choices) that differ from the f32 run in the kernel path or the "
+        f"bf16 plain run {flips:.5f} (limit {MOE_FLIP_LIMIT}); tokens whose "
+        f"expert sets differ among the three {rows:.5f} (kernel vs f32 "
+        f"{1 - float((_sets(e_kern) == _sets(e_ref)).all(-1).float().mean()):.5f}"
+        f", kernel vs bf16 plain "
+        f"{1 - float((_sets(e_kern) == _sets(e_plain)).all(-1).float().mean()):.5f}"
+        f"); over the {int(agree.sum())} tokens routed alike vs f32: kernel "
+        f"{d_kern:.4g}, plain bf16 {d_plain:.4g}, floor {floor:.4g}; "
+        f"kernel / (2 plain + floor) = {worst:.3f} (must be <= 1)")
+    if flips > MOE_FLIP_LIMIT:
+        raise AssertionError(f"MoE layer 0: {flips:.4f} of the routing "
+                             f"decisions differ (limit {MOE_FLIP_LIMIT})")
+    if worst > 1:
+        raise AssertionError(f"MoE layer 0 kernel path too far from f32: "
+                             f"{worst:.3f} of its bound")
+    return flips
+
+
+def moe_check(cfg, toks, stats, peak: int, dev) -> dict:
+    """After slice 13a's path: the served tokens' shape and range, layer
+    0 held against plain (moe_layer0_check), the logits of every step
+    finite (the kernel path fed the served tokens), and the greedy tokens'
+    agreement with a teacher-forced bf16 plain run (reported: router flips
+    make a tight bound meaningless end to end)."""
+    from repro_torch.launch.serve import lm_inputs
+
+    B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
+    if toks.shape != (B, G) or toks.dtype != torch.int32:
+        raise AssertionError(f"served tokens {tuple(toks.shape)} {toks.dtype}")
+    if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError("served tokens outside the vocabulary")
+    params, prompts = lm_inputs(cfg, batch=B, prompt_len=P, seed=SEED,
+                                device=dev)
+    flips = moe_layer0_check(cfg, params, prompts, dev)
+    kern = _teacher_forced(cfg, params, prompts, toks, "flash")
+    with plain_dispatch():
+        plain = _teacher_forced(cfg, params, prompts, toks, "plain")
+    for what, lg in (("kernel", kern), ("plain bf16", plain)):
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"MoE {what}: non-finite logits")
+    replay = float((kern.argmax(-1).T == toks).float().mean())
+    agree = float((plain.argmax(-1).T == toks).float().mean())
+    log(f"model {cfg.name} {B}x{P}+{G}: logits finite at all {G} steps; "
+        f"greedy tokens: the kernel replay picks the served token on "
+        f"{replay:.4f}, the teacher-forced bf16 plain run on {agree:.4f} "
+        f"(not gated)")
+    log(f"model {cfg.name}: prefill {stats['prefill_s'] * 1e3:.3f} ms, "
+        f"decode {stats['decode_s'] * 1e3 / (G - 1):.4f} ms/step, "
+        f"{stats['tokens_per_s']:.1f} tokens/s (batch {B}, prompt {P}); "
+        f"peak memory {peak / 2**30:.3f} GiB")
+    return {"flips": flips, "agree": agree}
+
+
+def family_kernel_checks(dev, gen) -> None:
+    """Before slice 13b's path: the flash kernels at each attention arch's
+    shape (zamba2's shared attention at head dim 112, InternVL2's G = 7
+    at 64, MusicGen's MHA at 64, Llama4-Scout's G = 5)."""
+    B, P, G = FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN
+    for arch in FAMILY_ARCHS:
+        cfg = _shape_cfg(arch)
+        if cfg.family != "ssm":
+            flash_check(cfg.name, B, P, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                        P + G, dev, gen)
+
+
+def _expected(cfg) -> dict:
+    """Kernel launches of one serve call of slice 13b (prefill + G - 1
+    decode steps), and InternVL2's embeds prefill."""
+    steps = FAMILY_GEN - 1
+    if cfg.family == "ssm":
+        n_attn = 0
+    elif cfg.family == "hybrid":
+        n_attn = cfg.n_layers // (cfg.attn_every or cfg.n_layers)
+    else:
+        n_attn = cfg.n_layers
+    want = {"flash_attention": n_attn, "flash_decode": n_attn * steps}
+    if cfg.family == "moe":
+        want["rme_assemble"] = cfg.n_layers * (steps + 1)
+    if cfg.frontend == "vision_stub":
+        want["flash_attention"] += n_attn
+    return want
+
+
+def recurrence_check(cfg, toks, dev) -> float:
+    """rwkv6 / zamba2: the serving steps (prefill, then the decode steps
+    fed the served tokens: the recurrence's step form) against one forward
+    over the whole sequence (its chunked form), both in f32 on the served
+    bf16 weights, plain attention: within RECUR_RTOL of the largest
+    |logit|.  Returns the measured distance over the largest |logit|."""
+    import dataclasses
+
+    from repro_torch.launch.serve import lm_inputs
+    from repro_torch.models.transformer import forward, logits
+
+    B, P, G = FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN
+    params, prompts = lm_inputs(cfg, batch=B, prompt_len=P, seed=SEED,
+                                device=dev)
+    p32 = _tree(lambda t: t.float(), params)
+    del params
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    steps = _teacher_forced(cfg32, p32, prompts, toks, "plain")  # (G, B, V)
+    seq = torch.cat([prompts, toks[:, :-1].to(prompts.dtype)], dim=1)
+    h, _, _, _ = forward(cfg32, p32, tokens=seq, attention="plain")
+    whole = logits(cfg32, p32, h[:, P - 1:]).transpose(0, 1)
+    del p32, h
+    for what, t in (("steps", steps), ("whole", whole)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{cfg.name} {what}: non-finite logits")
+    mag = float(whole.abs().max())
+    rel = float((steps - whole).abs().max()) / mag
+    log(f"model {cfg.name}: step form vs one prefill of {P + G - 1} tokens, "
+        f"f32: max |diff| / max |logit| = {rel:.3g} (must be <= "
+        f"{RECUR_RTOL})")
+    if rel > RECUR_RTOL:
+        raise AssertionError(f"{cfg.name}: the step form and the chunked "
+                             f"form differ by {rel:.3g} of max |logit|")
+    return rel
+
+
+def family_paths(dev) -> dict:
+    """Slice 13b: each of the five other new archs through ``serve`` at its
+    full published width (llama4-scout at 4 layers), one at a time, each
+    freed before the next; InternVL2 also prefills from ``vision_prefix``
+    of a patch grid through ``make_prefill_embeds_step``; rwkv6 and zamba2
+    hold their step form against their chunked form.  Each arch's kernel
+    launches are checked exactly."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import lm_inputs, serve
+    from repro_torch.models.transformer import init_caches, vision_prefix
+    from repro_torch.runtime.step import make_prefill_embeds_step
+
+    B, P, G = FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg, full = _shape_cfg(arch), get_config(arch)
+        if cfg.n_layers != full.n_layers:
+            log(f"model {arch}: cut to {cfg.n_layers} of its "
+                f"{full.n_layers} layers at full width (d_model "
+                f"{cfg.d_model}, {cfg.num_experts} experts of d_ff "
+                f"{cfg.moe_d_ff}, vocab {cfg.vocab}): all {full.n_layers} "
+                f"hold {full.param_count() / 1e9:.1f} B parameters "
+                f"({full.param_count() * 2 / 1e9:.1f} GB in bf16), the "
+                f"{cfg.n_layers} served {cfg.param_count() / 1e9:.2f} B")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = launch_counts()
+        toks, stats = serve(cfg, batch=B, prompt_len=P, gen=G, seed=SEED,
+                            device=dev, log=log)
+        peak = torch.cuda.max_memory_allocated(dev)
+        if toks.shape != (B, G) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab)).all()):
+            raise AssertionError(f"{arch}: served tokens {toks.shape}")
+        if cfg.frontend == "vision_stub":
+            params, _ = lm_inputs(cfg, batch=B, prompt_len=P, seed=SEED,
+                                  device=dev)
+            grid = torch.randn(VISION_GRID, generator=torch.Generator(
+                device=dev).manual_seed(SEED + 2), device=dev)
+            emb = vision_prefix(cfg, params, grid)
+            caches = init_caches(cfg, B, emb.shape[1], device=dev)
+            lg, _, _ = make_prefill_embeds_step(cfg)(params, emb, caches,
+                                                     None)
+            torch.cuda.synchronize(dev)
+            if lg.shape != (B, 1, cfg.padded_vocab) or not bool(
+                    torch.isfinite(lg).all()):
+                raise AssertionError(f"{arch}: embeds prefill logits "
+                                     f"{tuple(lg.shape)}")
+            log(f"model {arch}: vision_prefix of a {VISION_GRID} patch grid "
+                f"-> embeds {tuple(emb.shape)} -> prefill logits finite")
+            del params, caches, emb, lg
+        after = launch_counts()
+        got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        want = _expected(cfg)
+        want = {k: v for k, v in want.items() if v}
+        if got != want:
+            raise AssertionError(f"{arch}: launches {got}, expected {want}")
+        log(f"model {cfg.name} {B}x{P}+{G}: prefill "
+            f"{stats['prefill_s'] * 1e3:.3f} ms, decode "
+            f"{stats['decode_s'] * 1e3 / (G - 1):.4f} ms/step, "
+            f"{stats['tokens_per_s']:.1f} tokens/s, peak memory "
+            f"{peak / 2**30:.3f} GiB; launches {got}")
+        rel = None
+        if cfg.family in ("ssm", "hybrid"):
+            rel = recurrence_check(cfg, toks, dev)
+        out[arch] = {**stats, "peak": peak, "launches": got, "recur": rel}
+        del toks
+    return out
+
+
 def _tree(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree(fn, v) for k, v in tree.items()}
@@ -2224,6 +2640,9 @@ KERNELS = {  # slice -> the kernels its path must launch
     # slice 12 ports no kernel: its two paths reach earlier slices' kernels
     "12a": ("tm_chain", "xchain_prologue"),
     "12b": ("tm_affine_block", "tm_affine_gather"),
+    # slice 13 ports no kernel: MoE dispatch runs on the assemble kernel
+    "13a": ("rme_assemble", "flash_attention", "flash_decode"),
+    "13b": ("rme_assemble", "flash_attention", "flash_decode"),
 }
 
 
@@ -2371,12 +2790,44 @@ def main() -> int:
         _, counts12a = run_path("12a", lambda: faults_on_card(dev))
         torch.cuda.empty_cache()
         _, counts12b = run_path("12b", lambda: decode_full_width(dev))
+    torch.cuda.empty_cache()
+
+    with torch.inference_mode():
+        moe = _shape_cfg(MOE_ARCH)
+        moe_kernel_checks(moe, dev, gen)
+        # the earlier paths' models may sit in reference cycles (servers,
+        # threads, closures): collect them, so the peak below is 13a's
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"slice 13a starts with {torch.cuda.memory_allocated(dev) / 2**30:.3f}"
+            f" GiB allocated")
+
+        def slice13a():
+            torch.cuda.reset_peak_memory_stats(dev)
+            return serve(moe, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                         gen=LM_GEN, seed=SEED, device=dev, log=log)
+
+        (toks, stats), counts13a = run_path("13a", slice13a)
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = {k: 0 for k in counts13a}
+        want.update(rme_assemble=moe.n_layers * LM_GEN,
+                    flash_attention=moe.n_layers,
+                    flash_decode=moe.n_layers * (LM_GEN - 1))
+        if counts13a != want:
+            raise AssertionError(f"slice 13a launches {counts13a}, expected "
+                                 f"{want}")
+        moe_check(moe, toks, stats, peak, dev)
+        del toks
+        torch.cuda.empty_cache()
+        family_kernel_checks(dev, gen)
+        _, counts13b = run_path("13b", lambda: family_paths(dev))
     if (n_unf, n_chn, n_convs) != (8, 4, 144):
         raise AssertionError(f"TM launches per forward {n_unf} unfused, "
                              f"{n_chn} chained, EDSR conv launches "
                              f"{n_convs}; expected 8, 4 and 144")
     by_slice = {1: counts1, 2: counts2, 3: counts3, 4: counts4, 5: counts5,
-                11: counts11, "12a": counts12a, "12b": counts12b}
+                11: counts11, "12a": counts12a, "12b": counts12b,
+                "13a": counts13a, "13b": counts13b}
     # each kernel's launches from the path of the slice that ported it
     counts: dict[str, int] = {}
     for s_no, names in KERNELS.items():

@@ -152,15 +152,68 @@ def evaluate_topk(x: torch.Tensor, k: int, capacity: int | None = None,
 # MoE dispatch built on assemble/evaluate
 # --------------------------------------------------------------------------
 
+def dispatch_tokens_plain(expert_of: torch.Tensor, num_experts: int,
+                          capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`dispatch_tokens` on (B, T) expert
+    ids, on any device: the JAX package's one-hot / cumsum pass, over every
+    batch row at once."""
+    B, T = expert_of.shape
+    experts = torch.arange(num_experts, device=expert_of.device)
+    onehot = (expert_of[..., None] == experts).to(torch.int64)  # (B, T, E)
+    pos = torch.cumsum(onehot, dim=1) - 1   # packed slot per (token, expert)
+    counts = torch.clamp(onehot.sum(1), max=capacity).to(torch.int32)
+    valid = (onehot == 1) & (pos < capacity)
+    dest = torch.where(valid, pos, capacity).transpose(1, 2)  # (B, E, T)
+    token_ids = torch.arange(T, device=expert_of.device).expand(
+        B, num_experts, T)
+    idx = torch.full((B, num_experts, capacity + 1), T, dtype=torch.int64,
+                     device=expert_of.device)
+    # every live slot is written once; the dropped ones all land in the
+    # spare column ``capacity``, which is cut off
+    idx.scatter_(2, dest, torch.where(valid.transpose(1, 2), token_ids, T))
+    return idx[..., :capacity].to(torch.int32), counts
+
+
+def dispatch_tokens_assembled(expert_of: torch.Tensor, num_experts: int,
+                              capacity: int,
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dispatch_tokens` on (B, T) expert ids as one ``rme_assemble``
+    over the B·E record streams ``arange(T)`` (int32, one lane a record),
+    stream (b, e) under the mask ``expert_of[b] == e``; a slot past its
+    stream's count takes the sentinel T (the kernel writes 0 there).  On a
+    CPU tensor ``rme_assemble`` runs its plain version."""
+    # imported here: the kernel module imports this one
+    from repro_torch.kernels.rme_gather.rme_gather import rme_assemble
+
+    B, T = expert_of.shape
+    dev = expert_of.device
+    experts = torch.arange(num_experts, device=dev)
+    mask = (expert_of[:, None, :] == experts[None, :, None]).reshape(
+        B * num_experts, T)
+    records = torch.arange(T, dtype=torch.int32, device=dev).expand(
+        B * num_experts, T)[..., None].contiguous()
+    rows, counts = rme_assemble(records, mask, capacity)
+    live = torch.arange(capacity, device=dev) < counts[:, None]
+    idx = torch.where(live, rows[..., 0], T).view(B, num_experts, capacity)
+    return idx, counts.view(B, num_experts)
+
+
 def dispatch_tokens(expert_of: torch.Tensor, num_experts: int,
                     capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-expert assemble: pack token indices by expert assignment.
 
-    ``expert_of``: (T,) expert id per token-slot.  Returns ``(indices,
-    counts)``: ``indices[e]`` is (capacity,) of token ids routed to expert
-    ``e`` (padded with T), ``counts[e]`` the live count — exactly
-    :func:`assemble_indices` over each expert's mask."""
-    per_expert = [assemble_indices(expert_of == e, capacity)
-                  for e in range(num_experts)]
-    return (torch.stack([i for i, _ in per_expert]),
-            torch.stack([c for _, c in per_expert]))
+    ``expert_of``: (T,) or (B, T) expert id per token-slot.  Returns
+    ``(indices, counts)`` (int32): ``indices[..., e, :]`` is (capacity,) of
+    the token ids routed to expert ``e`` in token order (padded with T),
+    ``counts[..., e]`` the live count (overflow past ``capacity`` is
+    dropped) — exactly :func:`assemble_indices` over each expert's mask,
+    the JAX package's ``vmap(dispatch_tokens)`` over the batch.
+
+    CPU tensor: :func:`dispatch_tokens_plain`.  CUDA tensor:
+    :func:`dispatch_tokens_assembled`, one launch of the RME assemble
+    kernel (or an exception)."""
+    batched = expert_of[None] if expert_of.ndim == 1 else expert_of
+    form = dispatch_tokens_plain if expert_of.is_cpu \
+        else dispatch_tokens_assembled
+    idx, counts = form(batched, num_experts, capacity)
+    return (idx[0], counts[0]) if expert_of.ndim == 1 else (idx, counts)

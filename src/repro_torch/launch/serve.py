@@ -1,8 +1,9 @@
 """Serving drivers.
 
-LM loop — batched prefill, then greedy decode with KV caches:
+LM loop — batched prefill, then greedy decode with KV caches and SSM
+states, for any of the ten archs of :mod:`repro_torch.configs.registry`:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
         --batch 8 --prompt-len 1024 --gen 64
 
 CNN demo blocks through the TMU serving runtime (``repro_torch.serving``):
@@ -53,7 +54,8 @@ def lm_inputs(cfg, *, batch: int, prompt_len: int, seed: int = 0,
 def serve(cfg, *, batch=4, prompt_len=32, gen=32, seed=0, device=None,
           log=print, tracer=None):
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
-    decode greedily to ``gen`` tokens each.  Returns ``(tokens (batch,
+    decode greedily to ``gen`` tokens each (KV caches for the attention
+    families, recurrent states for ssm and hybrid).  Returns ``(tokens (batch,
     gen) int32, stats)`` with the JAX package's keys; on the card the
     clocks stop after ``torch.cuda.synchronize()``, where the JAX package
     blocks until ready.  ``tracer`` records the prefill and each decode
@@ -65,7 +67,7 @@ def serve(cfg, *, batch=4, prompt_len=32, gen=32, seed=0, device=None,
     caches = init_caches(cfg, batch, prompt_len + gen,
                          dtype=torch.float32 if cfg.dtype == torch.float32
                          else torch.bfloat16, device=dev)
-    states = init_states(cfg, batch)
+    states = init_states(cfg, batch, device=dev)
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
 

@@ -17,7 +17,8 @@ step (S == 1 with a cache) to :func:`flash_decode`: on the card the
 hand-written kernels, on the CPU their plain versions.  Plain runs the JAX
 package's own jnp path, ported: :func:`full_attention` (prefill up to 2048
 tokens, and decode under a ``kv_len`` mask) and :func:`chunked_attention`
-(longer prefill).  It is chosen only by that argument, never by a failure.
+or, with ``triangular``, :func:`chunked_attention_triangular` (longer
+prefill).  It is chosen only by that argument, never by a failure.
 """
 
 from __future__ import annotations
@@ -96,6 +97,48 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int = 1024):
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
 
 
+def chunked_attention_triangular(q, k, v, *, chunk: int = 1024):
+    """Causal online-softmax attention over the lower triangle only: the
+    nc(nc+1)/2 live score blocks of the chunk grid (the diagonal blocks
+    keep the in-block causal mask), the same numerics as
+    :func:`chunked_attention`.  Past 16 chunks a row, the JAX package
+    bounds its unrolled program and scans instead, and so does this."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    chunk = min(chunk, S)
+    while S % chunk or T % chunk:
+        chunk -= 1
+    nc = S // chunk
+    if nc > 16:
+        return chunked_attention(q, k, v, causal=True, chunk=chunk)
+    qg = q.reshape(B, nc, chunk, KV, G, D)
+    kc = k.reshape(B, nc, chunk, KV, D)
+    vc = v.reshape(B, nc, chunk, KV, D)
+    diag = torch.arange(chunk, device=q.device)
+    below = diag[:, None] >= diag[None, :]
+    outs = []
+    for i in range(nc):
+        m = torch.full((B, KV, G, chunk), NEG_INF, device=q.device)
+        l = torch.zeros((B, KV, G, chunk), device=q.device)
+        acc = torch.zeros((B, KV, G, chunk, D), device=q.device)
+        for j in range(i + 1):                     # lower triangle only
+            s = _grouped_scores(qg[:, i], kc[:, j], scale)
+            if j == i:  # diagonal block: in-block causal mask
+                s = s.masked_fill(~below, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgst,btkd->bkgsd", p, vc[:, j].float())
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.stack(outs, dim=1)                 # (B, nc, KV, G, c, D)
+    return out.permute(0, 1, 4, 2, 3, 5).reshape(B, S, H, D).to(q.dtype)
+
+
 def full_attention(q, k, v, *, causal: bool, kv_len=None):
     """Materialized path (the JAX package's for S <= 2048 and decode): the
     scores in f32, the probabilities rounded to v's dtype before the PV
@@ -128,7 +171,7 @@ def attention_block(p, x, inv_freq, *, n_heads: int, n_kv: int,
                     head_dim: int, positions=None, cache=None,
                     cache_index: int | None = None, causal: bool = True,
                     chunk: int = 1024, attention: str = "flash",
-                    inplace: bool = True):
+                    inplace: bool = True, triangular: bool = False):
     """Full attention block.  With ``cache`` (serving): append the new K/V
     at ``cache_index`` (TM Route band write) and attend to the cache.
 
@@ -142,7 +185,10 @@ def attention_block(p, x, inv_freq, *, n_heads: int, n_kv: int,
     tensors are left as they were.  The band lands at
     :func:`band_start` (a start past the cache or below 0 is wrapped and
     clamped as lax does), while the decode length stays ``cache_index +
-    S``, unclamped, as in JAX.  Returns ``(out, new_cache)``.
+    S``, unclamped, as in JAX.  ``triangular`` (the ``attn_impl``
+    of MoE configs) sends a plain causal prefill past 2048 tokens to
+    :func:`chunked_attention_triangular`, as the JAX package does; the
+    flash prefill ignores it.  Returns ``(out, new_cache)``.
     """
     if attention not in ATTENTION:
         raise ValueError(f"attention must be one of {ATTENTION}, got "
@@ -179,6 +225,8 @@ def attention_block(p, x, inv_freq, *, n_heads: int, n_kv: int,
         # before cache_index == 0)
     if flash:
         out = flash_attention(q, k, v, causal=causal)
+    elif S > 2048 and causal and triangular:
+        out = chunked_attention_triangular(q, k, v, chunk=chunk)
     elif S > 2048:
         out = chunked_attention(q, k, v, causal=causal, chunk=chunk)
     else:

@@ -4,8 +4,11 @@
 are numpy arrays (``jax.tree.map(np.asarray, p)``) into the port's
 parameters: the same nested dicts and lists with torch tensors as leaves,
 which the model classes in :mod:`repro_torch.models.cnn` and the LM of
-:mod:`repro_torch.models.transformer` take as they are (bf16 leaves stay
-bf16).  Python scalars (``"s"``, ``"n_classes"``) stay Python scalars.
+:mod:`repro_torch.models.transformer` take as they are, for every family
+and frontend (``moe``, ``tmix``, ``ffn``, ``mamba``, ``shared_attn``,
+``vision_proj``, ``codebook_embed``): each leaf keeps its dtype, so bf16
+leaves stay bf16 and the f32 leaves of a bf16 tree (the RWKV mixers and
+decays, Mamba2's ``A_log``, ``D`` and ``dt_bias``) stay f32.  Python scalars (``"s"``, ``"n_classes"``) stay Python scalars.
 """
 
 from __future__ import annotations

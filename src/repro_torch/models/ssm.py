@@ -1,0 +1,272 @@
+"""State-space / linear-attention blocks: Mamba2 (SSD) and RWKV6 (Finch).
+
+The JAX package's ``models/ssm.py`` with PyTorch tensors.  TM-layer
+reading, as there:
+  * RWKV6 token shift — the paper's **Rearrange** along time;
+  * per-head state layout transposes — coarse TM;
+  * chunked recurrences — the Branch stage of the execution model: long
+    tensors processed in segments with carried state (here a Python loop
+    over the chunks, where the JAX package scans).
+
+Both blocks have a single-token form (O(1) state decode) and a chunked
+form for prefill.  JAX promotes a bf16 weight to f32 inside a product with
+an f32 operand; ``torch.matmul`` refuses mixed dtypes, so those weights are
+cast to f32 here explicitly.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import _norm_init
+
+
+# ===========================================================================
+# Mamba2-style SSD block (scalar-per-head decay, chunked linear recurrence)
+# ===========================================================================
+
+def init_mamba2(gen, d_model: int, d_state: int = 64, expand: int = 2,
+                head_dim: int = 64, dtype=torch.float32):
+    """Returns ``(params, meta)`` (the JAX package also returns specs)."""
+    d_inner = expand * d_model
+    n_heads = d_inner // head_dim
+    d_proj = 2 * d_inner + 2 * d_state + n_heads  # fused (z, x, B, C, dt)
+    dev = gen.device
+    dt = torch.linspace(1e-3, 0.1, n_heads, dtype=torch.float32, device=dev)
+    params = {
+        "win": _norm_init(gen, (d_model, d_proj), d_model ** -0.5).to(dtype),
+        "wout": _norm_init(gen, (d_inner, d_model),
+                           d_inner ** -0.5).to(dtype),
+        "A_log": torch.zeros((n_heads,), dtype=torch.float32, device=dev),
+        "D": torch.ones((n_heads,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.log(torch.exp(dt) - 1.0 + 1e-9)}
+    meta = dict(d_inner=d_inner, n_heads=n_heads, head_dim=head_dim,
+                d_state=d_state)
+    return params, meta
+
+
+def _mamba2_split(p, u, meta):
+    """One product, TM Split into (z, x, B, C, dt) column bands (views)."""
+    d_inner, d_state = meta["d_inner"], meta["d_state"]
+    proj = u @ p["win"]
+    z = proj[..., :d_inner]
+    x = proj[..., d_inner:2 * d_inner]
+    Bm = proj[..., 2 * d_inner:2 * d_inner + d_state]
+    Cm = proj[..., 2 * d_inner + d_state:2 * d_inner + 2 * d_state]
+    dt = proj[..., 2 * d_inner + 2 * d_state:]
+    return z, x, Bm, Cm, dt
+
+
+def _decay(p, dt):
+    """Softplus step and per-head decay a = exp(-dt · exp(A_log)), f32."""
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    return torch.exp(-dt * torch.exp(p["A_log"]))
+
+
+def _ssd_chunk(h, ac, xc, Bc, Cc):
+    """One chunk of the SSD recurrence.  h (B, H, P, N); ac (c, B, H), xc
+    (c, B, H, P), Bc, Cc (c, B, N).  Returns ``(h', y (c, B, H, P))``."""
+    c = ac.shape[0]
+    la = torch.log(torch.clamp(ac, min=1e-30))          # log-space decay
+    cum = torch.cumsum(la, dim=0)                       # prod_{u<=t} a_u
+    dec_t = torch.exp(cum)
+    hC = torch.einsum("bhpn,cbn->cbhp", h, Cc)
+    y_state = hC * dec_t[..., None]
+    # decay(s -> t) = exp(cum[t] - cum[s]) for s <= t
+    dmat = torch.exp(cum[None, :, :, :] - cum[:, None, :, :])  # (s, t, B, H)
+    ar = torch.arange(c, device=ac.device)
+    smask = ar[:, None] <= ar[None, :]
+    dmat = torch.where(smask[:, :, None, None], dmat, 0.0)
+    bc = torch.einsum("sbn,tbn->stb", Bc, Cc)
+    w = dmat * bc[:, :, :, None]
+    y_intra = torch.einsum("stbh,sbhp->tbhp", w, xc)
+    dec_all = torch.exp(cum[-1])                        # (B, H)
+    dec_tail = torch.exp(cum[-1][None] - cum)           # (c, B, H)
+    outer = torch.einsum("cbh,cbhp,cbn->bhpn", dec_tail, xc, Bc)
+    h_new = h * dec_all[..., None, None] + outer
+    return h_new, y_state + y_intra
+
+
+def mamba2_block(p, u, meta, *, chunk: int = 256, h0=None,
+                 return_state: bool = False):
+    """u: (B, S, D) -> (B, S, D).  Chunked SSD recurrence; ``h0`` (B, H, P,
+    N) f32 seeds it, ``return_state`` also returns the final state."""
+    B, S, _ = u.shape
+    H, P, N = meta["n_heads"], meta["head_dim"], meta["d_state"]
+    z, x, Bm, Cm, dt = _mamba2_split(p, u, meta)
+    a = _decay(p, dt)                                   # (B, S, H)
+    xh = x.reshape(B, S, H, P).float()
+    Bf, Cf = Bm.float(), Cm.float()
+
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk -= 1
+    nc = S // chunk
+    ac = a.transpose(0, 1).reshape(nc, chunk, B, H)
+    xc = xh.transpose(0, 1).reshape(nc, chunk, B, H, P)
+    Bc = Bf.transpose(0, 1).reshape(nc, chunk, B, N)
+    Cc = Cf.transpose(0, 1).reshape(nc, chunk, B, N)
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=u.device) \
+        if h0 is None else h0
+    ys = []
+    for i in range(nc):
+        h, y = _ssd_chunk(h, ac[i], xc[i], Bc[i], Cc[i])
+        ys.append(y)
+    y = torch.stack(ys).reshape(nc * chunk, B, H, P).transpose(0, 1)
+    y = y + xh * p["D"][None, None, :, None]
+    y = y.reshape(B, S, -1) * F.silu(z.float())
+    out = y.to(u.dtype) @ p["wout"]
+    return (out, h) if return_state else out
+
+
+def mamba2_step(p, u, state, meta):
+    """Single-token decode: u (B, 1, D), state (B, H, P, N) -> (y, state')."""
+    B = u.shape[0]
+    H, P = meta["n_heads"], meta["head_dim"]
+    z, x, Bm, Cm, dt = _mamba2_split(p, u, meta)
+    a = _decay(p, dt)[:, 0]                             # (B, H)
+    xh = x.reshape(B, H, P).float()
+    Bf, Cf = Bm[:, 0].float(), Cm[:, 0].float()
+    state = state * a[..., None, None] + torch.einsum("bhp,bn->bhpn", xh, Bf)
+    y = torch.einsum("bhpn,bn->bhp", state, Cf) + xh * p["D"][None, :, None]
+    y = y.reshape(B, 1, H * P) * F.silu(z.float())
+    return y.to(u.dtype) @ p["wout"], state
+
+
+def mamba2_init_state(B: int, meta, dtype=torch.float32, device=None):
+    return torch.zeros((B, meta["n_heads"], meta["head_dim"],
+                        meta["d_state"]), dtype=dtype, device=device)
+
+
+# ===========================================================================
+# RWKV6 (Finch) — data-dependent decay linear attention
+# ===========================================================================
+
+def init_rwkv6(gen, d_model: int, head_dim: int = 64, dtype=torch.float32):
+    """Returns ``(params, meta)``."""
+    H = d_model // head_dim
+    dev = gen.device
+
+    def lin(i, o):
+        return _norm_init(gen, (i, o), i ** -0.5).to(dtype)
+
+    params = {
+        "w_rkvg": lin(d_model, 4 * d_model),  # fused r, k, v, gate: TM Split
+        "w_decay": lin(d_model, d_model),
+        "w_out": lin(d_model, d_model),
+        "mu": torch.full((5, d_model), 0.5, dtype=torch.float32, device=dev),
+        "u_bonus": torch.zeros((H, head_dim), dtype=torch.float32,
+                               device=dev),
+        "decay_base": torch.full((d_model,), -6.0, dtype=torch.float32,
+                                 device=dev)}
+    return params, dict(n_heads=H, head_dim=head_dim)
+
+
+def token_shift(x, x_prev=None):
+    """TM Rearrange along time: x[t] -> x[t-1] (zero, or ``x_prev``, at
+    t = 0)."""
+    if x_prev is None:
+        x_prev = torch.zeros_like(x[:, :1])
+    return torch.cat([x_prev, x[:, :-1]], dim=1)
+
+
+def _rwkv_mix(p, x, shifted):
+    mu = p["mu"]
+    return tuple(x * mu[i] + shifted * (1 - mu[i]) for i in range(5))
+
+
+def _wkv_steps(state, r, k, v, la, u):
+    """The exact per-token recurrence; r, k, v, la (B, S, H, K) f32."""
+    ys = []
+    for t in range(r.shape[1]):
+        kv = torch.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                               state + u[None, :, :, None] * kv))
+        state = state * torch.exp(la[:, t])[..., None] + kv
+    return state, torch.stack(ys, dim=1)
+
+
+def _wkv_chunk(s, rt, kt, vt, lat, u, tri):
+    """One chunk of the chunked wkv recurrence (rt, kt, vt, lat (B, c, H,
+    K) f32): separable in-chunk decays around the offset o = cl_c / 2."""
+    cl = torch.cumsum(lat, dim=1)          # inclusive cumulative log-decay
+    cl_prev = cl - lat                     # exclusive (cl_{t-1})
+    cl_end = cl[:, -1:]                    # cl_c
+    o = 0.5 * cl_end                       # stability offset
+    r_t = rt * torch.exp(cl_prev - o)
+    k_s = kt * torch.exp(o - cl)
+    A = torch.einsum("bthk,bshk->bhts", r_t, k_s) * tri[None, None]
+    diag = torch.einsum("bthk,bthk->bth", rt, u[None, None] * kt)
+    y_intra = torch.einsum("bhts,bshv->bthv", A, vt) + diag[..., None] * vt
+    r_dec = rt * torch.exp(cl_prev)
+    y_inter = torch.einsum("bthk,bhkv->bthv", r_dec, s)
+    k_tail = kt * torch.exp(cl_end - cl)
+    s = s * torch.exp(cl_end[:, 0])[..., None] + \
+        torch.einsum("bshk,bshv->bhkv", k_tail, vt)
+    return s, y_intra + y_inter
+
+
+def rwkv6_block(p, x, meta, *, x_prev=None, state=None, chunk: int = 64,
+                stepwise: bool = False):
+    """x: (B, S, D) -> ``(out (B, S, D), x[:, -1:], state (B, H, K, K)
+    f32)``.  Chunked wkv recurrence by default; ``stepwise=True`` (and any
+    S == 1) runs the exact per-token recurrence."""
+    B, S, D = x.shape
+    H, K = meta["n_heads"], meta["head_dim"]
+    shifted = token_shift(x, x_prev)
+    xr, xk, xv, xg, xw = _rwkv_mix(p, x, shifted)       # f32
+    w_rkvg = p["w_rkvg"].float()   # JAX promotes the bf16 weight to f32
+    r = (xr @ w_rkvg[:, :D]).reshape(B, S, H, K)
+    k = (xk @ w_rkvg[:, D:2 * D]).reshape(B, S, H, K)
+    v = (xv @ w_rkvg[:, 2 * D:3 * D]).reshape(B, S, H, K)
+    g = xg @ w_rkvg[:, 3 * D:]
+    w = -torch.exp(p["decay_base"] + (xw @ p["w_decay"].float()).float())
+    la = w.reshape(B, S, H, K)             # log-decay (negative)
+    r32, k32, v32 = r.float(), k.float(), v.float()
+    u = p["u_bonus"]
+    if state is None:
+        state = torch.zeros((B, H, K, K), dtype=torch.float32,
+                            device=x.device)
+
+    if stepwise or S == 1:
+        state, ys = _wkv_steps(state, r32, k32, v32, la, u)
+        y = ys.reshape(B, S, D)
+    else:
+        c = chunk
+        while S % c:
+            c -= 1
+        nc = S // c
+        rc, kc, vc, lac = (t.reshape(B, nc, c, H, K)
+                           for t in (r32, k32, v32, la))
+        tri = torch.tril(torch.ones((c, c), dtype=torch.float32,
+                                    device=x.device), diagonal=-1)
+        ys = []
+        for i in range(nc):
+            state, yc = _wkv_chunk(state, rc[:, i], kc[:, i], vc[:, i],
+                                   lac[:, i], u, tri)
+            ys.append(yc)
+        y = torch.stack(ys, dim=1).reshape(B, S, D)
+
+    y = y * F.silu(g.float())
+    out = y.to(x.dtype) @ p["w_out"]
+    return out, x[:, -1:], state
+
+
+def rwkv6_step(p, x, x_prev, state, meta):
+    """Single-token decode: x (B, 1, D)."""
+    return rwkv6_block(p, x, meta, x_prev=x_prev, state=state)
+
+
+def init_rwkv_ffn(gen, d_model: int, d_ff: int, dtype=torch.float32):
+    return {"wk": _norm_init(gen, (d_model, d_ff), d_model ** -0.5).to(dtype),
+            "wv": _norm_init(gen, (d_ff, d_model), d_ff ** -0.5).to(dtype),
+            "mu": torch.full((d_model,), 0.5, dtype=torch.float32,
+                             device=gen.device)}
+
+
+def rwkv_ffn(p, x, x_prev=None):
+    shifted = token_shift(x, x_prev)
+    xm = (x * p["mu"] + shifted * (1 - p["mu"])).to(x.dtype)
+    h = torch.square(torch.relu(xm @ p["wk"]))
+    return (h @ p["wv"]).to(x.dtype), x[:, -1:]

@@ -27,6 +27,20 @@ def make_prefill_step(cfg: ModelConfig, *, attention: str = "flash"):
     return prefill_step
 
 
+def make_prefill_embeds_step(cfg: ModelConfig, *, attention: str = "flash"):
+    """Prefill from precomputed embeddings (the audio / vision stub
+    frontends): ``prefill_step(params, embeds, caches, states)``."""
+    def prefill_step(params, embeds, caches, states):
+        hidden, caches, states, _ = forward(cfg, params, embeds=embeds,
+                                            caches=caches, cache_index=0,
+                                            states=states,
+                                            attention=attention)
+        lg = logits(cfg, params, hidden[:, -1:])
+        return lg, caches, states
+
+    return prefill_step
+
+
 def make_decode_step(cfg: ModelConfig, *, sample: bool = False,
                      temperature: float = 1.0, attention: str = "flash"):
     """``decode_step(params, token, caches, states, index, gen=None)`` ->

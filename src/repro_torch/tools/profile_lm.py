@@ -1,16 +1,20 @@
 """Where the time of the LM serving loop goes: prefill and one decode step.
 
-    PYTHONPATH=src python3 -m repro_torch.tools.profile_lm
+    PYTHONPATH=src python3 -m repro_torch.tools.profile_lm [ARCH]
 
-Phi-4-mini 3.8B at its full published config (random bf16 weights from
-seed 0, as ``launch/serve.py`` draws them), batch 8, a 1024-token prompt,
-a 1088-row KV cache.  For the prefill and for one decode step at position
+``ARCH`` (default ``phi4-mini-3.8b``) at its full published config (random
+bf16 weights from seed 0, as ``launch/serve.py`` draws them), batch 8, a
+1024-token prompt, a 1088-row KV cache (and the recurrent state where the
+family has one).  For the prefill and for one decode step at position
 1024, each warm: the wall ms (host clock around the call and a device
 synchronize, the least of three), then ``torch.profiler``'s CUDA kernel
 events of one more call: the device ms of all kernels, the busy share
 (kernel ms over wall ms; the rest is the device waiting for the host) and
 the kernels that take the most time.  Prints the card's name and power
-limit first.  Needs a CUDA device.
+limit first.  For an MoE arch, also the wall ms of each piece of layer
+0's MoE block at the decode and the prefill shape (routing, dispatch,
+the expert products, the combine), each the least of three synced calls.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -52,33 +56,65 @@ def report(name: str, fn) -> None:
                       for k, (ms, n) in top), flush=True)
 
 
-def main() -> int:
+def moe_split(cfg, params, x) -> None:
+    """Wall ms of each piece of layer 0's MoE block on ``x``."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _layer
+    p = _layer(params["blocks"], 0)["moe"]
+    B, S, _ = x.shape
+    k, E = cfg.top_k, p["wi"].shape[0]
+    cap = moe.capacity_of(S, k, cfg.num_experts, cfg.capacity_factor)
+    _, gates, experts = moe.route(p, x, top_k=k)
+    idx, valid, xe = moe._dispatch(x, experts, E, cap)
+    ye = moe._experts(p, xe)
+    pieces = {
+        "route": lambda: moe.route(p, x, top_k=k),
+        "dispatch": lambda: moe._dispatch(x, experts, E, cap),
+        "experts": lambda: moe._experts(p, xe),
+        "combine": lambda: moe._combine(ye, gates, experts, idx, valid, S),
+        "whole block": lambda: moe.moe_block(
+            p, x, num_experts=cfg.num_experts, top_k=k,
+            n_shared=cfg.n_shared, capacity_factor=cfg.capacity_factor)}
+    print(f"profile {cfg.name} MoE layer 0 at ({B}, {S}), capacity {cap}: "
+          + "; ".join(f"{name} {wall_ms(fn):.3f} ms"
+                      for name, fn in pieces.items()), flush=True)
+
+
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_lm: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
     from repro_torch.launch.serve import lm_inputs
-    from repro_torch.models.transformer import init_caches
+    from repro_torch.models.layers import embed
+    from repro_torch.models.transformer import init_caches, init_states
     from repro_torch.runtime.step import make_decode_step, make_prefill_step
 
+    argv = sys.argv[1:] if argv is None else argv
+    arch = argv[0] if argv else ARCH
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0])
-    build.build(["flash_attention"])
+    build.build(["flash_attention", "rme_gather"])
     dev = torch.device("cuda", 0)
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     with torch.inference_mode():
         params, prompts = lm_inputs(cfg, batch=BATCH, prompt_len=PROMPT,
                                     device=dev)
         caches = init_caches(cfg, BATCH, PROMPT + GEN, device=dev)
+        states = init_states(cfg, BATCH, device=dev)
         prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-        lg, _, _ = prefill(params, prompts, caches, None)
+        lg, _, _ = prefill(params, prompts, caches, states)
         tok = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
-        report(f"{ARCH} prefill {BATCH}x{PROMPT}",
-               lambda: prefill(params, prompts, caches, None))
-        report(f"{ARCH} decode step at {PROMPT} (batch {BATCH})",
-               lambda: decode(params, tok, caches, None, PROMPT))
+        report(f"{arch} prefill {BATCH}x{PROMPT}",
+               lambda: prefill(params, prompts, caches, states))
+        report(f"{arch} decode step at {PROMPT} (batch {BATCH})",
+               lambda: decode(params, tok, caches, states, PROMPT))
+        if cfg.family == "moe":
+            x = embed(params["embed"], prompts)
+            moe_split(cfg, params, x[:, :1])
+            moe_split(cfg, params, x)
     return 0
 
 

@@ -1633,3 +1633,102 @@ def test_overlay_route_on_card_matches_slice_scatter(cuda):
             assert torch.equal(got, f(*args)), dtype
             assert [r.path for rep in reps for r in rep.records] == \
                 ["reference.coarse"]
+
+
+# ---------------------------------------------------------------------------
+# slice 13: MoE dispatch through the assemble kernel, the new model families'
+# attention shapes
+# ---------------------------------------------------------------------------
+
+# (B, T, routed experts, physical experts, capacity): the decode shape's
+# capacity 1, a capacity that drops slots, pad experts that receive
+# nothing, Qwen2-MoE's 512 streams at its served prefill and decode shapes
+MOE_DISPATCH = {
+    "capacity_1": (8, 4, 60, 64, 1),
+    "drops": (2, 400, 4, 4, 30),
+    "pad_experts": (3, 64, 6, 8, 20),
+    "qwen2_prefill": (8, 4096, 60, 64, 86),
+    "qwen2_decode": (8, 4, 60, 64, 1),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(MOE_DISPATCH))
+def test_moe_dispatch_is_one_assemble_launch_on_card(cuda, case):
+    """Batched ``dispatch_tokens`` on the card: one ``rme_assemble`` launch
+    over the B·E record streams, bit for bit its plain version's."""
+    from repro_torch.core import rme
+    B, T, E, E_phys, cap = MOE_DISPATCH[case]
+    rng = np.random.RandomState(T + B)
+    eo = torch.tensor(rng.randint(0, E, size=(B, T))).to(cuda)
+    before = rg.rme_assemble.launches
+    idx, cnt = rme.dispatch_tokens(eo, E_phys, cap)
+    torch.cuda.synchronize()
+    assert rg.rme_assemble.launches == before + 1
+    want_idx, want_cnt = rme.dispatch_tokens_plain(eo, E_phys, cap)
+    assert idx.dtype == cnt.dtype == torch.int32
+    assert torch.equal(idx, want_idx) and torch.equal(cnt, want_cnt)
+    if E_phys > E:
+        assert bool((idx[:, E:] == T).all()) and not cnt[:, E:].any()
+    if case == "drops":
+        asked = torch.stack([torch.bincount(r, minlength=E) for r in eo])
+        assert bool((asked > cap).any())
+        assert torch.equal(cnt, asked.clamp(max=cap).to(torch.int32))
+
+
+@pytest.mark.gpu
+def test_moe_block_is_deterministic_on_card(cuda):
+    """Two runs of the MoE block on the card give the same bits (the
+    combine gathers each token's slots and sums them in a fixed order, no
+    atomics), and the block stays within bf16 rounding of its f32 run."""
+    from repro_torch.models import moe
+    g = torch.Generator(device=cuda).manual_seed(0)
+    p = moe.init_moe(g, 256, 128, 60, 4, n_shared=1, shared_d_ff=512,
+                     dtype=torch.bfloat16, pad_experts=64)
+    x = torch.randn((4, 96, 256), generator=g, device=cuda).to(torch.bfloat16)
+    kw = dict(num_experts=60, top_k=4, n_shared=1)
+    before = rg.rme_assemble.launches
+    a, aux_a = moe.moe_block(p, x, **kw)
+    b, aux_b = moe.moe_block(p, x, **kw)
+    torch.cuda.synchronize()
+    assert rg.rme_assemble.launches == before + 2
+    assert torch.equal(a, b) and torch.equal(aux_a["load_balance"],
+                                             aux_b["load_balance"])
+    assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+
+
+# (B, S, H, KV, D): Zamba2's shared attention (D = 112, padded to 128 by
+# the TMA box's zero fill), InternVL2 (G = 7, D = 64), Llama4-Scout
+# (G = 5), Qwen2-MoE and MusicGen (MHA, G = 1)
+FAMILY_ATTN = {
+    "zamba2_d112": (2, 200, 32, 32, 112),
+    "internvl2_g7": (2, 300, 14, 2, 64),
+    "llama4_g5": (2, 160, 40, 8, 128),
+    "qwen2_moe_mha": (2, 256, 16, 16, 128),
+    "musicgen_mha_d64": (2, 130, 32, 32, 64),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(FAMILY_ATTN))
+def test_flash_kernels_at_the_families_shapes_on_card(cuda, case):
+    """The bf16 prefill and decode within fp_bounds.attention_tol of their
+    plain versions at each new family's attention shape."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    B, S, H, KV, D = FAMILY_ATTN[case]
+    rng = np.random.RandomState(S + D)
+    q, k, v = _qkv(rng, B, S, S, H, KV, D, torch.bfloat16, cuda)
+    before = (fa.flash_attention.launches, fa.flash_decode.launches)
+    got = fa.flash_attention(q, k, v, causal=True)
+    ok, err = _within_attention_tol(got, fa.attention_ref(q, k, v), q, k, v,
+                                    causal=True)
+    assert ok, (case, "prefill", err)
+    for length in (1, S // 2 + 1, S):
+        got = fa.flash_decode(q[:, :1], k, v, length)
+        ref = fa.decode_ref(q[:, :1], k, v, length)
+        ok, err = _within_attention_tol(got, ref, q[:, :1], k, v,
+                                        causal=False, length=length)
+        assert ok, (case, length, err)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_decode.launches) == \
+        (before[0] + 1, before[1] + 3)
