@@ -114,7 +114,22 @@ phases and fails on any mismatch:
    ``vision_prefix`` of a patch grid; rwkv6 and zamba2 hold their step
    form against one prefill in f32), the flash kernels at each attention
    shape against their plain versions first;
-10. the launch counts of each slice's path, read just after it ran with
+10. slice 14, training: (14a) ``repro_torch.launch.train.train`` on
+   Qwen2-MoE-A2.7B at full width (its published config, bf16, remat
+   "full") cut to 4 of its 24 layers, batch 4 x 1024 tokens of
+   ``SyntheticLM``, 6 steps at peak lr 1e-2: exactly 6 x 4 x 2
+   ``rme_assemble`` launches (the MoE dispatch in each layer's forward and
+   in its recompute) and no other kernel (the train path runs the plain
+   attention, as the reference trains); every loss finite and the last
+   below the first; every parameter in bf16 after training; step ms,
+   tokens/s, peak memory and the optimizer's share; then step 0 again from
+   the same seed: its loss equal, bit for bit, to the path's and to the
+   same forward with the plain dispatch, its gradient norm within 1e-2 of
+   the plain one, the weights unchanged by it (lr 0 in warmup) and every
+   leaf in bf16 after it; (14b) the smoke config in f32 with int8
+   gradient compression, checkpointed, restored bit for bit and resumed,
+   its losses within 1e-3 of the same runs on the CPU;
+11. the launch counts of each slice's path, read just after it ran with
    the counts set to 0 just before it: every kernel of the slice > 0; the
    ``kernels`` line gives each kernel its launches from the path of the
    slice that ported it.
@@ -141,6 +156,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch.core.fp_bounds import bf16_ulp, conv_tol  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 from repro_torch.models.partitioned import (  # noqa: E402
     CAPACITY, CHAINED_PATHS, CONF, UNFUSED_PATHS, detect_program,
     edsr_partitioned_forward, eager_forward, partitioned_forward)
@@ -2195,7 +2211,7 @@ def decode_full_width(dev) -> dict:
         cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
         p32 = {"embed": {"e": params["embed"]["e"].float()},
                "final_norm": {"g": params["final_norm"]["g"].float()},
-               "blocks": _tree(lambda t: t[:1].float(), params["blocks"])}
+               "blocks": tree_map(lambda t: t[:1].float(), params["blocks"])}
         steps32: dict = {}
 
         def step32(pos):
@@ -2413,7 +2429,7 @@ def moe_layer0_check(cfg, params, prompts, dev) -> float:
     with plain_dispatch():
         plain, e_plain = layer(cfg, lp, x, "plain")
         cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-        ref, e_ref = layer(cfg32, _tree(lambda t: t.float(), lp), x.float(),
+        ref, e_ref = layer(cfg32, tree_map(lambda t: t.float(), lp), x.float(),
                            "plain")
     agree = ((_sets(e_kern) == _sets(e_ref)).all(-1)
              & (_sets(e_plain) == _sets(e_ref)).all(-1))
@@ -2532,7 +2548,7 @@ def recurrence_check(cfg, toks, dev) -> float:
     B, P, G = FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN
     params, prompts = lm_inputs(cfg, batch=B, prompt_len=P, seed=SEED,
                                 device=dev)
-    p32 = _tree(lambda t: t.float(), params)
+    p32 = tree_map(lambda t: t.float(), params)
     del params
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     steps = _teacher_forced(cfg32, p32, prompts, toks, "plain")  # (G, B, V)
@@ -2624,10 +2640,245 @@ def family_paths(dev) -> dict:
     return out
 
 
-def _tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
+# ---------------------------------------------------------------------------
+# slice 14: training
+# ---------------------------------------------------------------------------
+
+# 14a: Qwen2-MoE-A2.7B trained at full width (d_model 2048, MHA 16 x 128,
+# 60 routed experts of d_ff 1408 padded to 64, top-4, 4 shared, vocab
+# 151936, bf16, remat "full"), 4 of its 24 layers: all 24 hold 14.83 B
+# parameters, 237 GB at 16 bytes each (bf16 weights and gradients, f32
+# master, m and v), which one card cannot hold; 4 hold 2.73 B
+TRAIN_ARCH = "qwen2-moe-a2.7b"
+TRAIN_LAYERS = 4
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 6, 4, 1024, 1e-2
+# step 0's gradient norm through the kernels against the plain dispatch's:
+# the backward of the gathers sums on the card with atomics, in no fixed
+# order
+GRAD_NORM_RTOL = 1e-2
+# 14b: the smoke config of the same arch (f32, 2 layers) with int8
+# gradient compression and checkpoints: CKPT_STEPS steps, then resumed to
+# CKPT_RESUME, on the card and on the CPU (plain dispatch), the same way
+CKPT_STEPS, CKPT_RESUME, CKPT_EVERY = 4, 6, 2
+CKPT_BATCH, CKPT_SEQ = 4, 64
+# the card's losses against the CPU's: f32 sums in other orders (cuBLAS
+# against the CPU's products, TF32 off), amplified by 6 updates at lr
+# 1e-2, where a rounding that moves one int8 code moves that gradient
+# element by a whole quantization step
+CKPT_LOSS_RTOL = 1e-3
+
+
+def _train_cfg():
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+
+
+def _gib(n: float) -> str:
+    return f"{n / 2**30:.3f} GiB"
+
+
+def train_full_width(cfg, dev) -> dict:
+    """Slice 14a's path: ``train()`` on the card, ``TRAIN_STEPS`` steps of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, a line logged a step.  A step's
+    line comes after ``float(loss)``, which waits for the whole step (the
+    update is queued before it), so the time between two lines is one
+    step's wall time."""
+    from repro_torch.launch.train import train
+
+    marks = []
+
+    def step_log(msg: str) -> None:
+        if msg.startswith("step"):
+            marks.append(time.perf_counter())
+        log(f"train: {msg}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, losses = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                          seq=TRAIN_SEQ, peak_lr=TRAIN_LR, seed=SEED,
+                          log_every=1, log=step_log, device=dev)
+    steps_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    return {"state": state, "losses": losses, "steps_ms": steps_ms,
+            "first_s": marks[0] - t0,
+            "peak": torch.cuda.max_memory_allocated(dev)}
+
+
+def _optimizer_ms(cfg, state) -> float:
+    """Wall time of one ``adamw_update`` over the whole state (zero
+    gradients: its work does not depend on their values), after one
+    untimed call."""
+    from repro_torch.optim.adamw import AdamWState, adamw_update
+    from repro_torch.tree import tree_map
+    grads = tree_map(torch.zeros_like, state["params"])
+    opt = AdamWState(**state["opt"])
+    lr = torch.zeros((), device=opt.step.device)
+    return wall_ms(lambda: adamw_update(grads, opt, lr,
+                                        param_dtype=cfg.dtype,
+                                        params=state["params"]),
+                   iters=2, warmup=1)
+
+
+def train_check(cfg, run: dict, card: str, dev) -> dict:
+    """After slice 14a's path: every loss finite and the last below step
+    0's; every parameter of the trained state in ``cfg.dtype``; then step
+    0 again from the same seed and batch: through the kernels (one
+    ``make_train_step`` on a fresh state) its loss equal, bit for bit, to
+    the path's step 0 and to the same forward with the plain dispatch, its
+    gradient norm within GRAD_NORM_RTOL of the plain one, and the weights
+    after it those before it (lr 0), every leaf in ``cfg.dtype``; the
+    optimizer timed alone."""
+    import math
+
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.models.transformer import init_lm, lm_loss
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.tree import tree_leaves
+    from repro_torch.runtime.step import init_train_state, make_train_step
+
+    losses = run.pop("losses")
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    state = run.pop("state")
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    wrong = {str(t.dtype) for t in tree_leaves(state["params"])
+             if t.dtype != cfg.dtype}
+    if wrong:
+        raise AssertionError(f"train: parameters in {wrong} after "
+                             f"{TRAIN_STEPS} steps, not {cfg.dtype}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(SEED)
+
+    batch = to_device(SyntheticLM(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                  SEED).batch_at(0), dev)
+    params = init_lm(cfg, seeded(), device=dev)
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    with plain_dispatch():
+        plain_loss, _ = lm_loss(cfg, params, batch["tokens"],
+                                batch["labels"])
+        grads = torch.autograd.grad(plain_loss, leaves)
+    plain_norm = float(global_norm(grads))
+    plain_loss = plain_loss.detach()
+    del params, leaves, grads
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, seeded(), device=dev)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    step = make_train_step(cfg, peak_lr=TRAIN_LR,
+                           warmup=max(TRAIN_STEPS // 10, 1),
+                           total=TRAIN_STEPS)
+    state, met = step(state, batch)
+    torch.cuda.synchronize(dev)
+    init_s, again_ms = t1 - t0, (time.perf_counter() - t1) * 1e3
+    require_equal(met["loss"], plain_loss, "step 0's loss through the "
+                  "kernels against the plain dispatch")
+    if float(met["loss"]) != losses[0]:
+        raise AssertionError(f"step 0's loss {float(met['loss'])} differs "
+                             f"from the path's {losses[0]}")
+    norm = float(met["grad_norm"])
+    rel = abs(norm - plain_norm) / plain_norm
+    if not rel <= GRAD_NORM_RTOL:
+        raise AssertionError(f"step 0's gradient norm {norm} against the "
+                             f"plain dispatch's {plain_norm}: {rel:.3g}")
+    if float(met["lr"]) != 0.0:
+        raise AssertionError(f"step 0 ran at lr {float(met['lr'])}")
+    for a, b in zip(tree_leaves(init_lm(cfg, seeded(), device=dev)),
+                    tree_leaves(state["params"])):
+        if b.dtype != cfg.dtype:
+            raise AssertionError(f"a parameter in {b.dtype} after step 0")
+        require_equal(b, a.to(cfg.dtype), "a parameter after step 0 at lr 0")
+    opt_ms = _optimizer_ms(cfg, state)
+    del state, met
+    torch.cuda.empty_cache()
+
+    steps_ms = run["steps_ms"]
+    step_ms = sorted(steps_ms)[len(steps_ms) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"model {cfg.name} trained at full width, {cfg.n_layers} of 24 "
+        f"layers ({n_params / 1e9:.3f} B parameters with the pad experts "
+        f"and the padded vocabulary), batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps, on {card}: "
+        f"losses {[round(x, 4) for x in losses]}; steps 1-{TRAIN_STEPS - 1} "
+        f"{[round(x, 3) for x in steps_ms]} ms (step 0 with the set-up "
+        f"{run['first_s']:.3f} s; again: init_train_state {init_s:.3f} s, "
+        f"the step {again_ms:.3f} ms), median {step_ms:.3f} ms = "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s; peak {_gib(run['peak'])}; "
+        f"the optimizer alone {opt_ms:.3f} ms "
+        f"({opt_ms / step_ms:.3f} of a step)")
+    log(f"model {cfg.name} step 0: loss {float(plain_loss)!r} through the "
+        f"kernels and the plain dispatch, bit for bit, and the path's; "
+        f"gradient norm {norm:.6g} against {plain_norm:.6g} plain "
+        f"({rel:.3g}, limit {GRAD_NORM_RTOL}); weights unchanged at lr 0; "
+        f"every leaf {cfg.dtype} after step 0 and after step "
+        f"{TRAIN_STEPS - 1}")
+    return {"step_ms": step_ms, "opt_ms": opt_ms, "norm_rel": rel}
+
+
+def train_checkpoint_path(dev) -> dict:
+    """Slice 14b: the smoke config in f32, from one state drawn on the CPU
+    and checkpointed as step 0, trained with compression to CKPT_STEPS,
+    checkpointed every CKPT_EVERY, the saved state restored bit for bit,
+    then resumed to CKPT_RESUME; the same on the CPU (plain dispatch),
+    each of the CKPT_RESUME losses within CKPT_LOSS_RTOL of the CPU's.
+    (The card's generator draws other numbers than the CPU's, so each run
+    resumes from the same step-0 checkpoint.)"""
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager, _flatten
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.launch.train import train
+    from repro_torch.runtime.step import init_train_state
+
+    cfg = get_smoke(TRAIN_ARCH)
+    start = init_train_state(cfg, torch.Generator().manual_seed(SEED),
+                             compress=True, device="cpu")
+    kw = dict(batch=CKPT_BATCH, seq=CKPT_SEQ, peak_lr=TRAIN_LR, seed=SEED,
+              compress=True, ckpt_every=CKPT_EVERY, log_every=1)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        with tempfile.TemporaryDirectory() as d:
+            CheckpointManager(d).save(0, start, blocking=True)
+            notes = []
+            state, first = train(cfg, steps=CKPT_STEPS, ckpt_dir=d,
+                                 device=where, log=notes.append, **kw)
+            if notes[0] != "[restore] resumed from step 0":
+                raise AssertionError(f"14b on {where}: {notes[:1]}")
+            saved, at = CheckpointManager(d).restore(device=where)
+            flat, want = _flatten(saved), _flatten(state)
+            if at != CKPT_STEPS or flat.keys() != want.keys():
+                raise AssertionError(f"checkpoint at {at}: {sorted(flat)}")
+            for k in want:
+                require_equal(flat[k], want[k], f"restored {k} ({where})")
+            notes = []
+            _, rest = train(cfg, steps=CKPT_RESUME, ckpt_dir=d, device=where,
+                            log=notes.append, **kw)
+            if notes[0] != f"[restore] resumed from step {CKPT_STEPS}" or \
+                    len(rest) != CKPT_RESUME - CKPT_STEPS:
+                raise AssertionError(f"resume on {where}: {notes[:1]}, "
+                                     f"{len(rest)} steps")
+        runs.append(first + rest)
+        del state, saved, flat, want
+    card, cpu = runs
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    log(f"model {cfg.name} (smoke, f32) with int8 compression, from one "
+        f"state drawn on the CPU and checkpointed as step 0: "
+        f"{CKPT_STEPS} steps, the checkpoint restored bit for bit, resumed "
+        f"to {CKPT_RESUME}; losses on the card {[round(x, 5) for x in card]},"
+        f" on the CPU {[round(x, 5) for x in cpu]}: max relative "
+        f"difference {rel:.3g} (limit {CKPT_LOSS_RTOL})")
+    if not rel <= CKPT_LOSS_RTOL:
+        raise AssertionError(f"14b: the card's losses {card} against the "
+                             f"CPU's {cpu}")
+    return {"rel": rel}
 
 
 KERNELS = {  # slice -> the kernels its path must launch
@@ -2643,6 +2894,10 @@ KERNELS = {  # slice -> the kernels its path must launch
     # slice 13 ports no kernel: MoE dispatch runs on the assemble kernel
     "13a": ("rme_assemble", "flash_attention", "flash_decode"),
     "13b": ("rme_assemble", "flash_attention", "flash_decode"),
+    # slice 14 ports no kernel: the train path runs plain attention, as
+    # the reference trains, and its MoE dispatch on the assemble kernel
+    "14a": ("rme_assemble",),
+    "14b": ("rme_assemble",),
 }
 
 
@@ -2821,13 +3076,33 @@ def main() -> int:
         torch.cuda.empty_cache()
         family_kernel_checks(dev, gen)
         _, counts13b = run_path("13b", lambda: family_paths(dev))
+
+    # slice 14 trains: autograd, so outside inference mode
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_cfg = _train_cfg()
+    t14 = time.perf_counter()
+    log(f"slice 14a starts with {_gib(torch.cuda.memory_allocated(dev))} "
+        f"allocated")
+    run, counts14a = run_path("14a", lambda: train_full_width(train_cfg, dev))
+    want = {k: 0 for k in counts14a}
+    # a launch a layer in the forward and one in the remat recompute
+    want["rme_assemble"] = TRAIN_STEPS * train_cfg.n_layers * 2
+    if counts14a != want:
+        raise AssertionError(f"slice 14a launches {counts14a}, expected "
+                             f"{want}")
+    train_check(train_cfg, run, card, dev)
+    del run
+    _, counts14b = run_path("14b", lambda: train_checkpoint_path(dev))
+    log(f"slice 14: {time.perf_counter() - t14:.1f} s with its checks")
     if (n_unf, n_chn, n_convs) != (8, 4, 144):
         raise AssertionError(f"TM launches per forward {n_unf} unfused, "
                              f"{n_chn} chained, EDSR conv launches "
                              f"{n_convs}; expected 8, 4 and 144")
     by_slice = {1: counts1, 2: counts2, 3: counts3, 4: counts4, 5: counts5,
                 11: counts11, "12a": counts12a, "12b": counts12b,
-                "13a": counts13a, "13b": counts13b}
+                "13a": counts13a, "13b": counts13b, "14a": counts14a,
+                "14b": counts14b}
     # each kernel's launches from the path of the slice that ported it
     counts: dict[str, int] = {}
     for s_no, names in KERNELS.items():

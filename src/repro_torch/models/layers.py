@@ -1,4 +1,4 @@
-"""Shared layers: norms, the SwiGLU MLP, RoPE, embeddings.
+"""Shared layers: norms, the SwiGLU MLP, RoPE, embeddings, cross entropy.
 
 The JAX package's ``models/layers.py`` with PyTorch tensors.  Every
 ``init_*`` draws from an explicit ``torch.Generator`` and returns the
@@ -99,3 +99,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x, 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# -- cross entropy --------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 ignore_id: int = -1) -> torch.Tensor:
+    """Mean next-token CE over valid positions.  logits (B, S, V), taken
+    in f32; labels (B, S), ``ignore_id`` marks a position left out."""
+    logits = logits.float()
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
+    gold = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None]
+                        .to(torch.int64))[..., 0]
+    nll = lse - gold
+    valid = (labels != ignore_id).float()
+    return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)

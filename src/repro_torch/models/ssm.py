@@ -10,8 +10,10 @@ reading, as there:
 
 Both blocks have a single-token form (O(1) state decode) and a chunked
 form for prefill.  JAX promotes a bf16 weight to f32 inside a product with
-an f32 operand; ``torch.matmul`` refuses mixed dtypes, so those weights are
-cast to f32 here explicitly.
+an f32 operand; ``torch.matmul`` refuses mixed dtypes, so such a weight is
+cast here to the promoted type of the two explicitly.  (A training step
+casts every leaf to the model's dtype, RWKV6's f32 mixers among them, so
+after it the mixes and the weights are both bf16.)
 """
 
 from __future__ import annotations
@@ -171,6 +173,12 @@ def token_shift(x, x_prev=None):
     return torch.cat([x_prev, x[:, :-1]], dim=1)
 
 
+def _promoted(w, x):
+    """``w`` in the type JAX promotes ``x @ w`` to (f32 mixes, bf16
+    weights: f32)."""
+    return w.to(torch.promote_types(x.dtype, w.dtype))
+
+
 def _rwkv_mix(p, x, shifted):
     mu = p["mu"]
     return tuple(x * mu[i] + shifted * (1 - mu[i]) for i in range(5))
@@ -215,13 +223,14 @@ def rwkv6_block(p, x, meta, *, x_prev=None, state=None, chunk: int = 64,
     B, S, D = x.shape
     H, K = meta["n_heads"], meta["head_dim"]
     shifted = token_shift(x, x_prev)
-    xr, xk, xv, xg, xw = _rwkv_mix(p, x, shifted)       # f32
-    w_rkvg = p["w_rkvg"].float()   # JAX promotes the bf16 weight to f32
+    xr, xk, xv, xg, xw = _rwkv_mix(p, x, shifted)
+    w_rkvg = _promoted(p["w_rkvg"], xr)
     r = (xr @ w_rkvg[:, :D]).reshape(B, S, H, K)
     k = (xk @ w_rkvg[:, D:2 * D]).reshape(B, S, H, K)
     v = (xv @ w_rkvg[:, 2 * D:3 * D]).reshape(B, S, H, K)
     g = xg @ w_rkvg[:, 3 * D:]
-    w = -torch.exp(p["decay_base"] + (xw @ p["w_decay"].float()).float())
+    w = -torch.exp(p["decay_base"] + (xw @ _promoted(p["w_decay"],
+                                                     xw)).float())
     la = w.reshape(B, S, H, K)             # log-decay (negative)
     r32, k32, v32 = r.float(), k.float(), v.float()
     u = p["u_bonus"]

@@ -17,7 +17,9 @@ whose leaves are stacked with a leading layer axis (plus ``shared_attn``,
 them), so a JAX tree carried across with
 :func:`repro_torch.models.convert.params_from_numpy` plugs in unchanged.
 The JAX package scans the stack with ``lax.scan``; here a Python loop walks
-views of it, layer by layer.
+views of it, layer by layer.  :func:`lm_loss` is the training objective;
+under autograd with ``remat="full"`` each layer (hybrid: each group) is
+recomputed in the backward pass, as the JAX package's ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import tm_ops
 from repro_torch.core.executor import resolve_device
@@ -34,7 +37,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (_norm_init, embed, init_embedding,
                                        init_mlp, init_rmsnorm, mlp, rmsnorm,
-                                       rope_freqs, unembed)
+                                       rope_freqs, softmax_xent, unembed)
+from repro_torch.tree import tree_leaves, tree_map
 
 FAMILIES = ("dense", "moe", "hybrid", "ssm")
 FRONTENDS = ("none", "audio_stub", "vision_stub")
@@ -198,25 +202,11 @@ def _stack_init(cfg: ModelConfig, gen, device) -> dict:
     for i in range(cfg.n_layers):
         layer = init_fn(cfg, gen)
         if stacked is None:
-            stacked = _tree_map(lambda t: torch.empty(
+            stacked = tree_map(lambda t: torch.empty(
                 (cfg.n_layers,) + tuple(t.shape), dtype=t.dtype,
                 device=device), layer)
-        _tree_zip(lambda dst, src: dst[i].copy_(src), stacked, layer)
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, layer)
     return stacked
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _tree_zip(fn, a, b):
-    if isinstance(a, dict):
-        for k in a:
-            _tree_zip(fn, a[k], b[k])
-    else:
-        fn(a, b)
 
 
 def _ssm_meta(cfg: ModelConfig) -> dict:
@@ -238,7 +228,7 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> dict:
     def draw(shape, scale):
         return _norm_init(gen, shape, scale).to(cfg.dtype).to(dev)
 
-    params = {"embed": _tree_map(lambda t: t.to(dev), init_embedding(
+    params = {"embed": tree_map(lambda t: t.to(dev), init_embedding(
         gen, cfg.padded_vocab, cfg.d_model, dtype=cfg.dtype))}
     params["final_norm"] = init_rmsnorm(cfg.d_model, device=dev)
     params["blocks"] = _stack_init(cfg, gen, dev)
@@ -247,7 +237,7 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> dict:
         # 2·d_model (its wo maps back to 2·d_model), then its own down-proj
         d2 = 2 * cfg.d_model
         params["shared_attn"] = {
-            "attn": _tree_map(lambda t: t.to(dev), attn.init_attention(
+            "attn": tree_map(lambda t: t.to(dev), attn.init_attention(
                 gen, d2, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                 dtype=cfg.dtype)),
             "proj": {"w": draw((d2, cfg.d_model), d2 ** -0.5)},
@@ -363,7 +353,27 @@ def audio_embed(cfg: ModelConfig, params, codes):
 
 
 def _layer(tree, i):
-    return _tree_map(lambda t: t[i], tree)
+    return tree_map(lambda t: t[i], tree)
+
+
+def _layers(tree, n: int, *, train: bool):
+    """Layer ``i`` of the stacked ``tree`` as a function of ``i``.  When
+    training, every leaf is split once with ``torch.unbind``, whose backward
+    stacks the n gradients in one go; ``t[i]``'s backward would build a
+    zero tensor the size of the whole stack for each layer."""
+    if not train:
+        return lambda i: _layer(tree, i)
+    parts = {id(t): torch.unbind(t) for t in tree_leaves(tree)}
+    return [tree_map(lambda t: parts[id(t)][i], tree)
+            for i in range(n)].__getitem__
+
+
+def _maybe_remat(cfg: ModelConfig, fn, *, train: bool):
+    """``fn`` recomputed in the backward pass (activation checkpointing)
+    when training with ``cfg.remat == "full"``; serving never remats."""
+    if cfg.remat == "full" and train:
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    return fn
 
 
 def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
@@ -380,7 +390,11 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
     (the JAX package's jnp attention, ported), see
     :func:`repro_torch.models.attention.attention_block`.  ``aux`` holds
     the MoE load balance summed over the layers over ``n_layers`` (dense
-    and moe).
+    and moe).  Training is grad mode without caches or states: then the
+    layer views come from one ``torch.unbind`` per leaf and, with
+    ``cfg.remat == "full"``, each layer (hybrid: each group of
+    ``attn_every`` Mamba2 layers with the shared attention; the tail
+    layers are not) is recomputed in the backward pass.
     """
     _check_config(cfg)
     if attention not in attn.ATTENTION:
@@ -388,27 +402,29 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
                          f"{attention!r}")
     x = input_embed(cfg, params, tokens, embeds)
     inv_freq = rope_freqs(cfg.hd, cfg.rope_theta, device=x.device)
-    blocks = params["blocks"]
+    train = torch.is_grad_enabled() and caches is None and states is None
+    layer = _layers(params["blocks"], cfg.n_layers, train=train)
 
     if cfg.family in ("dense", "moe"):
-        block = _dense_block if cfg.family == "dense" else _moe_block
+        block = _maybe_remat(cfg, _dense_block if cfg.family == "dense"
+                             else _moe_block, train=train)
         lb = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_layers):
             cache = None if caches is None else {"k": caches["k"][i],
                                                  "v": caches["v"][i]}
-            x, _, aux = block(cfg, _layer(blocks, i), x, inv_freq,
-                              cache=cache, cache_index=cache_index,
-                              attention=attention)
+            x, _, aux = block(cfg, layer(i), x, inv_freq, cache,
+                              cache_index, attention)
             lb = lb + aux.get("load_balance", 0.0)
         x = rmsnorm(params["final_norm"], x)
         return x, caches, None, {"load_balance": lb / cfg.n_layers}
 
     if cfg.family == "ssm":
+        block = _maybe_remat(cfg, _ssm_block, train=train)
         for i in range(cfg.n_layers):
             st = None if states is None else _layer(states, i)
-            x, new_st = _ssm_block(cfg, _layer(blocks, i), x, state=st)
+            x, new_st = block(cfg, layer(i), x, st)
             if states is not None:  # into its slot (JAX donates states)
-                _tree_zip(lambda d, n: d.copy_(n), st, new_st)
+                tree_map(lambda d, n: d.copy_(n), st, new_st)
         x = rmsnorm(params["final_norm"], x)
         return x, None, states, {}
 
@@ -420,12 +436,12 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
     shared = params["shared_attn"]
 
     def mamba(x, i, st):
-        x, new_st = _mamba_block(cfg, _layer(blocks, i), x, state=st)
+        x, new_st = _mamba_block(cfg, layer(i), x, state=st)
         if st is not None:
             st.copy_(new_st)
         return x
 
-    for g in range(n_groups):
+    def group(x, g):
         for j in range(k):
             x = mamba(x, g * k + j,
                       None if states is None else states["main"][g, j])
@@ -433,6 +449,11 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
                                              "v": caches["v"][g]}
         x, _ = _shared_attn(cfg, shared, x, embed0, inv_freq, cache=cache,
                             cache_index=cache_index, attention=attention)
+        return x
+
+    group = _maybe_remat(cfg, group, train=train)
+    for g in range(n_groups):
+        x = group(x, g)
     for j in range(rem):
         x = mamba(x, n_groups * k + j,
                   None if states is None else states["tail"][j])
@@ -442,6 +463,19 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
 
 def logits(cfg: ModelConfig, params, hidden):
     return unembed(params["embed"], hidden, valid_vocab=cfg.vocab)
+
+
+def lm_loss(cfg: ModelConfig, params, tokens, labels, *, embeds=None):
+    """Mean next-token cross entropy, plus 0.01 x the MoE load balance
+    where the family has one.  Returns ``(loss, aux)``.  Attention takes
+    the plain path (``attention="plain"``), through which the JAX package
+    trains."""
+    hidden, _, _, aux = forward(cfg, params, tokens=tokens, embeds=embeds,
+                                attention="plain")
+    loss = softmax_xent(logits(cfg, params, hidden), labels)
+    if "load_balance" in aux:
+        loss = loss + 0.01 * aux["load_balance"]
+    return loss, aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,96 @@
-"""Prefill and decode step builders (the JAX package's ``runtime/step.py``,
-serving half; the train step arrives with the training slice).
+"""Train, prefill and decode step builders (the JAX package's
+``runtime/step.py``).
 
-Each builder returns a plain function of ``(params, tokens, caches,
-states, ...)``.  PyTorch runs eagerly, so nothing is jitted; the caches are
-written in place (the JAX package donates them).  ``attention`` is passed
-to the model's forward: ``"flash"`` (the kernels) or ``"plain"`` (the JAX
-package's jnp attention, ported).
+``make_train_step(cfg)`` returns ``(state, batch) -> (state, metrics)``;
+the state is a plain dict, so the checkpoint manager can flatten it.  Its
+distributed-optimization hooks, as in JAX: optional int8 gradient
+compression with error feedback, and the cosine learning rate computed on
+the device (no host sync).  The serving builders return plain functions
+of ``(params, tokens, caches, states, ...)``.  PyTorch runs eagerly, so
+nothing is jitted; the state, caches and recurrent states are written in
+place (the JAX package donates them).  ``attention`` is passed to the
+model's forward: ``"flash"`` (the kernels) or ``"plain"`` (the JAX
+package's jnp attention, ported); training always runs plain.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.transformer import ModelConfig, forward, logits
+from repro_torch.models.transformer import (ModelConfig, forward, init_lm,
+                                            lm_loss, logits)
+from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
+                                     cosine_schedule)
+from repro_torch.optim.compression import (compress_decompress,
+                                           compression_init)
+from repro_torch.tree import tree_leaves, tree_map
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+def init_train_state(cfg: ModelConfig, gen: torch.Generator, *,
+                     compress: bool = False, device=None) -> dict:
+    """``{"params", "opt": {"step", "master", "m", "v"}}`` (and ``"ef"``
+    with ``compress``), the parameters drawn from ``gen`` on ``device``
+    (None means the card).  The JAX package also returns the parameters'
+    sharding specs, which come with the distribution scaffolding."""
+    params = init_lm(cfg, gen, device=device)
+    opt = adamw_init(params)
+    state = {"params": params,
+             "opt": {"step": opt.step, "master": opt.master,
+                     "m": opt.m, "v": opt.v}}
+    if compress:
+        state["ef"] = compression_init(params)
+    return state
+
+
+def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
+                    warmup: int = 100, total: int = 10000,
+                    compress: bool = False, max_norm: float = 1.0):
+    """``train_step(state, batch)`` -> ``(state, metrics)``: ``lm_loss``
+    and its gradient with respect to every parameter, then (with
+    ``compress``) the int8 round trip, then AdamW at the learning rate of
+    the step count *before* the update (so step 0 runs at lr 0 in
+    warmup), every parameter cast to ``cfg.dtype``.  ``batch`` holds
+    ``labels`` and ``tokens`` or ``embeds``.  Metrics (0-d tensors):
+    ``loss``, ``lr``, ``grad_norm`` and, for dense and moe,
+    ``load_balance``."""
+    def train_step(state, batch):
+        params = tree_map(lambda p: p.detach().requires_grad_(),
+                          state["params"])
+        leaves = tree_leaves(params)
+        with torch.enable_grad():
+            loss, aux = lm_loss(cfg, params, batch.get("tokens"),
+                                batch["labels"], embeds=batch.get("embeds"))
+            # a frontend's weights that the loss does not read get zeros
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        by_leaf = dict(zip(map(id, leaves), grads))
+        grads = tree_map(lambda p: by_leaf[id(p)], params)
+        new_state = dict(state)
+        if compress:
+            grads, new_state["ef"] = compress_decompress(grads, state["ef"])
+        opt = AdamWState(**state["opt"])
+        lr = cosine_schedule(opt.step, peak_lr=peak_lr, warmup=warmup,
+                             total=total)
+        params, opt, om = adamw_update(grads, opt, lr, max_norm=max_norm,
+                                       param_dtype=cfg.dtype,
+                                       params=state["params"])
+        new_state["params"] = params
+        new_state["opt"] = {"step": opt.step, "master": opt.master,
+                            "m": opt.m, "v": opt.v}
+        metrics = {"loss": loss.detach(), "lr": lr, **om,
+                   **{k: v.detach() for k, v in aux.items()}}
+        return new_state, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
 
 
 def make_prefill_step(cfg: ModelConfig, *, attention: str = "flash"):

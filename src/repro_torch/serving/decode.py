@@ -36,10 +36,11 @@ import torch
 from repro_torch.core.executor import resolve_device
 from repro_torch.models.attention import cached_attention_step
 from repro_torch.models.layers import embed, mlp, rmsnorm, rope_freqs, unembed
-from repro_torch.models.transformer import ModelConfig, _tree_map, init_lm
+from repro_torch.models.transformer import ModelConfig, init_lm
 from repro_torch.runtime.fault_tolerance import Heartbeat, StragglerDetector
 from repro_torch.serving.server import ServerConfig, TMServer
 from repro_torch.serving.stats import latency_percentiles
+from repro_torch.tree import tree_map
 
 
 def make_layer_step(cfg: ModelConfig, params, *, position: int):
@@ -54,7 +55,7 @@ def make_layer_step(cfg: ModelConfig, params, *, position: int):
     are ``(B, max_len, n_kv, head_dim)``.  The caller's caches are never
     written: new ones are returned."""
     position = int(position)
-    block = _tree_map(lambda t: t[0], params["blocks"])
+    block = tree_map(lambda t: t[0], params["blocks"])
     inv_freq = rope_freqs(cfg.hd, cfg.rope_theta,
                           device=params["embed"]["e"].device)
 

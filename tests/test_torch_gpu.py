@@ -1732,3 +1732,96 @@ def test_flash_kernels_at_the_families_shapes_on_card(cuda, case):
     torch.cuda.synchronize()
     assert (fa.flash_attention.launches, fa.flash_decode.launches) == \
         (before[0] + 1, before[1] + 3)
+
+
+# ---------------------------------------------------------------------------
+# slice 14: training
+# ---------------------------------------------------------------------------
+
+def _smoke_train(device, remat="none", steps=2, seed=0):
+    """``steps`` train steps of the Qwen2-MoE smoke config (f32) from
+    weights drawn on the CPU with ``seed``, on ``device``; returns the
+    state and each step's metrics as floats."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.tree import tree_map
+    from repro_torch.runtime.step import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_smoke("qwen2-moe-a2.7b"), remat=remat)
+    state = init_train_state(cfg, torch.Generator().manual_seed(seed),
+                             device="cpu")
+    state = tree_map(lambda t: t.to(device), state)
+    fn = make_train_step(cfg, peak_lr=1e-2, warmup=1, total=steps)
+    src = SyntheticLM(cfg.vocab, 4, 32, seed)
+    mets = []
+    for i in range(steps):
+        state, met = fn(state, to_device(src.batch_at(i),
+                                         torch.device(device)))
+        mets.append({k: float(v) for k, v in met.items()})
+    return cfg, state, mets
+
+
+@pytest.mark.gpu
+def test_smoke_train_steps_on_card_match_the_cpu(cuda, full_f32):
+    """Two f32 train steps of the MoE smoke config on the card (dispatch on
+    the assemble kernel) against the same steps on the CPU (its plain
+    version), from the same weights and batches: every metric, and every
+    parameter after them, within 1e-4 of its largest magnitude (f32 sums
+    in other orders, through one update at lr 1e-2)."""
+    from repro_torch.tree import tree_leaves
+    _, got, gm = _smoke_train(cuda)
+    _, want, wm = _smoke_train("cpu")
+    for a, b in zip(gm, wm):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert abs(a[k] - b[k]) <= 1e-4 * max(abs(b[k]), 1e-6), (k, a, b)
+    for a, b in zip(tree_leaves(got["params"]), tree_leaves(want["params"])):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        tol = 1e-4 * float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat,per_layer", [("full", 2), ("none", 1)])
+def test_moe_dispatch_launches_under_remat_on_card(cuda, remat, per_layer):
+    """A train step launches ``rme_assemble`` once a layer in the forward
+    and, with ``remat="full"``, once more in each layer's recompute."""
+    before = rg.rme_assemble.launches
+    cfg, _, _ = _smoke_train(cuda, remat=remat, steps=1)
+    torch.cuda.synchronize()
+    assert rg.rme_assemble.launches - before == per_layer * cfg.n_layers
+
+
+@pytest.mark.gpu
+def test_bf16_checkpoint_round_trip_from_card_tensors(cuda, tmp_path):
+    """bf16, f32 and int32 tensors on the card saved and restored onto the
+    card, bit for bit (every bf16 pattern, NaNs included)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
+    tree = {"bf": bits.view(torch.bfloat16).reshape(256, 256).to(cuda),
+            "f32": torch.randn(7, 3, device=cuda),
+            "step": torch.tensor(9, dtype=torch.int32, device=cuda)}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(9, tree, blocking=True)
+    got, step = mgr.restore(device=cuda)
+    assert step == 9
+    for k, t in tree.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == t.dtype
+        if t.dtype == torch.bfloat16:
+            assert torch.equal(got[k].view(torch.int16), t.view(torch.int16))
+        else:
+            assert torch.equal(got[k], t)
+
+
+@pytest.mark.gpu
+def test_train_defaults_to_the_card(cuda):
+    """``train()`` without a device trains on the card: the state lives
+    there and the dispatch launched the assemble kernel."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.launch.train import train
+    from repro_torch.tree import tree_leaves
+    before = rg.rme_assemble.launches
+    state, losses = train(get_smoke("qwen2-moe-a2.7b"), steps=2, batch=2,
+                          seq=16, log=lambda *a: None)
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert all(t.device.type == "cuda" for t in tree_leaves(state))
+    assert rg.rme_assemble.launches > before
