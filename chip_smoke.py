@@ -128,8 +128,30 @@ phases and fails on any mismatch:
    the plain one, the weights unchanged by it (lr 0 in warmup) and every
    leaf in bf16 after it; (14b) the smoke config in f32 with int8
    gradient compression, checkpointed, restored bit for bit and resumed,
-   its losses within 1e-3 of the same runs on the CPU;
-11. the launch counts of each slice's path, read just after it ran with
+   its losses within 1e-3 of the same runs on the CPU, its checkpoints
+   kept for 15b;
+11. slice 15, distribution and the dry-run, on a (1, 1) ("data", "model")
+   card mesh over a one-rank NCCL group: (15a) 14a's ``train()`` call with
+   ``mesh=``: the state placed by the train rules, each batch split over
+   the batch axes, every gradient redistributed to its parameter's
+   placements; exactly 6 x 4 x 2 ``rme_assemble`` launches (through its
+   sharding rule) and no other kernel; steps 0-1's losses 14a's bit for
+   bit, step 2 within MESH_STEP2_RTOL, steps 3-5 within MESH_LATE_RTOL
+   (the run is chaotic there, 14a's own reruns differing by 5%); step ms
+   beside 14a's; (15b)
+   the 4-layer weights placed by ``reshard_state``, ``lm_loss`` on them
+   under the train rules: 4 launches, the loss the plain forward's bit for
+   bit, the weights back whole and placed again bit for bit, 14b's
+   checkpoint restored onto the mesh with its spec tree bit for bit;
+   (15c) ``python -m repro_torch.launch.dryrun`` in a process of its own
+   for each of qwen2-moe-a2.7b train_4k and phi4-mini-3.8b decode_32k on
+   the single-pod mesh (256 ranks of a fake group) and zamba2-7b long_500k
+   on the multi-pod one (512), each record printed (FLOPs and bytes > 0,
+   the train cell's collectives > 0); then 14a's step traced on a (1, 1)
+   mesh (the card cell), its matmul FLOPs within MATMUL_FLOPS_RTOL of
+   FlopCounterMode over one real 14a step, its step-time bound beside the
+   measured step;
+12. the launch counts of each slice's path, read just after it ran with
    the counts set to 0 just before it: every kernel of the slice > 0; the
    ``kernels`` line gives each kernel its launches from the path of the
    slice that ported it.
@@ -147,6 +169,7 @@ import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2823,14 +2846,15 @@ def train_check(cfg, run: dict, card: str, dev) -> dict:
     return {"step_ms": step_ms, "opt_ms": opt_ms, "norm_rel": rel}
 
 
-def train_checkpoint_path(dev) -> dict:
+def train_checkpoint_path(dev, keep: str) -> dict:
     """Slice 14b: the smoke config in f32, from one state drawn on the CPU
     and checkpointed as step 0, trained with compression to CKPT_STEPS,
     checkpointed every CKPT_EVERY, the saved state restored bit for bit,
     then resumed to CKPT_RESUME; the same on the CPU (plain dispatch),
     each of the CKPT_RESUME losses within CKPT_LOSS_RTOL of the CPU's.
     (The card's generator draws other numbers than the CPU's, so each run
-    resumes from the same step-0 checkpoint.)"""
+    resumes from the same step-0 checkpoint.)  The card's checkpoints stay
+    in the directory ``keep`` (slice 15b restores them onto a mesh)."""
     import tempfile
 
     from repro_torch.checkpoint.manager import CheckpointManager, _flatten
@@ -2845,7 +2869,8 @@ def train_checkpoint_path(dev) -> dict:
               compress=True, ckpt_every=CKPT_EVERY, log_every=1)
     runs = []
     for where in (dev, torch.device("cpu")):
-        with tempfile.TemporaryDirectory() as d:
+        with (contextlib.nullcontext(keep) if where == dev
+              else tempfile.TemporaryDirectory()) as d:
             CheckpointManager(d).save(0, start, blocking=True)
             notes = []
             state, first = train(cfg, steps=CKPT_STEPS, ckpt_dir=d,
@@ -2881,6 +2906,287 @@ def train_checkpoint_path(dev) -> dict:
     return {"rel": rel}
 
 
+# ---------------------------------------------------------------------------
+# slice 15: distribution and the dry-run
+# ---------------------------------------------------------------------------
+
+# 15a: slice 14a's run through ``train(mesh=)`` on a (1, 1) ("data",
+# "model") card mesh.  Steps 0 and 1 see the same weights as 14a's (step 0
+# runs at lr 0), so their losses are 14a's bit for bit.  Step 2 follows
+# the first real update, whose gradient the card sums with atomics in the
+# gathers' backward (GRAD_NORM_RTOL's comment): within MESH_STEP2_RTOL
+# (measured 2.7e-5 to 1.6e-4 over four runs).  From step 3 on, lr 1e-2 on
+# weights of scale 2048^-1/2 moves the loss by up to 85% a step, and two
+# runs of 14a itself differ by up to 4.8% at step 4 (206.1 to 216.0 over
+# seven runs of either path): steps 3-5 within MESH_LATE_RTOL, a check
+# that the mesh trains like the plain path, not that it equals it
+MESH_STEP2_RTOL = 1e-3
+MESH_LATE_RTOL = 0.15
+# 15c: three production cells of the dry-run, each in its own process
+# (the fake process group of 256 or 512 ranks is process-global state)
+DRYRUN_CELLS = (("qwen2-moe-a2.7b", "train_4k", "single"),
+                ("phi4-mini-3.8b", "decode_32k", "single"),
+                ("zamba2-7b", "long_500k", "multi"))
+DRYRUN_TIMEOUT_S = 300
+# the card cell's matmul FLOPs (the trace on a (1, 1) mesh) against
+# FlopCounterMode over one real 14a step: the same formulas on the same
+# products, so equal up to MATMUL_FLOPS_RTOL
+MATMUL_FLOPS_RTOL = 1e-2
+# the card cell: slice 14a's step traced on a (1, 1) mesh of a fake group
+_CARD_CELL = r"""
+import dataclasses, json, sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs.registry import get_config
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_process_group
+arch, layers, batch, seq = sys.argv[1], *map(int, sys.argv[2:5])
+cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+with fake_process_group(1):
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    rec = dryrun.record(cfg, ShapeSpec("card_14a", seq, batch, "train"), mesh)
+print(json.dumps(rec))
+"""
+
+
+def _card_mesh():
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+
+
+def train_on_mesh(cfg, mesh, dev) -> dict:
+    """Slice 15a's path: slice 14a's ``train()`` call with ``mesh=``."""
+    from repro_torch.launch.train import train
+
+    marks = []
+
+    def step_log(msg: str) -> None:
+        if msg.startswith("step"):
+            marks.append(time.perf_counter())
+        log(f"train on the mesh: {msg}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, losses = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                          seq=TRAIN_SEQ, peak_lr=TRAIN_LR, seed=SEED,
+                          log_every=1, log=step_log, device=dev, mesh=mesh)
+    steps_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    return {"state": state, "losses": losses, "steps_ms": steps_ms,
+            "first_s": marks[0] - t0,
+            "peak": torch.cuda.max_memory_allocated(dev)}
+
+
+def mesh_train_check(cfg, run: dict, plain: dict) -> dict:
+    """After 15a: steps 0-1's losses 14a's bit for bit, step 2 within
+    MESH_STEP2_RTOL, steps 3-5 within MESH_LATE_RTOL, every parameter a
+    DTensor in ``cfg.dtype``; the step ms beside 14a's from the same
+    script."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_leaves
+
+    losses, want = run["losses"], plain["losses"]
+    if losses[:2] != want[:2]:
+        raise AssertionError(f"15a: steps 0-1's losses {losses[:2]!r} on "
+                             f"the mesh, {want[:2]!r} in 14a")
+    rel2 = abs(losses[2] - want[2]) / abs(want[2])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[3:], want[3:]))
+    if not (rel2 <= MESH_STEP2_RTOL and rel <= MESH_LATE_RTOL):
+        raise AssertionError(f"15a: losses {losses} on the mesh against "
+                             f"14a's {want}: step 2 {rel2:.3g}, steps 3-5 "
+                             f"{rel:.3g}")
+    leaves = tree_leaves(run.pop("state")["params"])
+    if not all(isinstance(t, DTensor) and t.dtype == cfg.dtype
+               for t in leaves):
+        raise AssertionError("15a: a parameter is not a DTensor in "
+                             f"{cfg.dtype} after training")
+    step_ms = sorted(run["steps_ms"])[len(run["steps_ms"]) // 2]
+    log(f"model {cfg.name} trained on a (1, 1) card mesh (train(mesh=), "
+        f"the train rules, every gradient redistributed to its "
+        f"parameter's placements): losses {[round(x, 4) for x in losses]} "
+        f"against 14a's {[round(x, 4) for x in want]}, steps 0-1 bit for "
+        f"bit, step 2 within {rel2:.3g} (limit {MESH_STEP2_RTOL}), steps "
+        f"3-{TRAIN_STEPS - 1} within {rel:.3g} (limit {MESH_LATE_RTOL}); "
+        f"steps 1-{TRAIN_STEPS - 1} "
+        f"{[round(x, 3) for x in run['steps_ms']]} ms, median "
+        f"{step_ms:.3f} ms against 14a's {plain['step_ms']:.3f} "
+        f"({step_ms / plain['step_ms']:.3f}x); peak {_gib(run['peak'])}")
+    return {"step_ms": step_ms, "rel2": rel2, "rel": rel}
+
+
+def dtensor_loss_path(cfg, mesh, dev) -> dict:
+    """Slice 15b's path: the 4-layer weights placed on the card mesh by
+    ``reshard_state`` under the train rules, ``lm_loss`` of 14a's step-0
+    batch on them (no gradient: one dispatch a layer, through the assemble
+    op's sharding rule)."""
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.launch.mesh import rules_for_cell
+    from repro_torch.models.transformer import init_lm, lm_loss, lm_specs
+    from repro_torch.runtime import sharding as shard_lib
+    from repro_torch.runtime.elastic import reshard_state
+
+    rules = rules_for_cell("train")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                     device=dev)
+    batch = to_device(SyntheticLM(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                  SEED).batch_at(0), dev)
+    placed = reshard_state(params, lm_specs(cfg), mesh, rules)
+    with torch.no_grad(), shard_lib.use_rules(mesh, rules):
+        split = shard_lib.placements_of(shard_lib.spec_of(("batch", None)),
+                                        mesh)
+        toks, labels = (shard_lib.distribute(batch[k], mesh, split)
+                        for k in ("tokens", "labels"))
+        loss, _ = lm_loss(cfg, placed, toks, labels)
+        loss = loss.full_tensor()
+    torch.cuda.synchronize(dev)
+    return {"params": params, "placed": placed, "batch": batch,
+            "loss": loss}
+
+
+def dtensor_check(cfg, out: dict, mesh, ckpt_dir: str) -> None:
+    """After 15b: the DTensor loss equal, bit for bit, to the plain
+    forward's on the same weights (the same local products on the same
+    data: no redistribution moves a value on a (1, 1) mesh); the placed
+    weights back whole bit for bit, and placed again from them bit for
+    bit; 14b's last checkpoint restored onto the mesh with its spec tree
+    bit for bit."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint.manager import CheckpointManager, _flatten
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.launch.mesh import rules_for_cell
+    from repro_torch.models.transformer import lm_loss, lm_specs
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.runtime.step import state_specs
+    from repro_torch.tree import tree_leaves
+
+    with torch.no_grad():
+        plain, _ = lm_loss(cfg, out["params"], out["batch"]["tokens"],
+                           out["batch"]["labels"])
+    require_equal(out["loss"], plain, "15b: the DTensor loss against the "
+                  "plain forward's")
+    rules = rules_for_cell("train")
+    back = [t.full_tensor() for t in tree_leaves(out["placed"])]
+    for a, b in zip(back, tree_leaves(out["params"])):
+        require_equal(a, b, "15b: a weight placed on the mesh and back")
+    again = reshard_state(out["placed"], lm_specs(cfg), mesh, rules)
+    for a, b in zip(tree_leaves(again), tree_leaves(out["params"])):
+        require_equal(a.full_tensor(), b, "15b: a weight placed twice")
+    smoke = get_smoke(TRAIN_ARCH)
+    mgr = CheckpointManager(ckpt_dir)
+    whole, step = mgr.restore(device=mesh.device_type)
+    onto, _ = mgr.restore(device=mesh.device_type, mesh=mesh, spec_tree=
+                          state_specs(lm_specs(smoke), compress=True),
+                          rules=rules)
+    flat, want = _flatten(onto), _flatten(whole)
+    if flat.keys() != want.keys() or not all(
+            isinstance(v, DTensor) for v in flat.values()):
+        raise AssertionError("15b: the checkpoint restored onto the mesh "
+                             "is not a tree of DTensors like the saved one")
+    for k in want:
+        require_equal(flat[k].full_tensor(), want[k],
+                      f"15b: checkpoint leaf {k}")
+    log(f"model {cfg.name} on a (1, 1) card mesh: lm_loss on DTensor "
+        f"weights {float(out['loss'])!r}, the plain forward's bit for bit; "
+        f"the weights placed and back, and placed again, bit for bit; "
+        f"14b's checkpoint at step {step} restored onto the mesh with its "
+        f"spec tree ({len(flat)} leaves, every one a DTensor) bit for bit")
+
+
+def dryrun_cells(card: str) -> list[dict]:
+    """Slice 15c: each of DRYRUN_CELLS through ``python -m
+    repro_torch.launch.dryrun`` in its own process (a fake group of 256 or
+    512 ranks, the step traced on meta shards); each record printed,
+    FLOPs and bytes > 0, and the train cell's collectives > 0."""
+    import os
+    import tempfile
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    recs = []
+    with tempfile.TemporaryDirectory() as out:
+        for arch, shape, mesh in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", mesh, "--out", out],
+                env=env, capture_output=True, text=True,
+                timeout=DRYRUN_TIMEOUT_S)
+            tail = proc.stdout.strip().splitlines()[-1:]
+            if proc.returncode != 0:
+                raise AssertionError(f"15c: {arch} {shape} {mesh}: exit "
+                                     f"{proc.returncode} {tail} "
+                                     f"{proc.stderr[-2000:]}")
+            with open(Path(out) / f"{arch}__{shape}__{mesh}.json") as f:
+                rec = json.load(f)
+            if not (rec["flops_per_device"] > 0 and
+                    rec["bytes_per_device"] > 0):
+                raise AssertionError(f"15c: {arch} {shape}: {rec}")
+            if shape == "train_4k" and not rec[
+                    "collective_bytes_per_device"] > 0:
+                raise AssertionError(f"15c: {arch} {shape} moves no "
+                                     f"collective bytes")
+            log(f"dry-run {arch} {shape} {mesh} "
+                f"({time.perf_counter() - t0:.1f} s with its process; "
+                f"constants of {card}): {json.dumps(rec)}")
+            recs.append(rec)
+    return recs
+
+
+def card_cell_check(cfg, plain: dict, dev) -> dict:
+    """Slice 15c's card cell: 14a's step traced on a (1, 1) mesh in its
+    own process; its matmul FLOPs against FlopCounterMode over one real
+    14a step on the card, within MATMUL_FLOPS_RTOL; its step-time bound
+    beside 14a's measured step."""
+    import os
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.runtime.step import init_train_state, make_train_step
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-c", _CARD_CELL, TRAIN_ARCH, str(cfg.n_layers),
+         str(TRAIN_BATCH), str(TRAIN_SEQ)], env=env, capture_output=True,
+        text=True, timeout=DRYRUN_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"15c card cell: exit {proc.returncode} "
+                             f"{proc.stderr[-2000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), device=dev)
+    batch = to_device(SyntheticLM(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                  SEED).batch_at(0), dev)
+    step = make_train_step(cfg, peak_lr=TRAIN_LR,
+                           warmup=max(TRAIN_STEPS // 10, 1),
+                           total=TRAIN_STEPS)
+    with FlopCounterMode(display=False) as counter:
+        step(state, batch)
+    torch.cuda.synchronize(dev)
+    del state
+    torch.cuda.empty_cache()
+    real = counter.get_total_flops()
+    rel = abs(rec["matmul_flops"] - real) / real
+    if not rel <= MATMUL_FLOPS_RTOL:
+        raise AssertionError(f"15c card cell: matmul FLOPs "
+                             f"{rec['matmul_flops']} traced, {real} on the "
+                             f"card: {rel:.3g}")
+    bound_ms = rec["step_time_bound_s"] * 1e3
+    log(f"dry-run card cell ({cfg.name}, {cfg.n_layers} layers, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, a (1, 1) mesh): matmul FLOPs "
+        f"{rec['matmul_flops']:.6g} traced against {real:.6g} by "
+        f"FlopCounterMode over one real step ({rel:.3g}, limit "
+        f"{MATMUL_FLOPS_RTOL}); flops {rec['flops_per_device']:.6g}, bytes "
+        f"{rec['bytes_per_device']:.6g}, peak "
+        f"{_gib(rec['memory_analysis']['peak_bytes'])} traced; terms "
+        f"compute {rec['compute_s'] * 1e3:.3f} / memory "
+        f"{rec['memory_s'] * 1e3:.3f} / collective "
+        f"{rec['collective_s'] * 1e3:.3f} ms, dominant {rec['dominant']}; "
+        f"step-time bound {bound_ms:.3f} ms against 14a's measured "
+        f"{plain['step_ms']:.3f} ms ({bound_ms / plain['step_ms']:.3f})")
+    return {"rec": rec, "real": real}
+
+
 KERNELS = {  # slice -> the kernels its path must launch
     1: ("tm_affine_block", "tm_affine_gather", "rme_evaluate"),
     2: ("tm_chain", "rme_evaluate_chained", "rme_assemble"),
@@ -2898,6 +3204,10 @@ KERNELS = {  # slice -> the kernels its path must launch
     # the reference trains, and its MoE dispatch on the assemble kernel
     "14a": ("rme_assemble",),
     "14b": ("rme_assemble",),
+    # slice 15 ports no kernel: the train path on a mesh and the loss on
+    # DTensor weights reach the assemble kernel through its sharding rule
+    "15a": ("rme_assemble",),
+    "15b": ("rme_assemble",),
 }
 
 
@@ -3091,10 +3401,48 @@ def main() -> int:
     if counts14a != want:
         raise AssertionError(f"slice 14a launches {counts14a}, expected "
                              f"{want}")
-    train_check(train_cfg, run, card, dev)
+    plain14a = {"losses": list(run["losses"])}
+    plain14a.update(train_check(train_cfg, run, card, dev))
     del run
-    _, counts14b = run_path("14b", lambda: train_checkpoint_path(dev))
+    ckpt14b = tempfile.TemporaryDirectory()
+    _, counts14b = run_path("14b", lambda: train_checkpoint_path(
+        dev, ckpt14b.name))
     log(f"slice 14: {time.perf_counter() - t14:.1f} s with its checks")
+
+    # slice 15: a one-rank NCCL group for the (1, 1) card mesh; the
+    # dry-run's fake groups live in processes of their own
+    gc.collect()
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    from repro_torch.launch.mesh import card_process_group
+    with card_process_group():
+        mesh = _card_mesh()
+        run, counts15a = run_path("15a", lambda: train_on_mesh(
+            train_cfg, mesh, dev))
+        want = {k: 0 for k in counts15a}
+        want["rme_assemble"] = TRAIN_STEPS * train_cfg.n_layers * 2
+        if counts15a != want:
+            raise AssertionError(f"slice 15a launches {counts15a}, expected "
+                                 f"{want}")
+        mesh_train_check(train_cfg, run, plain14a)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        out15b, counts15b = run_path("15b", lambda: dtensor_loss_path(
+            train_cfg, mesh, dev))
+        want = {k: 0 for k in counts15b}
+        want["rme_assemble"] = train_cfg.n_layers
+        if counts15b != want:
+            raise AssertionError(f"slice 15b launches {counts15b}, expected "
+                                 f"{want}")
+        dtensor_check(train_cfg, out15b, mesh, ckpt14b.name)
+        del out15b
+    ckpt14b.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_cells(card)
+    card_cell_check(train_cfg, plain14a, dev)
+    log(f"slice 15: {time.perf_counter() - t15:.1f} s with its checks")
     if (n_unf, n_chn, n_convs) != (8, 4, 144):
         raise AssertionError(f"TM launches per forward {n_unf} unfused, "
                              f"{n_chn} chained, EDSR conv launches "
@@ -3102,7 +3450,7 @@ def main() -> int:
     by_slice = {1: counts1, 2: counts2, 3: counts3, 4: counts4, 5: counts5,
                 11: counts11, "12a": counts12a, "12b": counts12b,
                 "13a": counts13a, "13b": counts13b, "14a": counts14a,
-                "14b": counts14b}
+                "14b": counts14b, "15a": counts15a, "15b": counts15b}
     # each kernel's launches from the path of the slice that ported it
     counts: dict[str, int] = {}
     for s_no, names in KERNELS.items():

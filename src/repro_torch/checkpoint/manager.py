@@ -11,7 +11,10 @@ directory written by either package restores in the other.
     the file I/O to a background thread; training goes on at once.  An
     error in the writer is raised at the next ``wait()``.
   * **placement** — ``restore(..., device=)`` puts every leaf on
-    ``device`` (the JAX package's ``shardings=``).
+    ``device``; with ``mesh=`` and ``spec_tree=`` (the JAX package's
+    ``shardings=``) each leaf the spec tree names is then placed onto the
+    mesh as a DTensor, the elastic-restart path.  A DTensor leaf is saved
+    whole (``full_tensor``).
   * **retention** — keeps the last ``keep`` checkpoints, deletes older.
 
 bf16 has no numpy dtype.  A bf16 leaf is written as its 16-bit patterns
@@ -31,20 +34,25 @@ import threading
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.executor import resolve_device
+from repro_torch.runtime.sharding import (distribute, is_placements,
+                                           tree_sharding)
 
 _BF16_DESCR = "<V2"
 
 
-def _flatten(tree, prefix=""):
+def _flatten(tree, prefix="", is_leaf=lambda t: False):
     out = {}
-    if isinstance(tree, dict):
+    if is_leaf(tree):
+        out[prefix[:-1]] = tree
+    elif isinstance(tree, dict):
         for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}{k}/"))
+            out.update(_flatten(v, f"{prefix}{k}/", is_leaf))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            out.update(_flatten(v, f"{prefix}{i}/"))
+            out.update(_flatten(v, f"{prefix}{i}/", is_leaf))
     else:
         out[prefix[:-1]] = tree
     return out
@@ -64,6 +72,8 @@ def _unflatten(flat: dict):
 def _host(v) -> torch.Tensor | np.ndarray:
     """A snapshot of a leaf on the host: a copy, since training goes on
     updating its tensors in place."""
+    if isinstance(v, DTensor):
+        v = v.full_tensor()
     if isinstance(v, torch.Tensor):
         return v.detach().to("cpu", copy=True)
     return np.array(v)
@@ -165,10 +175,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int | None = None, *, device=None):
+    def restore(self, step: int | None = None, *, device=None, mesh=None,
+                spec_tree=None, rules: dict | None = None):
         """Load a checkpoint (the latest if ``step`` is None) as a tree of
-        tensors on ``device`` (None means the card).  Returns ``(tree,
-        step)``; lists come back as index-keyed dicts."""
+        tensors on ``device`` (None means the card).  With ``mesh`` and
+        ``spec_tree``, each leaf whose path the spec tree names is placed
+        onto the *current* mesh with the placements its logical axes take
+        under ``rules`` (``runtime.sharding.tree_sharding``).  Returns
+        ``(tree, step)``; lists come back as index-keyed dicts."""
         self.wait()
         dev = resolve_device(device)
         if step is None:
@@ -180,4 +194,10 @@ class CheckpointManager:
             manifest = json.load(f)
         flat = {k: _load(os.path.join(d, fname)).to(dev)
                 for k, fname in manifest["arrays"].items()}
+        if mesh is not None:
+            placements = _flatten(tree_sharding(spec_tree, mesh, rules),
+                                  is_leaf=is_placements)
+            for k, pl in placements.items():
+                if k in flat:
+                    flat[k] = distribute(flat[k], mesh, pl)
         return _unflatten(flat), step

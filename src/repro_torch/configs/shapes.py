@@ -50,14 +50,22 @@ def _embeds_input(cfg: ModelConfig, B: int, S: int):
     return _abstract((B, S, cfg.d_model), cfg.dtype)
 
 
-def input_specs(cfg: ModelConfig, shape: str, *, scale: float = 1.0) -> dict:
+def shape_spec(shape: str | ShapeSpec) -> ShapeSpec:
+    """A shape's name -> its :class:`ShapeSpec`; a ShapeSpec as it is (a
+    cell at another batch and length than the four, such as a run on one
+    card)."""
+    return shape if isinstance(shape, ShapeSpec) else SHAPES[shape]
+
+
+def input_specs(cfg: ModelConfig, shape: str | ShapeSpec, *,
+                scale: float = 1.0) -> dict:
     """Meta-tensor stand-ins for every input of the cell's step function.
 
     ``scale`` < 1 shrinks batch/seq for reduced test runs.  Training
     inputs are (tokens, labels), or (embeds, labels) for the stub-frontend
     archs; serving inputs add caches/states.
     """
-    sp = SHAPES[shape]
+    sp = shape_spec(shape)
     B = max(1, int(sp.global_batch * scale))
     S = max(128, int(sp.seq_len * scale)) if sp.seq_len > 128 else sp.seq_len
     i32 = torch.int32

@@ -23,6 +23,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 
 # --------------------------------------------------------------------------
@@ -211,9 +212,13 @@ def dispatch_tokens(expert_of: torch.Tensor, num_experts: int,
 
     CPU tensor: :func:`dispatch_tokens_plain`.  CUDA tensor:
     :func:`dispatch_tokens_assembled`, one launch of the RME assemble
-    kernel (or an exception)."""
+    kernel (or an exception).  A DTensor (a model under a mesh) takes the
+    assembled form on either device: the assemble op's sharding rule keeps
+    the dispatch local to each rank's sequences, and on the CPU the op runs
+    its plain version, whose tables equal the plain dispatch's."""
     batched = expert_of[None] if expert_of.ndim == 1 else expert_of
-    form = dispatch_tokens_plain if expert_of.is_cpu \
+    form = dispatch_tokens_plain \
+        if expert_of.is_cpu and not isinstance(expert_of, DTensor) \
         else dispatch_tokens_assembled
     idx, counts = form(batched, num_experts, capacity)
     return (idx[0], counts[0]) if expert_of.ndim == 1 else (idx, counts)

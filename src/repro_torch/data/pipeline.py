@@ -90,3 +90,11 @@ class PrefetchPipeline:
     def close(self):
         self._stop.set()
         self._thread.join(timeout=2.0)
+
+
+def make_batch_specs(batch: int, seq: int) -> dict:
+    """Stand-ins for a training batch (dry-run inputs): tensors on the
+    ``meta`` device, which carry a shape and a dtype and are never
+    allocated."""
+    return {name: torch.empty((batch, seq), dtype=torch.int32, device="meta")
+            for name in ("tokens", "labels")}

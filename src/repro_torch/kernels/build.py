@@ -31,6 +31,8 @@ import time
 from pathlib import Path
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -190,3 +192,13 @@ def check(rc: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def through_op(*tensors: torch.Tensor) -> bool:
+    """Whether a kernel wrapper whose kernel is a custom op sends its
+    operands through the op: when any is a DTensor (a model under a mesh:
+    the op's sharding rule then runs it on each rank's shards) or a fake
+    tensor (a trace under FakeTensorMode: the op's fake gives the shapes).
+    Plain tensors skip the dispatcher: the plain version on the CPU, the
+    launch on any other device, which raises unless it is the card."""
+    return any(isinstance(t, (DTensor, FakeTensor)) for t in tensors)

@@ -17,6 +17,12 @@ layer of the stacked KV cache is passed as it lies.
 
 Each wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor, or raises; ``launches`` counts wrapper calls that launched.
+Each is also a custom op (:func:`prefill_op`, :func:`decode_op`: the
+plain version on the CPU, the kernel on the card, shapes on the meta
+device, a FLOP formula and a DTensor sharding rule), which the wrappers
+call for DTensors and fake tensors, so a model under a mesh, or under
+FakeTensorMode, runs and traces through them; plain tensors skip the
+dispatcher.
 
 The prefill kernel is chosen by the element type alone, never by a
 failure: bf16 runs ``fwd_tc_kernel`` on the tensor cores (wgmma, its tiles
@@ -35,6 +41,9 @@ import functools
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
@@ -134,13 +143,9 @@ def decode_plan(B: int, T: int, H: int, KV: int, device: torch.device,
     return decode_split(T, B * KV * -(-(H // KV) // chunk), _sm_count(index))
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: float | None = None) -> torch.Tensor:
-    """Attention of q over k, v; out has q's shape and dtype.  CPU tensors:
-    the plain version; CUDA tensors: the kernel, or an exception."""
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, scale=scale)
+def _prefill_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, scale: float | None) -> torch.Tensor:
+    """One launch of the prefill kernel, or an exception."""
     lib = build.library("flash_attention")  # a kernel that cannot be built raises
     q4, k4, v4, flat = _operands("flash_attention", q, k, v)
     B, S, H, D = q4.shape
@@ -164,15 +169,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[:, :, 0] if flat else out
 
 
-def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 length, *, scale: float | None = None) -> torch.Tensor:
-    """One query per head (q ``(BH, 1, D)`` or ``(B, 1, H, D)``) against the
-    cache rows ``< length`` of k, v.  ``length`` is an int or an integer
-    tensor of one element; on the card a tensor is read by the kernel, so
-    the host never waits for it.  CPU tensors: the plain version; CUDA
-    tensors: the kernel, or an exception."""
-    if q.device.type == "cpu":
-        return decode_ref(q, k, v, length, scale=scale)
+def _decode_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   length, scale: float | None) -> torch.Tensor:
+    """One decode launch (its split and combine kernels), or an
+    exception."""
     lib = build.library("flash_attention")  # a kernel that cannot be built raises
     q4, k4, v4, flat = _operands("flash_decode", q, k, v)
     B, S, H, D = q4.shape
@@ -203,6 +203,122 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(rc, "flash_decode")
     flash_decode.launches += 1
     return out[:, :, 0] if flat else out
+
+
+
+
+# The custom ops ``repro_torch::flash_attention`` and
+# ``repro_torch::flash_decode``: the plain version on the CPU, the kernel on
+# the card, shapes alone on the meta device (fake tensors, the dry-run's
+# trace), a FLOP formula for FlopCounterMode and a DTensor sharding rule.
+# The wrappers below call them for DTensors and fake tensors only.
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def prefill_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, scale: float | None) -> torch.Tensor:
+    return attention_ref(q, k, v, causal=causal, scale=scale)
+
+
+prefill_op.register_kernel("cuda")(_prefill_launch)
+
+
+@prefill_op.register_fake
+def _(q, k, v, causal, scale):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("repro_torch::flash_decode", mutates_args=(),
+                         device_types="cpu")
+def decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              length: torch.Tensor, scale: float | None) -> torch.Tensor:
+    return decode_ref(q, k, v, length, scale=scale)
+
+
+decode_op.register_kernel("cuda")(_decode_launch)
+
+
+@decode_op.register_fake
+def _(q, k, v, length, scale):
+    return q.new_empty(q.shape)
+
+
+def _attention_flops(q_shape, k_shape) -> int:
+    """Both products, QK^T and PV, over every key (the causal mask's skip
+    uncounted, as FlopCounterMode counts ``scaled_dot_product_attention``):
+    4 x query rows x heads x keys x head dim."""
+    H = q_shape[2] if len(q_shape) == 4 else 1
+    return 4 * q_shape[0] * H * q_shape[1] * k_shape[1] * q_shape[-1]
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
+    return _attention_flops(q_shape, k_shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode)
+def _(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
+    return _attention_flops(q_shape, k_shape)
+
+
+def _attention_shardings(q, k, extra: list) -> list:
+    """Per mesh dim: replicated, or local to each rank's batch rows (dim
+    0), or, in the model layout, to its heads (dim 2) where q's and k's
+    heads are sharded alike and every rank's query heads read its own KV
+    heads: only when the KV heads divide evenly over the whole mesh, since
+    the heads may be sharded over more than one mesh dim.  Heads sharded
+    unevenly would map query heads to the wrong KV groups."""
+    out = [([Replicate()], [Replicate()] * 3 + extra),
+           ([Shard(0)], [Shard(0)] * 3 + extra)]
+    if q.ndim == 4 and k.shape[2] % q.mesh.size() == 0:
+        out.append(([Shard(2)], [Shard(2)] * 3 + extra))
+    return out
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention.default)
+def _(q, k, v, causal, scale):
+    return _attention_shardings(q, k, [None, None])
+
+
+@register_sharding(torch.ops.repro_torch.flash_decode.default)
+def _(q, k, v, length, scale):
+    return _attention_shardings(q, k, [Replicate(), None])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention of q over k, v; out has q's shape and dtype.  CPU tensors:
+    the plain version; CUDA tensors: the kernel, or an exception;
+    DTensors and fake tensors: :func:`prefill_op` (its sharding rule, its
+    fake)."""
+    if build.through_op(q, k, v):
+        return prefill_op(q, k, v, causal, scale)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, scale=scale)
+    return _prefill_launch(q, k, v, causal, scale)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 length, *, scale: float | None = None) -> torch.Tensor:
+    """One query per head (q ``(BH, 1, D)`` or ``(B, 1, H, D)``) against the
+    cache rows ``< length`` of k, v.  ``length`` is an int or an integer
+    tensor of one element; on the card a tensor is read by the kernel, so
+    the host never waits for it.  CPU tensors: the plain version; CUDA
+    tensors: the kernel, or an exception; DTensors and fake tensors:
+    :func:`decode_op` (its sharding rule, its fake; the length as a
+    tensor)."""
+    if not build.through_op(q, k, v):
+        if q.device.type == "cpu":
+            return decode_ref(q, k, v, length, scale=scale)
+        return _decode_launch(q, k, v, length, scale)
+    if not isinstance(length, torch.Tensor):
+        # any length <= 0 masks all rows alike, any >= T none
+        length = torch.full((1,), max(-1, min(int(length), k.shape[1])),
+                            dtype=torch.int32, device=q.device)
+    if isinstance(q, DTensor) and not isinstance(length, DTensor):
+        length = DTensor.from_local(length, q.device_mesh, [Replicate()] *
+                                    q.device_mesh.ndim, run_check=False)
+    return decode_op(q, k, v, length, scale)
 
 
 flash_attention.launches = 0

@@ -29,9 +29,13 @@ import ctypes
 import functools
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core.rme import predicate, promoted_threshold
 from repro_torch.kernels import build
+from repro_torch.kernels.build import through_op
 from repro_torch.kernels.tm_affine.tm_affine import _fill_bits
 
 DTYPE_CODES = {torch.int8: 0, torch.int32: 1, torch.bfloat16: 2,
@@ -304,15 +308,9 @@ def _assemble_args(shape: tuple, dtype: torch.dtype, capacity: int) -> tuple:
     return _ctyped("rme_assemble", 5, (DTYPE_CODES[dtype], *shape, capacity))
 
 
-def rme_assemble(x: torch.Tensor, mask: torch.Tensor, capacity: int,
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Assemble ``(B, N, D)`` record streams under a ``(B, N)`` runtime mask
-    (see :func:`assemble_plain`).  The kernel reads a bool or int32 mask; a
-    mask of another dtype is cast to int32 first, as the JAX package casts
-    it.  CPU tensor: the plain version; CUDA tensor: the kernel, or an
-    exception."""
-    if x.is_cpu:
-        return assemble_plain(x, mask, capacity)
+def _assemble_launch(x: torch.Tensor, mask: torch.Tensor, capacity: int,
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the assemble kernel, or an exception."""
     lib = build.library("rme_gather")
     _check_records("rme_assemble", x, capacity)
     args = _assemble_args(tuple(x.shape), x.dtype, capacity)
@@ -337,6 +335,56 @@ def rme_assemble(x: torch.Tensor, mask: torch.Tensor, capacity: int,
     build.check(rc, "rme_assemble")
     rme_assemble.launches += 1
     return rows, cnt
+
+
+# The custom op ``repro_torch::rme_assemble``: the plain version on the CPU,
+# the kernel on the card, shapes alone on the meta device (fake tensors, the
+# dry-run's trace), and a DTensor sharding rule, so that a model under a
+# mesh dispatches through it.  Plain tensors skip the dispatcher
+# (:func:`rme_assemble`).
+@torch.library.custom_op("repro_torch::rme_assemble", mutates_args=(),
+                         device_types="cpu")
+def assemble_op(x: torch.Tensor, mask: torch.Tensor, capacity: int,
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    return assemble_plain(x, mask, capacity)
+
+
+assemble_op.register_kernel("cuda")(_assemble_launch)
+
+
+@assemble_op.register_fake
+def _(x, mask, capacity):
+    B, _, d = x.shape
+    return x.new_empty((B, capacity, d)), x.new_empty((B,), dtype=torch.int32)
+
+
+@register_flop_formula(torch.ops.repro_torch.rme_assemble)
+def _(*args, **kwargs) -> int:
+    # a compaction does no multiply-add; FlopCounterMode counts those only
+    return 0
+
+
+@register_sharding(torch.ops.repro_torch.rme_assemble.default)
+def _(x, mask, capacity):
+    """Streams are compacted one by one: local to each rank's streams (dim
+    0), or replicated."""
+    return [([Replicate(), Replicate()], [Replicate(), Replicate(), None]),
+            ([Shard(0), Shard(0)], [Shard(0), Shard(0), None])]
+
+
+def rme_assemble(x: torch.Tensor, mask: torch.Tensor, capacity: int,
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Assemble ``(B, N, D)`` record streams under a ``(B, N)`` runtime mask
+    (see :func:`assemble_plain`).  The kernel reads a bool or int32 mask; a
+    mask of another dtype is cast to int32 first, as the JAX package casts
+    it.  CPU tensor: the plain version; CUDA tensor: the kernel, or an
+    exception; a DTensor or a fake tensor: :func:`assemble_op` (its
+    sharding rule, its fake)."""
+    if through_op(x, mask):
+        return assemble_op(x, mask, capacity)
+    if x.is_cpu:
+        return assemble_plain(x, mask, capacity)
+    return _assemble_launch(x, mask, capacity)
 
 
 rme_assemble.launches = 0

@@ -19,27 +19,48 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.registry import get_config, get_smoke, list_archs
 from repro_torch.core.executor import resolve_device
 from repro_torch.data.pipeline import PrefetchPipeline, SyntheticLM
+from repro_torch.launch.mesh import rules_for_cell
+from repro_torch.models.transformer import init_lm, lm_specs
+from repro_torch.runtime import sharding as shard_lib
+from repro_torch.runtime.elastic import reshard_state
 from repro_torch.runtime.fault_tolerance import Heartbeat, StragglerDetector
-from repro_torch.runtime.step import init_train_state, make_train_step
+from repro_torch.runtime.step import (init_train_state, make_train_step,
+                                      state_specs, train_state_of)
 
 
 def train(cfg, *, steps=50, batch=8, seq=64, ckpt_dir=None, ckpt_every=25,
-          peak_lr=1e-2, compress=False, log_every=10, seed=0, log=print,
-          device=None):
+          peak_lr=1e-2, compress=False, mesh=None, log_every=10, seed=0,
+          log=print, device=None):
     """Train ``cfg`` from weights drawn with ``seed`` (or from the latest
     checkpoint in ``ckpt_dir``) up to ``steps`` on ``SyntheticLM``
-    batches, on ``device`` (None means the card).  Returns ``(state,
-    losses)``, one loss for each step this call ran."""
+    batches, on ``device`` (None means the card).  With ``mesh`` (a
+    DeviceMesh over the process group the caller set up) the state is
+    placed onto it by the train rules (``rules_for_cell("train")``), each
+    batch is split over its batch axes and the step runs under those
+    rules.  Returns ``(state, losses)``, one loss for each step this call
+    ran."""
     dev = resolve_device(device)
-    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(
-        seed), compress=compress, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     step_fn = make_train_step(cfg, peak_lr=peak_lr, warmup=max(steps // 10, 1),
                               total=steps, compress=compress)
+    place = {}
+    if mesh is None:
+        state = init_train_state(cfg, gen, compress=compress, device=dev)
+    else:
+        rules = rules_for_cell("train")
+        place = dict(mesh=mesh, spec_tree=state_specs(
+            lm_specs(cfg), compress=compress), rules=rules)
+        # the weights onto the mesh first, the optimizer state made from
+        # them: no rank ever holds the whole state
+        state = train_state_of(reshard_state(
+            init_lm(cfg, gen, device=dev), lm_specs(cfg), mesh, rules),
+            compress=compress)
+        step_fn = _on_mesh(step_fn, mesh, rules)
 
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start = 0
     if mgr and mgr.latest_step() is not None:
-        state, start = mgr.restore(device=dev)
+        state, start = mgr.restore(device=dev, **place)
         log(f"[restore] resumed from step {start}")
 
     src = SyntheticLM(vocab=cfg.vocab, batch=batch, seq=seq, seed=seed)
@@ -68,6 +89,19 @@ def train(cfg, *, steps=50, batch=8, seq=64, ckpt_dir=None, ckpt_every=25,
     finally:
         pipe.close()
     return state, losses
+
+
+def _on_mesh(step_fn, mesh, rules):
+    """``step_fn`` under ``use_rules(mesh, rules)``, its batch split over
+    the batch axes first (the JAX package's batch in-shardings)."""
+    def step(state, batch):
+        with shard_lib.use_rules(mesh, rules):
+            batch = {k: shard_lib.distribute(v, mesh, shard_lib.placements_of(
+                shard_lib.spec_of(("batch",) + (None,) * (v.ndim - 1)),
+                mesh)) for k, v in batch.items()}
+            return step_fn(state, batch)
+
+    return step
 
 
 def main(argv=None):

@@ -31,6 +31,7 @@ from repro_torch.core.executor import resolve_device
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention, flash_decode)
 from repro_torch.models.layers import _norm_init, apply_rope
+from repro_torch.runtime.sharding import resolves_to, shard, whole_seq
 
 NEG_INF = -1e30
 ATTENTION = ("flash", "plain")
@@ -45,10 +46,14 @@ def init_attention(gen, d_model: int, n_heads: int, n_kv: int, head_dim: int,
     return {"wqkv": wqkv, "wo": wo}
 
 
+ATTENTION_SPECS = {"wqkv": ("embed_fsdp", "heads"),
+                   "wo": ("heads", "embed_fsdp")}
+
+
 def qkv_split(p, x, n_heads: int, n_kv: int, head_dim: int):
     """Fused projection + TM Split + head-layout reshape: q, k, v are views
     of the one product (B, S, (H + 2 KV) Hd)."""
-    qkv = x @ p["wqkv"]
+    qkv = shard(whole_seq(x) @ p["wqkv"], ("batch", None, "heads"))
     B, S, _ = qkv.shape
     q_end = n_heads * head_dim
     k_end = q_end + n_kv * head_dim
@@ -217,10 +222,18 @@ def attention_block(p, x, inv_freq, *, n_heads: int, n_kv: int,
         if S == 1:
             kv_len = cache_index + S
             ck, cv = new_cache["k"], new_cache["v"]
+            # decode only, where the rules put the cache rows over "model"
+            # (the JAX package's constraint against the propagator losing
+            # the cache's batch sharding through the band write)
+            if resolves_to("kv_seq", "model"):
+                cache_axes = ("batch", "kv_seq", "kv_heads", None)
+                ck, cv = shard(ck, cache_axes), shard(cv, cache_axes)
+                new_cache = {"k": ck, "v": cv}
             out = (flash_decode(q, ck, cv, kv_len) if flash
                    else full_attention(q, ck, cv, causal=False,
                                        kv_len=kv_len))
-            return out.reshape(B, S, n_heads * head_dim) @ p["wo"], new_cache
+            return _out_proj(p, out.reshape(B, S, n_heads * head_dim)), \
+                new_cache
         # prefill: causal within the fresh segment (the cache is empty
         # before cache_index == 0)
     if flash:
@@ -231,7 +244,15 @@ def attention_block(p, x, inv_freq, *, n_heads: int, n_kv: int,
         out = chunked_attention(q, k, v, causal=causal, chunk=chunk)
     else:
         out = full_attention(q, k, v, causal=causal)
-    return out.reshape(B, S, n_heads * head_dim) @ p["wo"], new_cache
+    return _out_proj(p, out.reshape(B, S, n_heads * head_dim)), new_cache
+
+
+def _out_proj(p, out):
+    """The output projection, its input laid out as ``wo``'s rows (heads
+    over "model" under the rules): a row-parallel product whose gradient
+    reaches the attention heads gathered, as its forward computed them
+    (the fused QKV product's heads are gathered when sliced)."""
+    return shard(out, ("batch", None, "heads")) @ p["wo"]
 
 
 def cached_attention_step(p, x, inv_freq, cache_k, cache_v, *,

@@ -2,16 +2,20 @@
 
 The JAX package's ``models/layers.py`` with PyTorch tensors.  Every
 ``init_*`` draws from an explicit ``torch.Generator`` and returns the
-parameter dict alone: the JAX package's second tree (logical sharding
-axes) and its ``shard`` calls are no-ops outside a mesh, and sharding
-comes with a later slice.  Parameters are drawn in f32 on the generator's
-device and cast to ``dtype``, as the JAX package does.
+parameter dict alone; the JAX package's second tree (each leaf's logical
+sharding axes) is the ``*_SPECS`` constant beside it, which
+``transformer.lm_specs`` assembles without allocating anything.  The
+``shard`` annotations sit where the JAX package's do and return their
+input outside a rules context.  Parameters are drawn in f32 on the
+generator's device and cast to ``dtype``, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.runtime.sharding import shard, whole_seq
 
 
 def _norm_init(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
@@ -35,6 +39,9 @@ def init_rmsnorm(d: int, dtype=torch.float32, device=None):
     return {"g": torch.ones((d,), dtype=dtype, device=device)}
 
 
+RMSNORM_SPECS = {"g": (None,)}
+
+
 def rmsnorm(p, x, eps: float = 1e-6):
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
@@ -50,10 +57,13 @@ def init_mlp(gen, d_model: int, d_ff: int, dtype=torch.float32):
     return {"wi": wi, "wo": wo}
 
 
+MLP_SPECS = {"wi": ("embed_fsdp", "mlp"), "wo": ("mlp", "embed_fsdp")}
+
+
 def mlp(p, x):
     """SwiGLU; the gate/up Split is the paper's Split op on the fused
     projection output (two views of one product, no copy)."""
-    h = x @ p["wi"]
+    h = shard(whole_seq(x) @ p["wi"], ("batch", None, "mlp"))
     gate, up = torch.chunk(h, 2, dim=-1)
     return (F.silu(gate) * up) @ p["wo"]
 
@@ -64,19 +74,29 @@ def init_embedding(gen, vocab: int, d_model: int, dtype=torch.float32):
     return {"e": _norm_init(gen, (vocab, d_model), 1.0).to(dtype)}
 
 
+EMBED_SPECS = {"e": ("vocab", "embed")}
+
+
 def embed(p, tokens):
-    return p["e"][tokens]
+    """Rows of the table (``jnp.take``'s), through ``F.embedding``, from
+    the table whole over its vocab shards (under the rules ``vocab`` is
+    sharded over "model").  On a mesh, PyTorch 2.11's DTensor has no
+    working backward for an index into a table (an accumulating
+    ``index_put``) nor for a lookup into a vocab-sharded one (a masked
+    partial sum it cannot reduce into), so the table is gathered first
+    and its gradient reduce-scattered back."""
+    return F.embedding(tokens, shard(p["e"], (None, "embed")))
 
 
 def unembed(p, x, valid_vocab: int | None = None):
     """Logits; ``valid_vocab`` masks the padding rows (vocab padded to a
     multiple of 128) to -1e9."""
-    logits = x @ p["e"].T
+    logits = whole_seq(x) @ p["e"].T
     V = p["e"].shape[0]
     if valid_vocab is not None and valid_vocab != V:
         pad = torch.arange(V, device=logits.device) >= valid_vocab
         logits = logits.masked_fill(pad, -1e9)
-    return logits
+    return shard(logits, ("batch", None, "vocab"))
 
 
 # -- RoPE ----------------------------------------------------------------------
@@ -111,7 +131,10 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     m = torch.amax(logits, dim=-1, keepdim=True)
     lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
     gold = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None]
-                        .to(torch.int64))[..., 0]
-    nll = lse - gold
+                        .to(torch.int64))
+    # the difference taken before the last dim is dropped: under a mesh
+    # whose vocab is sharded, ``gold`` is a masked partial sum over the
+    # vocab shards, which DTensor reduces only at the gathered shape
+    nll = (lse[..., None] - gold)[..., 0]
     valid = (labels != ignore_id).float()
     return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)

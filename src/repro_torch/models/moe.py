@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import rme
-from repro_torch.models.layers import _norm_init, init_mlp, mlp
+from repro_torch.models.layers import MLP_SPECS, _norm_init, init_mlp, mlp
+from repro_torch.runtime.sharding import local, shard, whole_seq
 
 
 def init_moe(gen, d_model: int, d_ff: int, num_experts: int, top_k: int,
@@ -41,6 +42,16 @@ def init_moe(gen, d_model: int, d_ff: int, num_experts: int, top_k: int,
         params["shared"] = init_mlp(gen, d_model, shared_d_ff or d_ff,
                                     dtype=dtype)
     return params
+
+
+def moe_specs(n_shared: int = 0) -> dict:
+    """Logical sharding axes of :func:`init_moe`'s leaves."""
+    specs = {"router": ("embed", None),
+             "wi": ("experts", "embed_fsdp", "expert_mlp"),
+             "wo": ("experts", "expert_mlp", "embed_fsdp")}
+    if n_shared:
+        specs["shared"] = dict(MLP_SPECS)
+    return specs
 
 
 def capacity_of(S: int, top_k: int, num_experts: int,
@@ -129,13 +140,22 @@ def moe_block(p, x, *, num_experts: int, top_k: int,
               n_shared: int = 0):
     """x: (B, S, D) -> ``(out (B, S, D), {"load_balance": f32 scalar})``."""
     B, S, D = x.shape
+    # the router and the per-sequence dispatch read whole sequences
+    x = whole_seq(x)
     E_phys = p["wi"].shape[0]  # >= num_experts when padded
     probs, gates, expert_of = route(p, x, top_k=top_k,
                                     router_softmax=router_softmax)
     capacity = capacity_of(S, top_k, num_experts, capacity_factor)
     idx, valid, xe = _dispatch(x, expert_of, E_phys, capacity)
+    # expert-major layout, experts sharded over "model"
+    xe = shard(xe, ("batch", "experts", None, None))
     ye = _experts(p, xe)
-    out = _combine(ye, gates, expert_of, idx, valid, S).to(x.dtype)
+    # each token reads back its own sequence's slots: local to each rank's
+    # batch rows, with every expert's rows at hand
+    rows = ("batch", None, None)
+    combine = local(_combine, ((None, "batch", None, None), rows, rows, rows,
+                               rows, None), rows)
+    out = combine(ye, gates, expert_of, idx, valid, S).to(x.dtype)
     if n_shared:
         out = out + mlp(p["shared"], x)
     # aux load-balancing loss

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _norm_init
+from repro_torch.runtime.sharding import shard, whole_seq
 
 
 # ===========================================================================
@@ -48,10 +49,15 @@ def init_mamba2(gen, d_model: int, d_state: int = 64, expand: int = 2,
     return params, meta
 
 
+# logical sharding axes of init_mamba2's leaves (runtime.sharding)
+MAMBA2_SPECS = {"win": ("embed_fsdp", "mlp"), "wout": ("mlp", "embed_fsdp"),
+                "A_log": (None,), "D": (None,), "dt_bias": (None,)}
+
+
 def _mamba2_split(p, u, meta):
     """One product, TM Split into (z, x, B, C, dt) column bands (views)."""
     d_inner, d_state = meta["d_inner"], meta["d_state"]
-    proj = u @ p["win"]
+    proj = shard(whole_seq(u) @ p["win"], ("batch", None, "mlp"))
     z = proj[..., :d_inner]
     x = proj[..., d_inner:2 * d_inner]
     Bm = proj[..., 2 * d_inner:2 * d_inner + d_state]
@@ -165,6 +171,11 @@ def init_rwkv6(gen, d_model: int, head_dim: int = 64, dtype=torch.float32):
     return params, dict(n_heads=H, head_dim=head_dim)
 
 
+RWKV6_SPECS = {"w_rkvg": ("embed_fsdp", "heads"), "w_decay": ("embed", None),
+               "w_out": ("heads", "embed_fsdp"), "mu": (None, None),
+               "u_bonus": (None, None), "decay_base": (None,)}
+
+
 def token_shift(x, x_prev=None):
     """TM Rearrange along time: x[t] -> x[t-1] (zero, or ``x_prev``, at
     t = 0)."""
@@ -222,6 +233,7 @@ def rwkv6_block(p, x, meta, *, x_prev=None, state=None, chunk: int = 64,
     S == 1) runs the exact per-token recurrence."""
     B, S, D = x.shape
     H, K = meta["n_heads"], meta["head_dim"]
+    x = whole_seq(x)                  # the token shift reads neighbours
     shifted = token_shift(x, x_prev)
     xr, xk, xv, xg, xw = _rwkv_mix(p, x, shifted)
     w_rkvg = _promoted(p["w_rkvg"], xr)
@@ -274,7 +286,12 @@ def init_rwkv_ffn(gen, d_model: int, d_ff: int, dtype=torch.float32):
                              device=gen.device)}
 
 
+RWKV_FFN_SPECS = {"wk": ("embed_fsdp", "mlp"), "wv": ("mlp", "embed_fsdp"),
+                  "mu": (None,)}
+
+
 def rwkv_ffn(p, x, x_prev=None):
+    x = whole_seq(x)                  # the token shift reads neighbours
     shifted = token_shift(x, x_prev)
     xm = (x * p["mu"] + shifted * (1 - p["mu"])).to(x.dtype)
     h = torch.square(torch.relu(xm @ p["wk"]))

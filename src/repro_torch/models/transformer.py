@@ -35,12 +35,19 @@ from repro_torch.core.executor import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (_norm_init, embed, init_embedding,
+from repro_torch.models.layers import (EMBED_SPECS, MLP_SPECS, RMSNORM_SPECS,
+                                       _norm_init, embed, init_embedding,
                                        init_mlp, init_rmsnorm, mlp, rmsnorm,
                                        rope_freqs, softmax_xent, unembed)
+from repro_torch.runtime.sharding import map_specs, remat_context, shard
 from repro_torch.tree import tree_leaves, tree_map
 
 FAMILIES = ("dense", "moe", "hybrid", "ssm")
+# the logical axes of the activations between blocks: under a mesh each
+# block's output, and each residual branch before it is added (sequence
+# parallelism's reduce-scatter, which GSPMD places there on its own and
+# DTensor, which propagates forward only, is told), lie on them
+ACT = ("batch", "seq", "embed")
 FRONTENDS = ("none", "audio_stub", "vision_stub")
 
 
@@ -220,8 +227,9 @@ def _ssm_meta(cfg: ModelConfig) -> dict:
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> dict:
     """Random parameters drawn from ``gen`` (on the generator's device, then
-    moved to ``device``; None means the card).  Returns the parameter tree
-    (the JAX package's ``init_lm`` also returns its sharding specs)."""
+    moved to ``device``; None means the card).  Returns the parameter tree;
+    its sharding specs, which the JAX package's ``init_lm`` returns beside
+    it, are :func:`lm_specs`."""
     _check_config(cfg)
     dev = resolve_device(device)
 
@@ -253,6 +261,40 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> dict:
     return params
 
 
+def _block_specs(cfg: ModelConfig) -> dict:
+    norms = {"ln1": dict(RMSNORM_SPECS), "ln2": dict(RMSNORM_SPECS)}
+    if cfg.family == "dense":
+        return {"attn": dict(attn.ATTENTION_SPECS), "mlp": dict(MLP_SPECS),
+                **norms}
+    if cfg.family == "moe":
+        return {"attn": dict(attn.ATTENTION_SPECS),
+                "moe": moe_mod.moe_specs(cfg.n_shared), **norms}
+    if cfg.family == "ssm":
+        return {"tmix": dict(ssm_mod.RWKV6_SPECS),
+                "ffn": dict(ssm_mod.RWKV_FFN_SPECS), **norms}
+    return {"mamba": dict(ssm_mod.MAMBA2_SPECS),
+            "ln1": dict(RMSNORM_SPECS)}
+
+
+def lm_specs(cfg: ModelConfig) -> dict:
+    """The logical sharding axes of :func:`init_lm`'s tree, leaf for leaf
+    (the JAX package's ``init_lm`` returns them as its second value); the
+    stacked blocks' leaves lead with ``"layers"``.  Allocates nothing."""
+    _check_config(cfg)
+    specs = {"embed": dict(EMBED_SPECS), "final_norm": dict(RMSNORM_SPECS),
+             "blocks": map_specs(lambda t: ("layers",) + tuple(t),
+                                 _block_specs(cfg))}
+    if cfg.family == "hybrid":
+        specs["shared_attn"] = {"attn": dict(attn.ATTENTION_SPECS),
+                                "proj": {"w": ("embed_fsdp", "embed")},
+                                "ln": dict(RMSNORM_SPECS)}
+    if cfg.frontend == "vision_stub":
+        specs["vision_proj"] = {"w": (None, "embed")}
+    if cfg.frontend == "audio_stub" and cfg.n_codebooks:
+        specs["codebook_embed"] = {"e": (None, "vocab", "embed")}
+    return specs
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -264,9 +306,9 @@ def _dense_block(cfg: ModelConfig, p, x, inv_freq, cache=None,
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
         cache=cache, cache_index=cache_index, chunk=cfg.attn_chunk,
         attention=attention, triangular=cfg.attn_impl == "triangular")
-    x = x + h                                  # TM Add (residual)
-    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x))
-    return x, new_cache, {}
+    x = x + shard(h, ACT)                      # TM Add (residual)
+    x = x + shard(mlp(p["mlp"], rmsnorm(p["ln2"], x)), ACT)
+    return shard(x, ACT), new_cache, {}
 
 
 def _moe_block(cfg: ModelConfig, p, x, inv_freq, cache=None,
@@ -276,12 +318,12 @@ def _moe_block(cfg: ModelConfig, p, x, inv_freq, cache=None,
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
         cache=cache, cache_index=cache_index, chunk=cfg.attn_chunk,
         attention=attention, triangular=cfg.attn_impl == "triangular")
-    x = x + h
+    x = x + shard(h, ACT)
     m, aux = moe_mod.moe_block(p["moe"], rmsnorm(p["ln2"], x),
                                num_experts=cfg.num_experts, top_k=cfg.top_k,
                                n_shared=cfg.n_shared,
                                capacity_factor=cfg.capacity_factor)
-    return x + m, new_cache, aux
+    return shard(x + shard(m, ACT), ACT), new_cache, aux
 
 
 def _ssm_block(cfg: ModelConfig, p, x, state=None):
@@ -292,9 +334,10 @@ def _ssm_block(cfg: ModelConfig, p, x, state=None):
     h, tlast, wkv = ssm_mod.rwkv6_block(p["tmix"], rmsnorm(p["ln1"], x),
                                         _ssm_meta(cfg), x_prev=tprev,
                                         state=wkv)
-    x = x + h
+    x = x + shard(h, ACT)
     f, flast = ssm_mod.rwkv_ffn(p["ffn"], rmsnorm(p["ln2"], x), x_prev=fprev)
-    return x + f, {"tprev": tlast, "fprev": flast, "wkv": wkv}
+    return (shard(x + shard(f, ACT), ACT),
+            {"tprev": tlast, "fprev": flast, "wkv": wkv})
 
 
 def _mamba_block(cfg: ModelConfig, p, x, state=None):
@@ -307,7 +350,7 @@ def _mamba_block(cfg: ModelConfig, p, x, state=None):
     else:  # prefill continuation: run chunked, carry the state out
         y, new_state = ssm_mod.mamba2_block(p["mamba"], u, meta, h0=state,
                                             return_state=True)
-    return x + y, new_state
+    return shard(x + shard(y, ACT), ACT), new_state
 
 
 def _shared_attn(cfg: ModelConfig, p, x, embed0, inv_freq, cache=None,
@@ -321,13 +364,13 @@ def _shared_attn(cfg: ModelConfig, p, x, embed0, inv_freq, cache=None,
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
         cache=cache, cache_index=cache_index, chunk=cfg.attn_chunk,
         attention=attention)
-    return x + h @ p["proj"]["w"], new_cache
+    return x + shard(h @ p["proj"]["w"], ACT), new_cache
 
 
 def input_embed(cfg: ModelConfig, params, tokens=None, embeds=None):
-    if embeds is not None:
-        return embeds.to(cfg.dtype)
-    return embed(params["embed"], tokens)
+    x = embeds.to(cfg.dtype) if embeds is not None \
+        else embed(params["embed"], tokens)
+    return shard(x, ACT)
 
 
 def vision_prefix(cfg: ModelConfig, params, patch_embeds):
@@ -372,7 +415,8 @@ def _maybe_remat(cfg: ModelConfig, fn, *, train: bool):
     """``fn`` recomputed in the backward pass (activation checkpointing)
     when training with ``cfg.remat == "full"``; serving never remats."""
     if cfg.remat == "full" and train:
-        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=remat_context)
     return fn
 
 

@@ -17,6 +17,7 @@ import math
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -40,17 +41,34 @@ def adamw_init(params) -> AdamWState:
                       v=tree_map(torch.zeros_like, master))
 
 
+def _local(t):
+    """A DTensor's shard on this rank; a plain tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def _chunks(t: torch.Tensor):
     """Views of ``t``'s slices: writes to them land in ``t``, and a
-    strided ``t`` raises instead of updating a copy."""
-    return t.view(-1).split(CHUNK)
+    strided ``t`` raises instead of updating a copy.  A DTensor's are
+    slices of its shard on this rank: the update is elementwise, and the
+    state's leaves lie as their parameter does."""
+    return _local(t).view(-1).split(CHUNK)
+
+
+def _sum_squares(g: torch.Tensor) -> torch.Tensor:
+    local = sum(torch.sum(torch.square(c.float()))
+                for c in _chunks(g.contiguous()))
+    if not isinstance(g, DTensor):
+        return local
+    # each rank summed its shard: a partial sum over the mesh dims the leaf
+    # is sharded on, the whole sum on the others
+    return DTensor.from_local(local, g.device_mesh, [
+        Partial() if p.is_shard() else Replicate() for p in g.placements],
+        run_check=False)
 
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares, in f32."""
-    return torch.sqrt(sum(sum(torch.sum(torch.square(c.float()))
-                              for c in _chunks(g.contiguous()))
-                          for g in tree_leaves(grads)))
+    return torch.sqrt(sum(_sum_squares(g) for g in tree_leaves(grads)))
 
 
 def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -81,6 +99,8 @@ def adamw_update(grads, state: AdamWState, lr, *, b1=0.9, b2=0.95, eps=1e-8,
     c1 = 1.0 - torch.pow(b1, t)
     c2 = 1.0 - torch.pow(b2, t)
     lr = torch.as_tensor(lr, dtype=torch.float32, device=t.device)
+    # the scalars on this rank, for the updates of the local shards
+    scale, c1, c2, lr = (_local(x) for x in (scale, c1, c2, lr))
 
     def upd(g, mu, nu, w, p=None):
         for gc, mc, nc, wc in zip(_chunks(g.contiguous()), _chunks(mu),

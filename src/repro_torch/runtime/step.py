@@ -16,6 +16,7 @@ package's jnp attention, ported); training always runs plain.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.transformer import (ModelConfig, forward, init_lm,
                                             lm_loss, logits)
@@ -23,6 +24,7 @@ from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
                                      cosine_schedule)
 from repro_torch.optim.compression import (compress_decompress,
                                            compression_init)
+from repro_torch.runtime.sharding import shard
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -35,8 +37,16 @@ def init_train_state(cfg: ModelConfig, gen: torch.Generator, *,
     """``{"params", "opt": {"step", "master", "m", "v"}}`` (and ``"ef"``
     with ``compress``), the parameters drawn from ``gen`` on ``device``
     (None means the card).  The JAX package also returns the parameters'
-    sharding specs, which come with the distribution scaffolding."""
-    params = init_lm(cfg, gen, device=device)
+    sharding specs: here ``lm_specs(cfg)``, and :func:`state_specs` of
+    them for the whole state."""
+    return train_state_of(init_lm(cfg, gen, device=device),
+                          compress=compress)
+
+
+def train_state_of(params, *, compress: bool = False) -> dict:
+    """The train state around ``params``: the optimizer's f32 master, m
+    and v (and the compression's error feedback) made from them, so for
+    parameters on a mesh, as each rank's shards."""
     opt = adamw_init(params)
     state = {"params": params,
              "opt": {"step": opt.step, "master": opt.master,
@@ -44,6 +54,28 @@ def init_train_state(cfg: ModelConfig, gen: torch.Generator, *,
     if compress:
         state["ef"] = compression_init(params)
     return state
+
+
+def state_specs(param_specs, *, compress: bool = False):
+    """Logical-axis spec tree for the full train state (for tree_sharding)."""
+    st = {"params": param_specs,
+          "opt": {"step": None, "master": param_specs,
+                  "m": param_specs, "v": param_specs}}
+    if compress:
+        st["ef"] = param_specs
+    return st
+
+
+def _placed_like(grad, param):
+    """A DTensor gradient redistributed to its parameter's placements (a
+    partial sum is reduced); a plain one as it is."""
+    if isinstance(grad, DTensor):
+        return grad.redistribute(param.device_mesh, param.placements)
+    return grad
+
+
+def _whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
@@ -56,7 +88,10 @@ def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
     warmup), every parameter cast to ``cfg.dtype``.  ``batch`` holds
     ``labels`` and ``tokens`` or ``embeds``.  Metrics (0-d tensors):
     ``loss``, ``lr``, ``grad_norm`` and, for dense and moe,
-    ``load_balance``."""
+    ``load_balance``, plain tensors also when the state lies on a mesh.
+    Under a mesh (the state DTensors, the step inside ``use_rules``) each
+    gradient is redistributed to its parameter's placements before the
+    compression and AdamW."""
     def train_step(state, batch):
         params = tree_map(lambda p: p.detach().requires_grad_(),
                           state["params"])
@@ -68,7 +103,9 @@ def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
         by_leaf = dict(zip(map(id, leaves), grads))
-        grads = tree_map(lambda p: by_leaf[id(p)], params)
+        # under a mesh: each gradient onto its parameter's placements, where
+        # the data-parallel all-reduce and the FSDP reduce-scatter happen
+        grads = tree_map(lambda p: _placed_like(by_leaf[id(p)], p), params)
         new_state = dict(state)
         if compress:
             grads, new_state["ef"] = compress_decompress(grads, state["ef"])
@@ -83,7 +120,7 @@ def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
                             "m": opt.m, "v": opt.v}
         metrics = {"loss": loss.detach(), "lr": lr, **om,
                    **{k: v.detach() for k, v in aux.items()}}
-        return new_state, metrics
+        return new_state, {k: _whole(v) for k, v in metrics.items()}
 
     return train_step
 
@@ -138,7 +175,33 @@ def make_decode_step(cfg: ModelConfig, *, sample: bool = False,
             probs = torch.softmax(lg[:, -1].float() / temperature, dim=-1)
             nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
         else:
-            nxt = torch.argmax(lg[:, -1], dim=-1)
+            # the greedy pick reads every vocab shard (under the rules the
+            # vocab lies over "model"): the last logits whole first
+            nxt = torch.argmax(shard(lg[:, -1], ("batch", None)), dim=-1)
         return nxt[:, None].to(torch.int32), lg, caches, states
 
     return decode_step
+
+
+def serve_state_specs(cfg: ModelConfig, *, long_context: bool = False):
+    """Logical axes for KV caches / SSM states.
+
+    The cache sequence axis carries the logical name "kv_seq"; the per-cell
+    rules map it to "model" (regular decode: distributed flash-decode) or
+    "data" (long_context batch=1), or drop it (train/prefill)."""
+    del long_context  # resolution happens in the rules table
+    if cfg.family in ("dense", "moe", "hybrid"):
+        caches = {"k": (None, "batch", "kv_seq", "kv_heads", None),
+                  "v": (None, "batch", "kv_seq", "kv_heads", None)}
+    else:
+        caches = None
+    if cfg.family == "ssm":
+        states = {"tprev": (None, "batch", None, None),
+                  "fprev": (None, "batch", None, None),
+                  "wkv": (None, "batch", None, None, None)}
+    elif cfg.family == "hybrid":
+        states = {"main": (None, None, "batch", None, None, None),
+                  "tail": (None, "batch", None, None, None)}
+    else:
+        states = None
+    return caches, states

@@ -1825,3 +1825,99 @@ def test_train_defaults_to_the_card(cuda):
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert all(t.device.type == "cuda" for t in tree_leaves(state))
     assert rg.rme_assemble.launches > before
+
+
+# -- slice 15: distribution on a (1, 1) card mesh ---------------------------------
+
+@pytest.fixture(scope="module")
+def card_mesh():
+    """A one-rank NCCL group (in-process store) and its (1, 1) card mesh,
+    the group destroyed after the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import card_process_group
+    with card_process_group():
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compress", [False, True])
+def test_train_on_card_mesh_equals_train(card_mesh, compress):
+    """train(mesh=) on the smoke config (f32): the state placed on the card
+    mesh, every gradient redistributed to its parameter's placements, the
+    dispatch through the assemble kernel's sharding rule.  Step 0's loss
+    is train()'s bit for bit; the later ones within 1e-5, since two runs
+    of train() itself on the card differ in the last bits (the gathers'
+    backward sums with atomics, in no fixed order: 6.5e-8 measured)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.launch.train import train
+    from repro_torch.tree import tree_leaves
+    cfg = get_smoke("qwen2-moe-a2.7b")
+    kw = dict(steps=3, batch=2, seq=16, compress=compress,
+              log=lambda *a: None)
+    _, want = train(cfg, **kw)
+    before = rg.rme_assemble.launches
+    state, got = train(cfg, mesh=card_mesh, **kw)
+    assert rg.rme_assemble.launches > before
+    assert got[0] == want[0]
+    assert np.allclose(got, want, rtol=1e-5, atol=0)
+    for a in tree_leaves(state["params"]):
+        assert isinstance(a, DTensor) and a.device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_reshard_round_trip_on_card_mesh(card_mesh):
+    """The smoke weights placed on the card mesh by the train rules and
+    gathered back whole, bit for bit, each leaf a DTensor on the card."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.launch.mesh import rules_for_cell
+    from repro_torch.models.transformer import init_lm, lm_specs
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.tree import tree_leaves
+    cfg = get_smoke("zamba2-7b")
+    params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0))
+    placed = reshard_state(params, lm_specs(cfg), card_mesh,
+                           rules_for_cell("train"))
+    for a, b in zip(tree_leaves(placed), tree_leaves(params)):
+        assert isinstance(a, DTensor) and a.to_local().is_cuda
+        assert torch.equal(a.full_tensor(), b)
+
+
+@pytest.mark.gpu
+def test_custom_ops_launch_their_kernels_on_card(cuda, full_f32):
+    """Each custom op on CUDA tensors launches its kernel (the launch
+    counted) and equals its plain version: the assemble bit for bit, the
+    attention within fp_bounds.attention_tol."""
+    from repro_torch.core.fp_bounds import attention_tol
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    rng = np.random.RandomState(15)
+    x = _rand(rng, (6, 300, 5), torch.float32, cuda)
+    mask = torch.tensor(rng.rand(6, 300) > 0.4, device=cuda)
+    q, k, v = (torch.tensor(rng.randn(2, 64, *hd).astype(np.float32),
+                            device=cuda)
+               for hd in ((8, 64), (2, 64), (2, 64)))
+    n = (rg.rme_assemble.launches, fa.flash_attention.launches,
+         fa.flash_decode.launches)
+    rows, cnt = torch.ops.repro_torch.rme_assemble.default(x, mask, 128)
+    pre = torch.ops.repro_torch.flash_attention.default(q, k, v, True, None)
+    length = torch.tensor([37], dtype=torch.int32, device=cuda)
+    dec = torch.ops.repro_torch.flash_decode.default(q[:, :1], k, v, length,
+                                                     None)
+    torch.cuda.synchronize()
+    assert (rg.rme_assemble.launches, fa.flash_attention.launches,
+            fa.flash_decode.launches) == tuple(c + 1 for c in n)
+    want_rows, want_cnt = rg.assemble_plain(x.cpu(), mask.cpu(), 128)
+    assert torch.equal(rows.cpu(), want_rows)
+    assert torch.equal(cnt.cpu(), want_cnt)
+    for got, ref, kw, qq in ((pre, fa.attention_ref(q, k, v), {}, q),
+                             (dec, fa.decode_ref(q[:, :1], k, v, 37),
+                              dict(causal=False, length=37), q[:, :1])):
+        err = (got.double() - ref.double()).abs()
+        assert bool((err <= attention_tol(qq, k, v, **kw)).all())
