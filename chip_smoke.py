@@ -67,7 +67,11 @@ phases and fails on any mismatch:
    phase at Phi-4-mini's shapes (prefill q (8, 1024, 24, 128) against
    k/v (8, 1024, 8, 128), causal; decode against a (8, 1088, 8, 128)
    cache at length 1025; bf16), each with its achieved TFLOP/s or TB/s
-   and its ratio to SDPA's time in the same run, and the f32 prefill (the
+   and its ratio to SDPA's time in the same run, and flash_decode's
+   partial mode (``flash_decode_partial``) on the same cache in 4 row
+   blocks, each block's (o, lse) against its plain version and the
+   blocks combined against the whole-cache flash_decode, one block timed
+   beside SDPA over it, and the f32 prefill (the
    FMA kernel, off the LM's bf16 path: a row of the log's table, not of
    the ``kernels`` line); then ``repro_torch.launch.serve.serve``
    runs Phi-4-mini 3.8B at its full published width (32 layers, random
@@ -143,11 +147,19 @@ phases and fails on any mismatch:
    under the train rules: 4 launches, the loss the plain forward's bit for
    bit, the weights back whole and placed again bit for bit, 14b's
    checkpoint restored onto the mesh with its spec tree bit for bit;
-   (15c) ``python -m repro_torch.launch.dryrun`` in a process of its own
-   for each of qwen2-moe-a2.7b train_4k and phi4-mini-3.8b decode_32k on
-   the single-pod mesh (256 ranks of a fake group) and zamba2-7b long_500k
-   on the multi-pod one (512), each record printed (FLOPs and bytes > 0,
-   the train cell's collectives > 0); then 14a's step traced on a (1, 1)
+   (15d) Phi-4-mini at full width cut to 4 layers, batch 8, prefilled
+   plainly into a 1088-row cache, then 8 decode steps on the card mesh
+   under the decode rules (the cache's rows over "model"): exactly 4 x 8
+   ``flash_decode_partial`` launches and no other kernel, the band
+   written into the rank that owns the row, every step's logits and the
+   final caches bit for bit the plain steps'; (15c) ``python -m
+   repro_torch.launch.dryrun`` in a process of its own for each of
+   qwen2-moe-a2.7b train_4k and phi4-mini-3.8b decode_32k on the
+   single-pod mesh (256 ranks of a fake group) and zamba2-7b long_500k on
+   the multi-pod one (512), each record printed (FLOPs and bytes > 0, the
+   train cell's collectives > 0, the decode cell's all-gather under
+   DECODE_GATHER_LIMIT bytes a device and its peak within the card's
+   HBM); then 14a's step traced on a (1, 1)
    mesh (the card cell), its matmul FLOPs within MATMUL_FLOPS_RTOL of
    FlopCounterMode over one real 14a step, its step-time bound beside the
    measured step;
@@ -983,6 +995,9 @@ def _sdpa(q, k, v, **kw):
                                                   enable_gqa=True, **kw)
 
 
+PARTIAL_BLOCKS = 4   # row blocks of the cache for flash_decode_partial
+
+
 def flash_rows(dev, gen) -> list[dict]:
     """flash_attention (#16) at the slice-5 prefill shape and flash_decode
     (#17) at its decode shape, bf16 with f32 accumulation, each within
@@ -1069,7 +1084,90 @@ def flash_rows(dev, gen) -> list[dict]:
         library_ms=library_ms,
         shape=f"q ({B}, 1, {H}, {D}) vs cache ({B}, {T}, {KV}, {D}) bf16 "
               f"at length {length}"))
+    rows.append(partial_row(q, k, v, length, got))
     return rows
+
+
+def partial_row(q, k, v, length: int, whole) -> dict:
+    """flash_decode_partial (#17's partial mode, the kernel of a decode
+    over a cache whose rows lie over ranks) at the decode shape with the
+    cache split into PARTIAL_BLOCKS row blocks, each block's local length
+    on the device: each block's (o, lse) within attention_tol /
+    decode_lse_tol of its plain version; the blocks combined
+    (combine_partials) within row 17's bound of the whole-cache
+    flash_decode (``whole``); one block's call timed against its byte
+    bound and SDPA over the same block's live rows."""
+    from repro_torch.core.fp_bounds import attention_tol, decode_lse_tol
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    B, _, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    rows_b = T // PARTIAL_BLOCKS
+    n = torch.tensor([length], dtype=torch.int32, device=q.device)
+    blocks, parts = [], []
+    before = fa.flash_decode_partial.launches
+    for b in range(PARTIAL_BLOCKS):
+        kb, vb = (t[:, b * rows_b:(b + 1) * rows_b] for t in (k, v))
+        nb = (n - b * rows_b).clamp(0, rows_b)   # on the device
+        live = max(0, min(length - b * rows_b, rows_b))
+        o, lse = fa.flash_decode_partial(q, kb, vb, nb)
+        ro, rl = fa.decode_partial_ref(q, kb, vb, live)
+        require_within(o, ro, attention_tol(q, kb, vb, causal=False,
+                                            length=live),
+                       f"flash_decode_partial block {b} o")
+        require_within(lse, rl, decode_lse_tol(q, kb, live),
+                       f"flash_decode_partial block {b} lse")
+        blocks.append((kb, vb, nb, live))
+        parts.append((o, lse, ro, rl))
+    if fa.flash_decode_partial.launches - before != PARTIAL_BLOCKS:
+        raise AssertionError(f"flash_decode_partial: "
+                             f"{fa.flash_decode_partial.launches - before} "
+                             f"launches for {PARTIAL_BLOCKS} blocks")
+    comb = fa.combine_partials(torch.stack([p[0] for p in parts]),
+                               torch.stack([p[1] for p in parts]), q.dtype)
+    require_within(comb, whole, attention_tol(q, k, v, causal=False,
+                                              length=length),
+                   "flash_decode_partial combined against flash_decode")
+    kb, vb, nb, live = blocks[0]
+    sdpa = _sdpa(q, kb[:, :live], vb[:, :live])
+    nbytes = (2 * B * live * KV * D + q.numel()) * 2 + B * H * (D + 1) * 4
+    flops = 4 * B * H * D * live
+    ms = graph_ms(lambda: fa.flash_decode_partial(q, kb, vb, nb))
+    library_ms = graph_ms(sdpa)
+
+    def every_block():
+        got = [fa.flash_decode_partial(q, *blk[:3]) for blk in blocks]
+        return fa.combine_partials(torch.stack([g[0] for g in got]),
+                                   torch.stack([g[1] for g in got]), q.dtype)
+
+    all_ms = cuda_ms(every_block)
+    whole_ms = cuda_ms(lambda: fa.flash_decode(q, k, v, n))
+    log(f"kernel flash_decode_partial: one block of {rows_b} rows ({live} "
+        f"live) {nbytes / 1e6:.2f} MB in {ms:.4f} ms = "
+        f"{nbytes / ms / 1e9:.3f} TB/s (bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); SDPA over the block "
+        f"{library_ms:.4f} ms; the {PARTIAL_BLOCKS} blocks and their "
+        f"combine {all_ms:.4f} ms a call against the whole-cache "
+        f"flash_decode's {whole_ms:.4f}; max|err| combined against it "
+        f"{max_abs_err(comb, whole)}")
+    return dict(
+        name="flash_decode_partial", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:144",
+        max_abs_err=max(max(max_abs_err(p[0], p[2]), max_abs_err(
+            p[1].masked_fill(p[1].isinf(), 0), p[3].masked_fill(
+                p[3].isinf(), 0))) for p in parts),
+        ms=ms,
+        call_ms=cuda_ms(lambda: fa.flash_decode_partial(q, kb, vb, nb)),
+        plain_ms=cuda_ms(lambda: fa.decode_partial_ref(q, kb, vb, nb)),
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
+        * 1e3,
+        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                  >= flops / BF16_FLOP_PER_S else "operations"),
+        library_ms=library_ms,
+        shape=f"q ({B}, 1, {H}, {D}) vs one of {PARTIAL_BLOCKS} blocks "
+              f"({B}, {rows_b}, {KV}, {D}) bf16 of the cache at length "
+              f"{length}")
 
 
 def _teacher_forced(cfg, params, prompts, toks, attention: str):
@@ -2928,6 +3026,11 @@ DRYRUN_CELLS = (("qwen2-moe-a2.7b", "train_4k", "single"),
                 ("phi4-mini-3.8b", "decode_32k", "single"),
                 ("zamba2-7b", "long_500k", "multi"))
 DRYRUN_TIMEOUT_S = 300
+# a decode cell's all-gather bytes a device: the cache stays sharded along
+# its rows (the distributed flash decode), so what is gathered is q's
+# heads and the products' activations, not the 6.997e10 of a cache
+# gathered every layer; and its peak fits the card's 80 GB
+DECODE_GATHER_LIMIT = 2e9
 # the card cell's matmul FLOPs (the trace on a (1, 1) mesh) against
 # FlopCounterMode over one real 14a step: the same formulas on the same
 # products, so equal up to MATMUL_FLOPS_RTOL
@@ -3093,6 +3196,111 @@ def dtensor_check(cfg, out: dict, mesh, ckpt_dir: str) -> None:
         f"spec tree ({len(flat)} leaves, every one a DTensor) bit for bit")
 
 
+# 15d: the decode step on the card mesh under the decode rules, which lay
+# the cache's rows over "model": Phi-4-mini at full width cut to
+# MESH_DECODE_LAYERS layers, slice 5's batch and cache, MESH_DECODE_STEPS
+# steps, each layer's attention one flash_decode_partial launch
+MESH_DECODE_LAYERS = 4
+MESH_DECODE_STEPS = 8
+
+
+def mesh_decode_setup(dev) -> dict:
+    """15d's plain run: Phi-4-mini at full width (its published config,
+    bf16, random weights from SEED) cut to MESH_DECODE_LAYERS layers, a
+    batch of LM_BATCH LM_PROMPT-token prompts prefilled into a cache of
+    LM_PROMPT + LM_GEN rows, then MESH_DECODE_STEPS greedy decode steps
+    with no mesh: the cache after the prefill, the tokens fed, each
+    step's logits, the final cache, ms a step."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_caches, init_lm
+    from repro_torch.runtime.step import make_decode_step, make_prefill_step
+
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              n_layers=MESH_DECODE_LAYERS)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                     device=dev)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator().manual_seed(SEED),
+                            dtype=torch.int32).to(dev)
+    caches = init_caches(cfg, LM_BATCH, LM_PROMPT + LM_GEN, dtype=cfg.dtype,
+                         device=dev)
+    lg, caches, _ = make_prefill_step(cfg)(params, prompts, caches, None)
+    start = {n: t.clone() for n, t in caches.items()}
+    tok = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
+    step = make_decode_step(cfg)
+    toks, logits = [], []
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i in range(MESH_DECODE_STEPS):
+        toks.append(tok)
+        tok, lg, caches, _ = step(params, tok, caches, None, LM_PROMPT + i)
+        logits.append(lg)
+    torch.cuda.synchronize(dev)
+    return {"cfg": cfg, "params": params, "start": start, "toks": toks,
+            "logits": logits, "caches": caches,
+            "step_ms": (time.perf_counter() - t0) * 1e3 / MESH_DECODE_STEPS}
+
+
+def mesh_decode_path(ref: dict, mesh, dev) -> dict:
+    """Slice 15d's path: ``ref``'s weights and post-prefill cache placed on
+    the card mesh by ``reshard_state`` under the decode rules (the cache's
+    rows over "model"), its decode steps run on them with the same tokens:
+    each layer's band written into the rank that owns the row and its
+    attention through ``flash_decode_partial`` on that rank's rows, the
+    partials combined across "model" (one rank here)."""
+    from repro_torch.launch.mesh import rules_for_cell
+    from repro_torch.models.transformer import lm_specs
+    from repro_torch.runtime import sharding as shard_lib
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.runtime.step import make_decode_step, serve_state_specs
+
+    cfg = ref["cfg"]
+    rules = rules_for_cell("decode")
+    placed = reshard_state(ref["params"], lm_specs(cfg), mesh, rules)
+    caches = reshard_state({n: t.clone() for n, t in ref["start"].items()},
+                           serve_state_specs(cfg)[0], mesh, rules)
+    step = make_decode_step(cfg)
+    logits = []
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad(), shard_lib.use_rules(mesh, rules):
+        split = shard_lib.placements_of(shard_lib.spec_of(("batch", None)),
+                                        mesh)
+        for i, tok in enumerate(ref["toks"]):
+            _, lg, caches, _ = step(placed, shard_lib.distribute(
+                tok, mesh, split), caches, None, LM_PROMPT + i)
+            logits.append(lg)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / MESH_DECODE_STEPS
+    return {"logits": [lg.full_tensor() for lg in logits],
+            "caches": {n: c.full_tensor() for n, c in caches.items()},
+            "placements": str(caches["k"].placements), "step_ms": ms}
+
+
+def mesh_decode_check(ref: dict, out: dict) -> None:
+    """After 15d: every step's logits and the final caches equal, bit for
+    bit, the plain steps' (on one rank the partial's o is the whole
+    decode's out in f32, its weight exp(0) = 1, and the band lands where
+    the plain write puts it), the cache still sharded along its rows."""
+    for i, (a, b) in enumerate(zip(out["logits"], ref["logits"])):
+        require_equal(a, b, f"15d: step {i}'s logits on the mesh against "
+                      f"the plain step's")
+    for n in ("k", "v"):
+        require_equal(out["caches"][n], ref["caches"][n],
+                      f"15d: the {n} cache on the mesh")
+    if "Shard(dim=2)" not in out["placements"]:
+        raise AssertionError(f"15d: the cache lies {out['placements']}, "
+                             f"not along its rows")
+    log(f"model {ref['cfg'].name} at {MESH_DECODE_LAYERS} layers, batch "
+        f"{LM_BATCH}, cache {LM_PROMPT + LM_GEN} rows, on a (1, 1) card "
+        f"mesh under the decode rules (cache {out['placements']}): "
+        f"{MESH_DECODE_STEPS} steps, logits and caches bit for bit the "
+        f"plain steps'; {out['step_ms']:.3f} ms a step against "
+        f"{ref['step_ms']:.3f} plain")
+
+
 def dryrun_cells(card: str) -> list[dict]:
     """Slice 15c: each of DRYRUN_CELLS through ``python -m
     repro_torch.launch.dryrun`` in its own process (a fake group of 256 or
@@ -3125,6 +3333,14 @@ def dryrun_cells(card: str) -> list[dict]:
                     "collective_bytes_per_device"] > 0:
                 raise AssertionError(f"15c: {arch} {shape} moves no "
                                      f"collective bytes")
+            if shape == "decode_32k" and not (
+                    rec["collectives"].get("all-gather", 0) <
+                    DECODE_GATHER_LIMIT and rec["fits_hbm"]):
+                raise AssertionError(
+                    f"15c: {arch} {shape} gathers "
+                    f"{rec['collectives'].get('all-gather', 0):.4g} bytes a "
+                    f"device (limit {DECODE_GATHER_LIMIT:.0e}), fits_hbm "
+                    f"{rec['fits_hbm']}: the KV cache gathered")
             log(f"dry-run {arch} {shape} {mesh} "
                 f"({time.perf_counter() - t0:.1f} s with its process; "
                 f"constants of {card}): {json.dumps(rec)}")
@@ -3208,6 +3424,9 @@ KERNELS = {  # slice -> the kernels its path must launch
     # DTensor weights reach the assemble kernel through its sharding rule
     "15a": ("rme_assemble",),
     "15b": ("rme_assemble",),
+    # the decode step on the card mesh, its cache's rows over "model": the
+    # partial mode of flash_decode
+    "15d": ("flash_decode_partial",),
 }
 
 
@@ -3232,7 +3451,8 @@ def _wrappers() -> dict:
             "xchain_commit": xc.xchain_commit,
             "xchain_prologue": xc.xchain_prologue,
             "flash_attention": fa.flash_attention,
-            "flash_decode": fa.flash_decode}
+            "flash_decode": fa.flash_decode,
+            "flash_decode_partial": fa.flash_decode_partial}
 
 
 def launch_counts() -> dict[str, int]:
@@ -3437,6 +3657,19 @@ def main() -> int:
                                  f"{want}")
         dtensor_check(train_cfg, out15b, mesh, ckpt14b.name)
         del out15b
+        gc.collect()
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            ref15d = mesh_decode_setup(dev)
+        out15d, counts15d = run_path("15d", lambda: mesh_decode_path(
+            ref15d, mesh, dev))
+        want = {k: 0 for k in counts15d}
+        want["flash_decode_partial"] = MESH_DECODE_LAYERS * MESH_DECODE_STEPS
+        if counts15d != want:
+            raise AssertionError(f"slice 15d launches {counts15d}, expected "
+                                 f"{want}")
+        mesh_decode_check(ref15d, out15d)
+        del ref15d, out15d
     ckpt14b.cleanup()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3450,7 +3683,8 @@ def main() -> int:
     by_slice = {1: counts1, 2: counts2, 3: counts3, 4: counts4, 5: counts5,
                 11: counts11, "12a": counts12a, "12b": counts12b,
                 "13a": counts13a, "13b": counts13b, "14a": counts14a,
-                "14b": counts14b, "15a": counts15a, "15b": counts15b}
+                "14b": counts14b, "15a": counts15a, "15b": counts15b,
+                "15d": counts15d}
     # each kernel's launches from the path of the slice that ported it
     counts: dict[str, int] = {}
     for s_no, names in KERNELS.items():

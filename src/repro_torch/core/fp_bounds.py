@@ -92,3 +92,31 @@ def attention_tol(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tol = (2 * delta[..., None] + 2 * gamma(T + 1) + r) * A
     tol = tol.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
     return tol[:, :, 0] if flat else tol
+
+
+def decode_lse_tol(q: torch.Tensor, k: torch.Tensor, length,
+                   scale: float | None = None) -> torch.Tensor:
+    """Bound on the distance between two f32 evaluations of a decode
+    block's lse (``flash_decode_partial``'s second output: log sum_j
+    exp(s_j) over the rows < ``length``), q (B, 1, H, D) against k (B, T,
+    KV, D), in the layout of lse (B, 1, H).  Each exp(s_j) is off by the
+    relative delta of :func:`attention_tol`, the sum over T rows by
+    gamma_{T+1}: the sum by (delta + gamma_{T+1}) relative, its log by as
+    much absolute, for each evaluation, plus the roundings of the log and
+    of m + log l (u (|lse| + 1) each).  Returns float64; zero where no row
+    is live (both give -inf)."""
+    B, _, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qd = q.double().reshape(B, 1, KV, H // KV, D)
+    kd = k.double()
+    s = torch.einsum("bskgd,btkd->bkgst", qd, kd) * scale
+    qk = torch.einsum("bskgd,btkd->bkgst", qd.abs(), kd.abs()) * scale
+    live = torch.arange(T, device=q.device) < length
+    delta = (2 * gamma(D) * qk.masked_fill(~live, 0).amax(dim=-1)
+             + U32 * (4 * s.masked_fill(~live, 0).abs().amax(dim=-1) + 8))
+    lse = torch.logsumexp(s.masked_fill(~live, float("-inf")), dim=-1)
+    tol = 2 * (delta + gamma(T + 1)) + 4 * U32 * (lse.abs() + 1)
+    tol = torch.where(live.any(), tol, torch.zeros_like(tol))
+    return tol.permute(0, 3, 1, 2).reshape(B, 1, H)

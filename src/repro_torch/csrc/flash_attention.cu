@@ -6,7 +6,12 @@
 //                           non-causal attention of S queries over Sk keys;
 //   flash_attention_decode  flash_decode (body _fa_decode_kernel): one query
 //                           per head against a KV cache whose positions
-//                           >= length are masked, length a runtime operand.
+//                           >= length are masked, length a runtime operand;
+//   flash_attention_decode_partial  the same over one block of a cache
+//                           whose rows are spread over ranks: (o, lse) in
+//                           f32 for a combine across the blocks, in place
+//                           of the normalised out (GSPMD's distributed
+//                           flash decode of the Pallas kernel).
 //
 // What all of them compute is the Pallas body, step for step:
 //   s = (q . k in f32) * scale; masked entries are -1e30;
@@ -842,6 +847,7 @@ struct DecodeArgs {
   int rows;    // rows of a split
   int64_t q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_sh;
   float scale;
+  float* lse;  // (B, H), or null: the partial mode (see the combine)
 };
 
 // VEC elements of one 16-byte load, widened to f32
@@ -1044,7 +1050,11 @@ decode_split_kernel(const DecodeArgs a) {
 
 // out[b, h] = sum_s acc_s w_s / max(sum_s l_s w_s, 1e-30), w_s = exp(m_s - M):
 // one block per (head, batch); the splits' weights are staged in shared
-// memory first, so the column sums issue their loads independently
+// memory first, so the column sums issue their loads independently.  In
+// the partial mode (a.lse set, T = float) it writes the same out in f32
+// and lse[b, h] = M + log(sum_s l_s w_s), the pair a block of cache rows
+// gives for a combine across blocks; with length <= 0 there is no row to
+// attend to, and it writes out = 0, lse = -inf.
 template <typename T>
 __global__ void decode_combine_kernel(const DecodeArgs a) {
   extern __shared__ float w[];  // splits <= 12288: 48 KB
@@ -1083,7 +1093,27 @@ __global__ void decode_combine_kernel(const DecodeArgs a) {
   for (int s = 0; s < a.splits; ++s)
     asum = fmaf(part[s * stride + 2 + d], w[s], asum);
   T* og = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
+  if (a.lse != nullptr && *a.length <= 0) {
+    og[d] = from_f32<T>(0.0f);
+    if (d == 0) a.lse[b * a.H + h] = __int_as_float(0xff800000);  // -inf
+    return;
+  }
   og[d] = from_f32<T>(asum / fmaxf(lsum, 1e-30f));
+  if (a.lse != nullptr && d == 0) a.lse[b * a.H + h] = mx + logf(lsum);
+}
+
+// The combine after a split kernel: into out in the element type T, or,
+// in the partial mode, into f32 (o, lse)
+template <typename T>
+cudaError_t launch_combine(const DecodeArgs& a, cudaStream_t s) {
+  const dim3 grid(a.H, a.B);
+  const int threads = (a.D + 31) / 32 * 32;
+  const size_t smem = a.splits * sizeof(float);
+  if (a.lse != nullptr)
+    decode_combine_kernel<float><<<grid, threads, smem, s>>>(a);
+  else
+    decode_combine_kernel<T><<<grid, threads, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1355,10 +1385,7 @@ cudaError_t launch_decode_mma(const DecodeArgs& a, cudaStream_t s) {
   decode_mma_kernel<DP><<<grid, kMmaThreads, smem, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<__nv_bfloat16>
-      <<<dim3(a.H, a.B), (a.D + 31) / 32 * 32, a.splits * sizeof(float),
-         s>>>(a);
-  return cudaGetLastError();
+  return launch_combine<__nv_bfloat16>(a, s);
 }
 
 cudaError_t dispatch_decode_mma(const DecodeArgs& a, cudaStream_t s) {
@@ -1379,9 +1406,7 @@ cudaError_t launch_decode(const DecodeArgs& a, cudaStream_t s) {
   decode_split_kernel<T><<<grid, kThreads, smem, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<T><<<dim3(a.H, a.B), (a.D + 31) / 32 * 32,
-                             a.splits * sizeof(float), s>>>(a);
-  return cudaGetLastError();
+  return launch_combine<T>(a, s);
 }
 
 }  // namespace
@@ -1407,12 +1432,15 @@ extern "C" int flash_attention_fwd(
   }
 }
 
-extern "C" int flash_attention_decode(
-    const void* q, const void* k, const void* v, const void* length,
-    void* part, void* o, int dtype, int B, int T, int H, int KV, int D,
-    int splits, int rows, int64_t q_sb, int64_t q_sh, int64_t k_sb,
-    int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh,
-    int64_t o_sb, int64_t o_sh, float scale, void* stream) {
+namespace {
+
+int decode_entry(const void* q, const void* k, const void* v,
+                 const void* length, void* part, void* o, float* lse,
+                 int dtype, int B, int T, int H, int KV, int D, int splits,
+                 int rows, int64_t q_sb, int64_t q_sh, int64_t k_sb,
+                 int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st,
+                 int64_t v_sh, int64_t o_sb, int64_t o_sh, float scale,
+                 void* stream) {
   if (B <= 0 || T <= 0 || KV <= 0 || H % KV != 0 || D <= 0 || D % 8 != 0 ||
       D > 256 || B > 65535 || splits <= 0 || splits > 12288 || rows <= 0 ||
       static_cast<int64_t>(splits) * rows < T) {
@@ -1421,11 +1449,39 @@ extern "C" int flash_attention_decode(
   const DecodeArgs a{q, k, v, static_cast<const int32_t*>(length),
                      static_cast<float*>(part), o, B, T, H, H / KV, D,
                      splits, rows, q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st,
-                     v_sh, o_sb, o_sh, scale};
+                     v_sh, o_sb, o_sh, scale, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {  // the element type alone picks the kernel
     case kBf16: return static_cast<int>(dispatch_decode_mma(a, s));
     case kF32: return static_cast<int>(launch_decode<float>(a, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+extern "C" int flash_attention_decode(
+    const void* q, const void* k, const void* v, const void* length,
+    void* part, void* o, int dtype, int B, int T, int H, int KV, int D,
+    int splits, int rows, int64_t q_sb, int64_t q_sh, int64_t k_sb,
+    int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh,
+    int64_t o_sb, int64_t o_sh, float scale, void* stream) {
+  return decode_entry(q, k, v, length, part, o, nullptr, dtype, B, T, H, KV,
+                      D, splits, rows, q_sb, q_sh, k_sb, k_st, k_sh, v_sb,
+                      v_st, v_sh, o_sb, o_sh, scale, stream);
+}
+
+// The partial mode: o (f32, strides o_sb, o_sh) and lse (f32, (B, H)
+// contiguous) of the rows < length, for a combine across row blocks
+extern "C" int flash_attention_decode_partial(
+    const void* q, const void* k, const void* v, const void* length,
+    void* part, void* o, void* lse, int dtype, int B, int T, int H, int KV,
+    int D, int splits, int rows, int64_t q_sb, int64_t q_sh, int64_t k_sb,
+    int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh,
+    int64_t o_sb, int64_t o_sh, float scale, void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return decode_entry(q, k, v, length, part, o, static_cast<float*>(lse),
+                      dtype, B, T, H, KV, D, splits, rows, q_sb, q_sh, k_sb,
+                      k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_sh, scale,
+                      stream);
 }

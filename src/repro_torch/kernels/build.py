@@ -88,6 +88,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
         + [_F, _I, _P],
         "flash_attention_decode": [_P] * 6 + [_I] * 8 + [_I64] * 10
         + [_F, _P],
+        "flash_attention_decode_partial": [_P] * 7 + [_I] * 8
+        + [_I64] * 10 + [_F, _P],
     },
 }
 

@@ -7,9 +7,14 @@ its plain PyTorch version (:mod:`.ref`):
   online-softmax attention (Pallas ``flash_attention``);
 * :func:`flash_decode` / :func:`decode_ref` — one query per head against a
   KV cache whose positions ``>= length`` are masked (Pallas
-  ``flash_decode``); ``length`` stays on the device.
+  ``flash_decode``); ``length`` stays on the device;
+* :func:`flash_decode_partial` / :func:`decode_partial_ref` — the same
+  kernel over one block of cache rows, in its partial mode: the f32 pair
+  ``(o, lse)`` that a decode over a cache spread over ranks along its
+  rows combines (:func:`combine_partials`), where GSPMD partitions the
+  Pallas kernel's softmax.
 
-Both take the Pallas layout, q, k, v of shape ``(BH, S, D)``, or the
+All take the Pallas layout, q, k, v of shape ``(BH, S, D)``, or the
 model's, q ``(B, S, H, D)`` against k, v ``(B, Sk, KV, D)``, any strides
 with the last one 1: query head h reads KV head ``h // (H // KV)``, so the
 GQA repeat costs no copy and a slice of the fused QKV projection or a
@@ -17,12 +22,13 @@ layer of the stacked KV cache is passed as it lies.
 
 Each wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor, or raises; ``launches`` counts wrapper calls that launched.
-Each is also a custom op (:func:`prefill_op`, :func:`decode_op`: the
-plain version on the CPU, the kernel on the card, shapes on the meta
-device, a FLOP formula and a DTensor sharding rule), which the wrappers
-call for DTensors and fake tensors, so a model under a mesh, or under
-FakeTensorMode, runs and traces through them; plain tensors skip the
-dispatcher.
+Each is also a custom op (:func:`prefill_op`, :func:`decode_op`,
+:func:`decode_partial_op`: the plain version on the CPU, the kernel on
+the card, shapes on the meta device, a FLOP formula; the first two a
+DTensor sharding rule, the third runs on each rank's shards inside a
+``local_map``), which the wrappers call for DTensors and fake tensors
+(the third also for meta tensors), so a model under a mesh, or under FakeTensorMode, runs and
+traces through them; plain tensors skip the dispatcher.
 
 The prefill kernel is chosen by the element type alone, never by a
 failure: bf16 runs ``fwd_tc_kernel`` on the tensor cores (wgmma, its tiles
@@ -32,7 +38,8 @@ outside the tensor cores (TF32 would break the f32 tolerance).  A decode
 call launches two kernels, counted once: a split kernel over row splits of
 the cache (:func:`decode_split` picks them from T and the grid, never
 from ``length``; bf16 on ``mma.sync``, f32 on FMA) and
-``decode_combine_kernel``, which sums the splits.
+``decode_combine_kernel``, which sums the splits (in the partial mode
+into ``(o, lse)``).
 """
 
 from __future__ import annotations
@@ -46,7 +53,8 @@ from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
+from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
+    attention_ref, combine_partials, decode_partial_ref, decode_ref)
 from repro_torch.kernels.tm_affine.tm_affine import DTYPE_CODES
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -170,39 +178,52 @@ def _prefill_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _decode_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   length, scale: float | None) -> torch.Tensor:
+                   length, scale: float | None, partial: bool = False):
     """One decode launch (its split and combine kernels), or an
-    exception."""
+    exception: out in q's type, or with ``partial`` the f32 pair
+    ``(o, lse)`` of :func:`flash_decode_partial`."""
+    name = "flash_decode_partial" if partial else "flash_decode"
     lib = build.library("flash_attention")  # a kernel that cannot be built raises
-    q4, k4, v4, flat = _operands("flash_decode", q, k, v)
+    q4, k4, v4, flat = _operands(name, q, k, v)
     B, S, H, D = q4.shape
     T, KV = k4.shape[1], k4.shape[2]
     if S != 1:
-        raise ValueError(f"flash_decode: one query per head, got S = {S}")
+        raise ValueError(f"{name}: one query per head, got S = {S}")
     # the kernel reads k, v rows 16 bytes at a time
-    _require_aligned("flash_decode", ((k4, "k"), (v4, "v")),
-                     16 // k4.element_size())
+    _require_aligned(name, ((k4, "k"), (v4, "v")), 16 // k4.element_size())
     if isinstance(length, torch.Tensor):
         if length.numel() != 1 or length.dtype.is_floating_point:
-            raise ValueError("flash_decode: length must be one integer")
+            raise ValueError(f"{name}: length must be one integer")
         length = length.reshape(1).to(device=q.device, dtype=torch.int32)
     else:  # any length <= 0 masks all rows alike, any >= T none
         length = torch.full((1,), max(-1, min(int(length), T)),
                             dtype=torch.int32, device=q.device)
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    out = torch.empty(q4.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty(q4.shape, dtype=torch.float32 if partial else q.dtype,
+                      device=q.device)
     rows, splits = decode_plan(B, T, H, KV, q.device, q.dtype)
     part = torch.empty((B, H, splits, D + 2), dtype=torch.float32,
                        device=q.device)  # each split's m, l and acc
-    rc = lib.flash_attention_decode(
-        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), length.data_ptr(),
-        part.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype], B, T, H, KV,
-        D, splits, rows, q4.stride(0), q4.stride(2), *k4.stride()[:3],
-        *v4.stride()[:3], out.stride(0), out.stride(2), scale, _stream(q))
-    build.check(rc, "flash_decode")
+    args = (DTYPE_CODES[q.dtype], B, T, H, KV, D, splits, rows,
+            q4.stride(0), q4.stride(2), *k4.stride()[:3], *v4.stride()[:3],
+            out.stride(0), out.stride(2), scale, _stream(q))
+    ptrs = (q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), length.data_ptr(),
+            part.data_ptr(), out.data_ptr())
+    if partial:
+        lse = torch.empty((B, 1, H), dtype=torch.float32, device=q.device)
+        rc = lib.flash_attention_decode_partial(*ptrs, lse.data_ptr(), *args)
+        build.check(rc, name)
+        flash_decode_partial.launches += 1
+        return (out[:, :, 0], lse[:, :, 0]) if flat else (out, lse)
+    rc = lib.flash_attention_decode(*ptrs, *args)
+    build.check(rc, name)
     flash_decode.launches += 1
     return out[:, :, 0] if flat else out
+
+
+def _decode_partial_launch(q, k, v, length, scale):
+    return _decode_launch(q, k, v, length, scale, partial=True)
 
 
 
@@ -242,6 +263,23 @@ def _(q, k, v, length, scale):
     return q.new_empty(q.shape)
 
 
+@torch.library.custom_op("repro_torch::flash_decode_partial",
+                         mutates_args=(), device_types="cpu")
+def decode_partial_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      length: torch.Tensor, scale: float | None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    return decode_partial_ref(q, k, v, length, scale=scale)
+
+
+decode_partial_op.register_kernel("cuda")(_decode_partial_launch)
+
+
+@decode_partial_op.register_fake
+def _(q, k, v, length, scale):
+    return (q.new_empty(q.shape, dtype=torch.float32),
+            q.new_empty(q.shape[:-1], dtype=torch.float32))
+
+
 def _attention_flops(q_shape, k_shape) -> int:
     """Both products, QK^T and PV, over every key (the causal mask's skip
     uncounted, as FlopCounterMode counts ``scaled_dot_product_attention``):
@@ -256,6 +294,11 @@ def _(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_decode)
+def _(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
+    return _attention_flops(q_shape, k_shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode_partial)
 def _(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
     return _attention_flops(q_shape, k_shape)
 
@@ -321,5 +364,30 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return decode_op(q, k, v, length, scale)
 
 
+def flash_decode_partial(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, length, *,
+                         scale: float | None = None):
+    """:func:`flash_decode` over one block of a cache's rows, as the f32
+    pair ``(o, lse)`` (:func:`decode_partial_ref`): the attention over the
+    rows < ``length``, normalised, and the log of its softmax denominator;
+    ``o = 0, lse = -inf`` where ``length <= 0``.  A decode over a cache
+    whose rows are spread over ranks runs it on each rank's rows and
+    combines the pairs (:func:`combine_partials`).  CPU tensors: the plain
+    version; CUDA tensors: the kernel (the split kernel of
+    :func:`flash_decode` and its combine in the partial mode), or an
+    exception; DTensors, fake tensors and meta tensors (a rank's shards
+    in the dry-run, inside a ``local_map``): :func:`decode_partial_op`
+    (its fake)."""
+    if not (build.through_op(q, k, v) or q.is_meta):
+        if q.device.type == "cpu":
+            return decode_partial_ref(q, k, v, length, scale=scale)
+        return _decode_partial_launch(q, k, v, length, scale)
+    if not isinstance(length, torch.Tensor):
+        length = torch.full((1,), max(-1, min(int(length), k.shape[1])),
+                            dtype=torch.int32, device=q.device)
+    return decode_partial_op(q, k, v, length, scale)
+
+
 flash_attention.launches = 0
 flash_decode.launches = 0
+flash_decode_partial.launches = 0

@@ -61,6 +61,7 @@ _FREE = {
 _FREE_NAMES = {"wait_tensor", "_wrap_tensor_autograd"}
 _DOTS = {aten.mm, aten.bmm, aten.addmm, aten.baddbmm}
 _READS = {aten.index, aten.gather, aten.index_select, aten.embedding,
+          aten._embedding_bag, aten._embedding_bag_forward_only,
           aten.take_along_dim}
 _WINDOW_WRITES = {aten.copy_, aten.slice_scatter, aten.select_scatter,
                   aten.index_put, aten.index_put_, aten.scatter,
@@ -152,9 +153,11 @@ class CostCounter(TorchDispatchMode):
             return NotImplemented       # DTensor runs it; its local ops come back
         out = func(*args, **kwargs)
         ins = _tensors((args, kwargs))
-        if any(isinstance(t, FakeTensor) for t in ins):
-            return out                  # DTensor's shape propagation, not work
         outs = _tensors(out)
+        if any(isinstance(t, FakeTensor) for t in ins + outs):
+            # DTensor's shape propagation (fake tensors of the global
+            # shape, an allocation among them), not work
+            return out
         for t in outs:
             self._track(t)
         self._count(func, args, kwargs, ins, outs, out)

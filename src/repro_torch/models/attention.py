@@ -29,9 +29,12 @@ import torch
 
 from repro_torch.core.executor import resolve_device
 from repro_torch.kernels.flash_attention.flash_attention import (
-    flash_attention, flash_decode)
+    combine_partials, flash_attention, flash_decode, flash_decode_partial,
+    prefill_op)
 from repro_torch.models.layers import _norm_init, apply_rope
-from repro_torch.runtime.sharding import resolves_to, shard, whole_seq
+from repro_torch.runtime.sharding import (all_reduce_over, local,
+                                          local_block, ranks_of, shard,
+                                          spec_of, whole_seq, with_partial)
 
 NEG_INF = -1e30
 ATTENTION = ("flash", "plain")
@@ -52,15 +55,54 @@ ATTENTION_SPECS = {"wqkv": ("embed_fsdp", "heads"),
 
 def qkv_split(p, x, n_heads: int, n_kv: int, head_dim: int):
     """Fused projection + TM Split + head-layout reshape: q, k, v are views
-    of the one product (B, S, (H + 2 KV) Hd)."""
+    of the one product (B, S, (H + 2 KV) Hd).
+
+    Under rules that spread the heads over more than one rank, slicing
+    the product, whose shards do not end at the bands' edges, gathers it
+    whole: every head then runs on every rank.  Where that activation
+    gather would move more than a gather of the weight
+    (:func:`_split_first`), the split comes first instead: ``wqkv``'s
+    columns are gathered once, q is the product of x with its q band
+    sharded as "heads", so each rank computes its own heads, as GSPMD
+    keeps them (gathered after the product where they do not divide the
+    ranks), and k and v come from one product with the k and v bands,
+    sharded then gathered as "kv_heads" lays them out."""
+    q_end = n_heads * head_dim
+    if _split_first(p["wqkv"], x, q_end):
+        x = whole_seq(x)
+        B, S, _ = x.shape
+        w = shard(p["wqkv"], ("embed_fsdp", None))
+        q = x @ shard(w[:, :q_end], ("embed_fsdp", "heads"))
+        even = n_heads % ranks_of("heads") == 0
+        q = shard(q, ("batch", None, "heads" if even else None))
+        kv = x @ shard(w[:, q_end:], ("embed_fsdp", "heads"))
+        kv = shard(kv, ("batch", None, "kv_heads"))
+        k, v = torch.chunk(kv, 2, dim=-1)
+        return (q.view(B, S, n_heads, head_dim),
+                k.view(B, S, n_kv, head_dim), v.view(B, S, n_kv, head_dim))
     qkv = shard(whole_seq(x) @ p["wqkv"], ("batch", None, "heads"))
     B, S, _ = qkv.shape
-    q_end = n_heads * head_dim
     k_end = q_end + n_kv * head_dim
     q = qkv[..., :q_end].view(B, S, n_heads, head_dim)       # TM Split band 0
     k = qkv[..., q_end:k_end].view(B, S, n_kv, head_dim)     # band 1
     v = qkv[..., k_end:].view(B, S, n_kv, head_dim)          # band 2
     return q, k, v
+
+
+def _split_first(w, x, q_end: int) -> bool:
+    """Whether :func:`qkv_split` splits the weight before the product:
+    where the rules spread the heads over more than one rank and a rank
+    would gather fewer elements that way (its weight rows times the fused
+    columns, plus its activation rows times the k and v columns) than by
+    gathering the product (its activation rows times the fused columns):
+    prefill and training, where the rows of x outnumber the weight's; a
+    decode step's few rows gather the product."""
+    n = ranks_of("heads")
+    if n == 1:
+        return False
+    rows = x.shape[0] * x.shape[1] // ranks_of("batch")
+    d, fused = w.shape[0] // ranks_of("embed_fsdp"), w.shape[1]
+    return d * fused + rows * (fused - q_end) < rows * fused
 
 
 def _grouped_scores(q, k, scale):
@@ -172,6 +214,65 @@ def band_start(cache_index: int, T: int, S: int) -> int:
     return min(max(start, 0), T - S)
 
 
+CACHE_AXES = ("batch", "kv_seq", "kv_heads", None)
+
+
+def _rows_spread() -> bool:
+    """Whether the rules spread a cache's rows over a mesh axis
+    (``kv_seq``: "model" in decode, "data" in long-context decode)."""
+    spec = spec_of(("kv_seq",))
+    return bool(spec) and spec[0] is not None
+
+
+def _band_write(c, t, start: int, inplace: bool):
+    """The band ``t`` (B, S, KV, D) into rows [start, start + S) of the
+    cache ``c`` whose rows the rules spread over ranks: each rank writes
+    the part of the band that falls in its own block of rows, at its own
+    coordinates, and moves nothing (the block's offset is the host's).  In
+    place into ``c``'s shards, or, without ``inplace``, into a new cache
+    (``slice_scatter``)."""
+    S = t.shape[1]
+    offset, rows = local_block(c.shape, CACHE_AXES, 1)
+    lo = min(max(start, offset), offset + rows)
+    hi = max(min(start + S, offset + rows), lo)
+
+    def write(c, t):
+        band = t[:, lo - start:hi - start].to(c.dtype)
+        if inplace:
+            c[:, lo - offset:hi - offset] = band
+            return c
+        return torch.slice_scatter(c, band, dim=1, start=lo - offset,
+                                   end=hi - offset)
+
+    return local(write, (CACHE_AXES, ("batch", None, "kv_heads", None)),
+                 CACHE_AXES)(c, t)
+
+
+def _decode_over_rows(q, ck, cv, kv_len: int):
+    """:func:`flash_decode` against a cache whose rows the rules spread
+    over ranks, GSPMD's distributed flash decode: each rank runs
+    :func:`flash_decode_partial` on its own rows, up to its local length
+    ``clamp(kv_len - offset, 0, rows)`` (a rank with none gives ``o = 0,
+    lse = -inf``), and the ranks combine their ``(o, lse)`` as the
+    decode kernel combines its splits (:func:`combine_partials`): an
+    all-reduce of the max of lse, then one of the weighted o and the
+    weights, B x H x (D + 1) floats whatever the cache's length.  q's
+    heads are gathered first, since each rank holds every KV head of its
+    rows."""
+    offset, rows = local_block(ck.shape, CACHE_AXES, 1)
+    length = max(0, min(kv_len - offset, rows))
+
+    def attend(q, k, v):
+        o, lse = flash_decode_partial(q, k, v, length)
+        return combine_partials(
+            o, lse, q.dtype,
+            amax=lambda t: all_reduce_over(t, "max", "kv_seq"),
+            total=lambda t: all_reduce_over(t, "sum", "kv_seq"))
+
+    whole = ("batch", None, None, None)
+    return local(attend, (whole, CACHE_AXES, CACHE_AXES), whole)(q, ck, cv)
+
+
 def attention_block(p, x, inv_freq, *, n_heads: int, n_kv: int,
                     head_dim: int, positions=None, cache=None,
                     cache_index: int | None = None, causal: bool = True,
@@ -211,7 +312,13 @@ def attention_block(p, x, inv_freq, *, n_heads: int, n_kv: int,
     if cache is not None:
         # TM Route: write the new band into the KV cache at cache_index
         start = band_start(cache_index, cache["k"].shape[1], S)
-        if inplace:
+        rows = _rows_spread()
+        if rows:
+            new_cache = {n: _band_write(cache[n], t, start, inplace)
+                         for n, t in (("k", k), ("v", v))}
+            if inplace:
+                new_cache = cache
+        elif inplace:
             cache["k"][:, start:start + S] = k
             cache["v"][:, start:start + S] = v
             new_cache = cache
@@ -222,36 +329,75 @@ def attention_block(p, x, inv_freq, *, n_heads: int, n_kv: int,
         if S == 1:
             kv_len = cache_index + S
             ck, cv = new_cache["k"], new_cache["v"]
-            # decode only, where the rules put the cache rows over "model"
-            # (the JAX package's constraint against the propagator losing
-            # the cache's batch sharding through the band write)
-            if resolves_to("kv_seq", "model"):
-                cache_axes = ("batch", "kv_seq", "kv_heads", None)
-                ck, cv = shard(ck, cache_axes), shard(cv, cache_axes)
-                new_cache = {"k": ck, "v": cv}
-            out = (flash_decode(q, ck, cv, kv_len) if flash
-                   else full_attention(q, ck, cv, causal=False,
-                                       kv_len=kv_len))
+            if rows and flash:
+                out = _decode_over_rows(q, ck, cv, kv_len)
+            elif flash:
+                out = flash_decode(q, ck, cv, kv_len)
+            else:
+                out = full_attention(q, ck, cv, causal=False, kv_len=kv_len)
             return _out_proj(p, out.reshape(B, S, n_heads * head_dim)), \
                 new_cache
         # prefill: causal within the fresh segment (the cache is empty
         # before cache_index == 0)
     if flash:
-        out = flash_attention(q, k, v, causal=causal)
+        attend = lambda q, k, v: _flash(q, k, v, causal)  # noqa: E731
     elif S > 2048 and causal and triangular:
-        out = chunked_attention_triangular(q, k, v, chunk=chunk)
+        attend = lambda q, k, v: chunked_attention_triangular(  # noqa: E731
+            q, k, v, chunk=chunk)
     elif S > 2048:
-        out = chunked_attention(q, k, v, causal=causal, chunk=chunk)
+        attend = lambda q, k, v: chunked_attention(  # noqa: E731
+            q, k, v, causal=causal, chunk=chunk)
     else:
-        out = full_attention(q, k, v, causal=causal)
+        attend = lambda q, k, v: full_attention(  # noqa: E731
+            q, k, v, causal=causal)
+    if _split_first(p["wqkv"], x, n_heads * head_dim) and \
+            n_heads % ranks_of("heads") == 0:
+        out = _own_heads(attend, q, k, v, n_heads // n_kv)
+    else:
+        out = attend(q, k, v)
     return _out_proj(p, out.reshape(B, S, n_heads * head_dim)), new_cache
+
+
+def _flash(q, k, v, causal: bool):
+    """:func:`flash_attention`; a rank's meta shards (the dry-run, inside
+    :func:`_own_heads`' ``local_map``) through its custom op, whose fake
+    gives the shape."""
+    if q.is_meta:
+        return prefill_op(q, k, v, causal, None)
+    return flash_attention(q, k, v, causal=causal)
+
+
+def _own_heads(attend, q, k, v, G: int):
+    """``attend(q, k, v)`` where q's heads lie over ranks and k and v are
+    whole (:func:`qkv_split`'s split-first layout): each rank attends with
+    its own query heads over the KV heads they read (a view where its
+    heads hold whole groups of G, else those heads gathered), as a
+    ``local_map``, so that no product folds a sharded heads dim into its
+    batch (which PyTorch 2.11's DTensor refuses) and the heads are never
+    gathered.  The gradients of k and v are each rank's share, summed
+    over the heads' ranks."""
+    heads = ("batch", None, "heads", None)
+    kv = ("batch", None, "kv_heads", None)
+    lo, n = local_block(q.shape, heads, 2)
+
+    def local_attend(q, k, v):
+        if lo % G == 0 and n % G == 0:
+            k, v = (t[:, :, lo // G:(lo + n) // G] for t in (k, v))
+        else:
+            own = torch.arange(lo, lo + n, device=q.device) // G
+            k, v = k[:, :, own], v[:, :, own]
+        return attend(q, k, v)
+
+    return local(local_attend, (heads, kv, kv), heads,
+                 in_grad=(None, with_partial(kv, "heads"),
+                          with_partial(kv, "heads")))(q, k, v)
 
 
 def _out_proj(p, out):
     """The output projection, its input laid out as ``wo``'s rows (heads
-    over "model" under the rules): a row-parallel product whose gradient
-    reaches the attention heads gathered, as its forward computed them
-    (the fused QKV product's heads are gathered when sliced)."""
+    over "model" under the rules): a row-parallel product, its input a
+    local chunk of heads the attention computed whole, or its own heads
+    where the attention kept them sharded."""
     return shard(out, ("batch", None, "heads")) @ p["wo"]
 
 

@@ -15,7 +15,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.runtime.sharding import shard, whole_seq
+from repro_torch.runtime.sharding import (local, local_block, ranks_of,
+                                          reduce_scatter_over, shard,
+                                          spec_of, whole_seq, with_partial)
 
 
 def _norm_init(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
@@ -78,14 +80,46 @@ EMBED_SPECS = {"e": ("vocab", "embed")}
 
 
 def embed(p, tokens):
-    """Rows of the table (``jnp.take``'s), through ``F.embedding``, from
-    the table whole over its vocab shards (under the rules ``vocab`` is
-    sharded over "model").  On a mesh, PyTorch 2.11's DTensor has no
-    working backward for an index into a table (an accumulating
-    ``index_put``) nor for a lookup into a vocab-sharded one (a masked
-    partial sum it cannot reduce into), so the table is gathered first
-    and its gradient reduce-scattered back."""
-    return F.embedding(tokens, shard(p["e"], (None, "embed")))
+    """Rows of the table (``jnp.take``'s), through ``F.embedding``.
+
+    Where the rules spread the vocab over mesh axes ("model"), a
+    vocab-parallel lookup (:func:`local`): each rank reads only its own
+    rows, tokens outside them read row 0 weighted 0 (one
+    ``embedding_bag``), and the partial sums meet in an all-reduce, or,
+    where the sequence lies over the same axis, in a reduce-scatter into
+    the sequence-sharded activations, the tokens taken in the order of
+    its blocks so that it scatters along dim 0 with no copy.  Its
+    backward runs on each rank's plain shard, a local index-accumulate,
+    so it needs no DTensor strategy for an index into a sharded table
+    (which PyTorch 2.11's DTensor lacks).  Outside a rules context,
+    ``F.embedding(tokens, table)``."""
+    e = p["e"]
+    vocab, seq = spec_of(("vocab", "seq")) or (None, None)
+    if vocab is None:
+        return F.embedding(tokens, e)
+    offset, _ = local_block(e.shape, EMBED_SPECS["e"], 0)
+    n = ranks_of("vocab")
+    scatter = isinstance(vocab, str) and seq == vocab and \
+        tokens.shape[1] % n == 0
+
+    def lookup(e, tokens):
+        B, S = tokens.shape
+        if scatter:   # (n, B, S / n): the reduce-scatter's blocks first
+            tokens = tokens.view(B, n, S // n).transpose(0, 1).contiguous()
+        ids = tokens - offset
+        hit = (ids >= 0) & (ids < e.shape[0])
+        x = F.embedding_bag(torch.where(hit, ids, 0).view(-1, 1), e,
+                            mode="sum", per_sample_weights=hit.view(
+                                -1, 1).to(e.dtype)).view(*ids.shape, -1)
+        if scatter:
+            x = reduce_scatter_over(x, "vocab")[0]
+        return x
+
+    out = ("batch", "seq", "embed") if scatter else \
+        with_partial(("batch", None, "embed"), "vocab")
+    return local(lookup, (EMBED_SPECS["e"], ("batch", None)), out,
+                 in_grad=(with_partial(EMBED_SPECS["e"], "batch"), None))(
+        e, tokens)
 
 
 def unembed(p, x, valid_vocab: int | None = None):

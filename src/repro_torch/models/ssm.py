@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _norm_init
-from repro_torch.runtime.sharding import shard, whole_seq
+from repro_torch.runtime.sharding import (local, local_block, ranks_of,
+                                          shard, whole_seq, with_partial)
 
 
 # ===========================================================================
@@ -226,6 +227,109 @@ def _wkv_chunk(s, rt, kt, vt, lat, u, tri):
     return s, y_intra + y_inter
 
 
+def _head_layout(B: int, S: int, H: int, K: int):
+    """``(split, merge)``: (B, S, H K) -> (B, S, Hp, K) and back, Hp the
+    heads the recurrence runs on.  Two views and Hp = H outside a
+    rules context or where the heads lie on one rank.  Where the rules
+    spread them over n ranks, ``split`` lays the heads dim out over them,
+    so that each rank runs the recurrence of its own heads
+    (:func:`_wkv_own_heads`); if n does not divide H, a product's sharded
+    H K dim would split heads between ranks, which DTensor cannot view,
+    so ``split`` gathers the dim first, views it and pads the heads with
+    zeros to Hp, the next multiple of n, as GSPMD pads them (40 heads over
+    16 ranks: 48, 3 a rank, the last 8 zero: the same work a rank as
+    uneven chunks of 3, but shards alike, which ``local_map`` needs), and
+    ``merge`` gathers the heads and drops the padding before the view
+    back.  A zero head (r, k, v 0, log-decay 0) keeps a zero state and
+    gives 0."""
+    n = ranks_of("heads")
+    heads = ("batch", None, "heads", None)
+    if n == 1:
+        return (lambda t: t.reshape(B, S, H, K),
+                lambda t: t.reshape(B, S, H * K))
+    if H % n == 0:
+        return (lambda t: shard(t.reshape(B, S, H, K), heads),
+                lambda t: t.reshape(B, S, H * K))
+    Hp = -(-H // n) * n
+    whole = ("batch", None, None, None)
+    pad = local(lambda t: F.pad(t, (0, 0, 0, Hp - H)), (whole,), whole)
+
+    def split(t):
+        t = shard(t, ("batch", None, None)).reshape(B, S, H, K)
+        return shard(pad(t), heads)
+
+    def merge(t):
+        t = shard(t, ("batch",) + (None,) * (t.ndim - 1))[..., :H, :]
+        # sharded again after the view (a chunk, no traffic), so that the
+        # gradient coming back, sharded along H K, is gathered before the
+        # view's backward
+        return shard(t.reshape(B, S, H * K), ("batch", None, "heads"))
+
+    return split, merge
+
+
+def _wkv_own_heads(state, r, k, v, la, u, chunk: int, chunked: bool):
+    """:func:`_wkv` where the rules spread the heads (r, k, v, la (B, S,
+    Hp, K), Hp of them, the last Hp - H zero) over ranks: each rank's
+    recurrence over its own heads, as a ``local_map``, since DTensor
+    (PyTorch 2.11's) cannot fold a sharded heads dim into a product's
+    batch.  ``u`` (H, K) and ``state`` (B, H, K, K) come whole and each
+    rank takes its own heads of them, zero past H; ``u``'s gradient is
+    each rank's share, summed over the heads' ranks.  Returns ``(state
+    (B, H, K, K), y)``, y laid out as r, chunked as :func:`_wkv`'s."""
+    H, Hp = u.shape[0], r.shape[2]
+    lo, n = local_block((Hp,), ("heads",), 0)
+    heads = ("batch", None, "heads", None)
+    whole = ("batch", None, None, None)
+
+    def own(t, dim):
+        if Hp > H:
+            t = F.pad(t, (0, 0) * (t.ndim - dim - 1) + (0, Hp - H))
+        return t.narrow(dim, lo, n)
+
+    def run(state, r, k, v, la, u):
+        return _wkv(None if state is None else own(state, 1), r, k, v, la,
+                    own(u, 0), chunk, chunked)
+
+    state, y = local(
+        run, (None if state is None else whole, heads, heads, heads, heads,
+              (None, None)),
+        [("batch", "heads", None, None),
+         ("batch", None, None, "heads", None) if chunked else heads],
+        in_grad=(None, None, None, None, None,
+                 with_partial((None, None), "heads")))(
+        state, r, k, v, la, u)
+    if Hp > H:
+        state = shard(state, whole)[:, :H]
+    return state, y
+
+
+def _wkv(state, r, k, v, la, u, chunk: int, chunked: bool):
+    """The wkv recurrence of r, k, v, la (B, S, H, K) f32 from ``state``
+    (B, H, K, K; zero where None): ``(state, y)``, y (B, S, H, K) from the
+    exact per-token recurrence, or, ``chunked``, (B, S // c, c, H, K) from
+    the chunked one (c the largest divisor of S up to ``chunk``)."""
+    B, S, H, K = r.shape
+    if state is None:
+        state = torch.zeros((B, H, K, K), dtype=torch.float32,
+                            device=r.device)
+    if not chunked:
+        return _wkv_steps(state, r, k, v, la, u)
+    c = chunk
+    while S % c:
+        c -= 1
+    nc = S // c
+    rc, kc, vc, lac = (t.reshape(B, nc, c, H, K) for t in (r, k, v, la))
+    tri = torch.tril(torch.ones((c, c), dtype=torch.float32,
+                                device=r.device), diagonal=-1)
+    ys = []
+    for i in range(nc):
+        state, yc = _wkv_chunk(state, rc[:, i], kc[:, i], vc[:, i],
+                               lac[:, i], u, tri)
+        ys.append(yc)
+    return state, torch.stack(ys, dim=1)
+
+
 def rwkv6_block(p, x, meta, *, x_prev=None, state=None, chunk: int = 64,
                 stepwise: bool = False):
     """x: (B, S, D) -> ``(out (B, S, D), x[:, -1:], state (B, H, K, K)
@@ -237,37 +341,19 @@ def rwkv6_block(p, x, meta, *, x_prev=None, state=None, chunk: int = 64,
     shifted = token_shift(x, x_prev)
     xr, xk, xv, xg, xw = _rwkv_mix(p, x, shifted)
     w_rkvg = _promoted(p["w_rkvg"], xr)
-    r = (xr @ w_rkvg[:, :D]).reshape(B, S, H, K)
-    k = (xk @ w_rkvg[:, D:2 * D]).reshape(B, S, H, K)
-    v = (xv @ w_rkvg[:, 2 * D:3 * D]).reshape(B, S, H, K)
+    split, merge = _head_layout(B, S, H, K)
+    r = split(xr @ w_rkvg[:, :D])
+    k = split(xk @ w_rkvg[:, D:2 * D])
+    v = split(xv @ w_rkvg[:, 2 * D:3 * D])
     g = xg @ w_rkvg[:, 3 * D:]
     w = -torch.exp(p["decay_base"] + (xw @ _promoted(p["w_decay"],
                                                      xw)).float())
-    la = w.reshape(B, S, H, K)             # log-decay (negative)
+    la = split(w)                          # log-decay (negative)
     r32, k32, v32 = r.float(), k.float(), v.float()
-    u = p["u_bonus"]
-    if state is None:
-        state = torch.zeros((B, H, K, K), dtype=torch.float32,
-                            device=x.device)
-
-    if stepwise or S == 1:
-        state, ys = _wkv_steps(state, r32, k32, v32, la, u)
-        y = ys.reshape(B, S, D)
-    else:
-        c = chunk
-        while S % c:
-            c -= 1
-        nc = S // c
-        rc, kc, vc, lac = (t.reshape(B, nc, c, H, K)
-                           for t in (r32, k32, v32, la))
-        tri = torch.tril(torch.ones((c, c), dtype=torch.float32,
-                                    device=x.device), diagonal=-1)
-        ys = []
-        for i in range(nc):
-            state, yc = _wkv_chunk(state, rc[:, i], kc[:, i], vc[:, i],
-                                   lac[:, i], u, tri)
-            ys.append(yc)
-        y = torch.stack(ys, dim=1).reshape(B, S, D)
+    chunked = not (stepwise or S == 1)
+    wkv = _wkv if ranks_of("heads") == 1 else _wkv_own_heads
+    state, ys = wkv(state, r32, k32, v32, la, p["u_bonus"], chunk, chunked)
+    y = merge(ys)
 
     y = y * F.silu(g.float())
     out = y.to(x.dtype) @ p["w_out"]

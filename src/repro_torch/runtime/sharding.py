@@ -34,8 +34,9 @@ import threading
 from typing import Sequence
 
 import torch
-from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
-                                      distribute_tensor)
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import (DTensor, Partial, Placement,
+                                      Replicate, Shard, distribute_tensor)
 from torch.distributed.tensor.experimental import (implicit_replication,
                                                    local_map)
 
@@ -150,30 +151,103 @@ def shard(x: torch.Tensor, names: Sequence[str | None]) -> torch.Tensor:
     return x.redistribute(mesh, want)
 
 
-def local(fn, in_names: Sequence, out_names):
+def local(fn, in_names: Sequence, out_names, in_grad: Sequence = None):
     """``fn`` run on each rank's shards (``local_map``) under the active
     rules: each DTensor argument redistributed to its ``in_names`` entry's
     placements (None for an argument that is not a tensor), the outputs
     made DTensors with ``out_names``' (one names tuple, or a list of them
-    for a tuple of outputs).  For code that is local to each rank's batch
-    rows but whose ops DTensor cannot propagate (an in-place scatter into a
-    table it makes).  Outside a rules context, ``fn`` itself; with plain
-    tensors, ``fn`` runs on them as they are."""
+    for a tuple of outputs).  An entry is logical names or a tuple of
+    placements (:func:`with_partial`).  ``in_grad``, one entry an
+    argument, gives the placements of the gradients ``fn``'s backward
+    returns where they are not the arguments' own (None: its own), as for
+    a replicated argument whose gradient is a sum over the ranks' batch
+    rows.  For code that is local to each rank's shards but whose ops
+    DTensor cannot propagate or would gather for (an in-place scatter
+    into a table it makes, a lookup into a vocab-sharded table).  Outside
+    a rules context, ``fn`` itself; with plain tensors, ``fn`` runs on
+    them as they are."""
     state = active()
     if state is None:
         return fn
     mesh, rules = state
 
     def placements(names):
-        return None if names is None else \
-            list(placements_of(_resolve(names, rules), mesh))
+        if names is None:
+            return None
+        if is_placements(names):
+            return list(names)
+        return list(placements_of(_resolve(names, rules), mesh))
 
     # local_map reads a tuple as one entry per output, a list as one output
     outs = tuple(placements(n) for n in out_names) \
         if isinstance(out_names, list) else placements(out_names)
+    grads = None if in_grad is None else tuple(
+        placements(n if g is None else g) for n, g in zip(in_names, in_grad))
     return local_map(fn, out_placements=outs,
                      in_placements=tuple(placements(n) for n in in_names),
-                     redistribute_inputs=True, device_mesh=mesh)
+                     in_grad_placements=grads, redistribute_inputs=True,
+                     device_mesh=mesh)
+
+
+def with_partial(names: Sequence[str | None], logical: str) -> tuple:
+    """The placements of ``names`` under the active rules, with a
+    ``Partial`` sum on the mesh axes ``logical`` maps onto: a result each
+    rank holds a share of, summed where it is next redistributed."""
+    mesh, rules = active()
+    axes = rules.get(logical) or ()
+    return tuple(Partial() if a in axes else p for a, p in zip(
+        mesh.mesh_dim_names, placements_of(_resolve(names, rules), mesh)))
+
+
+def local_block(shape: Sequence[int], names: Sequence[str | None],
+                dim: int) -> tuple[int, int]:
+    """This rank's block along ``dim`` of a tensor of global ``shape``
+    laid out by ``names`` under the active rules: ``(offset, extent)``,
+    DTensor's chunks of a ``Shard`` (the last ones shorter, or empty,
+    where the dim does not divide).  ``(0, shape[dim])`` outside a rules
+    context.  Host integers from the mesh coordinate: nothing waits on
+    the device."""
+    state = active()
+    offset, extent = 0, shape[dim]
+    if state is None:
+        return offset, extent
+    mesh, rules = state
+    for i, p in enumerate(placements_of(_resolve(names, rules), mesh)):
+        if isinstance(p, Shard) and p.dim == dim:
+            chunk = -(-extent // mesh.size(i))   # torch.chunk's
+            start = min(mesh.get_local_rank(i) * chunk, extent)
+            offset, extent = offset + start, min(chunk, extent - start)
+    return offset, extent
+
+
+def all_reduce_over(t: torch.Tensor, op: str, logical: str) -> torch.Tensor:
+    """A rank's plain tensor ``t`` (inside :func:`local`) reduced with
+    ``op`` (``"sum"``, ``"max"``) over the mesh axes that ``logical`` maps
+    onto under the active rules, one all-reduce an axis of more than one
+    rank; ``t`` itself where there is none."""
+    mesh, rules = active()
+    for axis in rules.get(logical) or ():
+        dim = mesh.mesh_dim_names.index(axis)
+        if mesh.size(dim) > 1:
+            t = funcol.all_reduce(t, op, (mesh, dim))
+    return t
+
+
+def reduce_scatter_over(t: torch.Tensor, logical: str) -> torch.Tensor:
+    """A rank's plain tensor ``t`` (inside :func:`local`) summed over the
+    one mesh axis ``logical`` maps onto and scattered along dim 0, with
+    a backward (the all-gather of the gradient); ``t`` itself where the
+    axis has one rank."""
+    mesh, rules = active()
+    axis, = rules[logical]
+    dim = mesh.mesh_dim_names.index(axis)
+    if mesh.size(dim) == 1:
+        return t
+    # PyTorch 2.13 deprecates the older name for the newer one; take
+    # whichever this PyTorch has
+    op = getattr(funcol, "reduce_scatter_single_autograd", None) or \
+        funcol.reduce_scatter_tensor_autograd
+    return op(t, "sum", 0, (mesh, dim))
 
 
 def whole_seq(x: torch.Tensor) -> torch.Tensor:
@@ -208,14 +282,19 @@ def _installed(state):
         _ctx.state = prev
 
 
-def resolves_to(logical: str, mesh_axis: str) -> bool:
-    """True iff ``logical`` maps onto ``mesh_axis`` under the active rules."""
+def ranks_of(logical: str) -> int:
+    """How many ranks ``logical`` is spread over under the active rules:
+    the product of the sizes of the mesh axes it maps onto (1 outside a
+    rules context, or where it is not sharded)."""
     state = active()
     if state is None:
-        return False
-    _, rules = state
-    m = rules.get(logical)
-    return bool(m) and mesh_axis in m
+        return 1
+    mesh, rules = state
+    sizes = mesh_axes(mesh)
+    n = 1
+    for axis in rules.get(logical) or ():
+        n *= sizes[axis]
+    return n
 
 
 def is_spec(t) -> bool:

@@ -1921,3 +1921,120 @@ def test_custom_ops_launch_their_kernels_on_card(cuda, full_f32):
                               dict(causal=False, length=37), q[:, :1])):
         err = (got.double() - ref.double()).abs()
         assert bool((err <= attention_tol(qq, k, v, **kw)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_partial_on_card(cuda, full_f32, dtype):
+    """flash_decode's partial mode at Phi-4-mini's decode shape, q (8, 1,
+    24, 128) against a (8, 1088, 8, 128) cache split into 4 row blocks,
+    each block's length on the device: each launch counted once, each
+    block's (o, lse) within attention_tol / decode_lse_tol of its plain
+    version (o = 0, lse = -inf exactly for a block with no live row), the
+    blocks combined within attention_tol of the whole-cache flash_decode,
+    at lengths that leave 0-3 blocks empty; a misaligned block raises and
+    launches nothing."""
+    from repro_torch.core.fp_bounds import decode_lse_tol
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    rng = np.random.RandomState(26)
+    T, blocks = 1088, 4
+    rows = T // blocks
+    q, k, v = _qkv(rng, 8, 1, T, 24, 8, 128, dtype, cuda)
+    for length in (1025, 5, rows, rows + 1, T):
+        n = torch.tensor([length], dtype=torch.int32, device=cuda)
+        os, lses = [], []
+        for b in range(blocks):
+            kb, vb = k[:, b * rows:(b + 1) * rows], v[:, b * rows:(b + 1) *
+                                                      rows]
+            live = max(0, min(length - b * rows, rows))
+            before = fa.flash_decode_partial.launches
+            o, lse = fa.flash_decode_partial(q, kb, vb,
+                                             (n - b * rows).clamp(0, rows))
+            ro, rl = fa.decode_partial_ref(q, kb, vb, live)
+            torch.cuda.synchronize()
+            assert fa.flash_decode_partial.launches == before + 1
+            assert o.dtype == lse.dtype == torch.float32
+            assert o.shape == q.shape and lse.shape == q.shape[:-1]
+            if live == 0:
+                assert torch.equal(o, torch.zeros_like(o))
+                assert bool(torch.isneginf(lse).all())
+            else:
+                ok, err = _within_attention_tol(o, ro, q, kb, vb,
+                                                causal=False, length=live)
+                assert ok, (length, b, err)
+                lerr = (lse.double() - rl.double()).abs()
+                assert bool((lerr <= decode_lse_tol(q, kb, live)).all()), \
+                    (length, b, float(lerr.max()))
+            os.append(o)
+            lses.append(lse)
+        comb = fa.combine_partials(torch.stack(os), torch.stack(lses),
+                                   q.dtype)
+        whole = fa.flash_decode(q, k, v, n)
+        ok, err = _within_attention_tol(comb, whole, q, k, v, causal=False,
+                                        length=length)
+        assert ok, (length, err)
+    odd = torch.zeros((8 * 16 * 8 * 128 + 1,), dtype=dtype, device=cuda)[
+        1:].view(8, 16, 8, 128)
+    before = fa.flash_decode_partial.launches
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_decode_partial(q, odd, odd, 3)
+    assert fa.flash_decode_partial.launches == before
+
+
+@pytest.mark.gpu
+def test_flash_decode_partial_op_launches_on_card(cuda):
+    """The custom op repro_torch::flash_decode_partial on CUDA tensors
+    launches the kernel (counted) and gives the wrapper's pair."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    rng = np.random.RandomState(27)
+    q, k, v = _qkv(rng, 2, 1, 128, 8, 2, 64, torch.bfloat16, cuda)
+    length = torch.tensor([37], dtype=torch.int32, device=cuda)
+    before = fa.flash_decode_partial.launches
+    o, lse = torch.ops.repro_torch.flash_decode_partial.default(
+        q, k, v, length, None)
+    want = fa.flash_decode_partial(q, k, v, length)
+    torch.cuda.synchronize()
+    assert fa.flash_decode_partial.launches == before + 2
+    assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
+
+
+@pytest.mark.gpu
+def test_card_mesh_decode_equals_plain_on_card(card_mesh):
+    """phi4-mini smoke's decode step on the (1, 1) card mesh under the
+    decode rules (the cache's rows over "model"): one flash_decode_partial
+    launch a layer and no flash_decode, the logits and both caches bit for
+    bit the plain step's on the same weights."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.mesh import rules_for_cell
+    from repro_torch.models.transformer import init_caches, init_lm, lm_specs
+    from repro_torch.runtime import sharding as tsh
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.runtime.step import make_decode_step, serve_state_specs
+    cfg = dataclasses.replace(get_smoke("phi4-mini-3.8b"),
+                              dtype=torch.bfloat16)
+    params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    caches = init_caches(cfg, 2, 64, dtype=cfg.dtype, device="cuda")
+    for t in caches.values():
+        t.normal_(generator=torch.Generator(device="cuda").manual_seed(1))
+    tok = torch.tensor([[3], [7]], dtype=torch.int32, device="cuda")
+    rules = rules_for_cell("decode")
+    placed = reshard_state(params, lm_specs(cfg), card_mesh, rules)
+    on_mesh = reshard_state({n: t.clone() for n, t in caches.items()},
+                            serve_state_specs(cfg)[0], card_mesh, rules)
+    step = make_decode_step(cfg)
+    with torch.no_grad():
+        _, want, caches, _ = step(params, tok, caches, None, 40)
+        before = (fa.flash_decode.launches, fa.flash_decode_partial.launches)
+        with tsh.use_rules(card_mesh, rules):
+            _, got, on_mesh, _ = step(placed, tsh.distribute(
+                tok, card_mesh, tsh.placements_of(
+                    tsh.spec_of(("batch", None)), card_mesh)),
+                on_mesh, None, 40)
+    torch.cuda.synchronize()
+    assert (fa.flash_decode.launches, fa.flash_decode_partial.launches) == \
+        (before[0], before[1] + cfg.n_layers)
+    assert torch.equal(got.full_tensor(), want)
+    for n in ("k", "v"):
+        assert torch.equal(on_mesh[n].full_tensor(), caches[n])

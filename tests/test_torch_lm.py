@@ -223,7 +223,8 @@ def test_flash_wrappers_raise_when_kernel_build_fails(monkeypatch, kernel):
 
 def test_flash_attention_library_is_built_with_the_others():
     assert set(build.SIGNATURES["flash_attention"]) == {
-        "flash_attention_fwd", "flash_attention_decode"}
+        "flash_attention_fwd", "flash_attention_decode",
+        "flash_attention_decode_partial"}
     assert build.library_path("flash_attention").name == \
         "libflash_attention.so"
 
