@@ -237,7 +237,10 @@ def _decode_partial_launch(q, k, v, length, scale):
                          device_types="cpu")
 def prefill_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                causal: bool, scale: float | None) -> torch.Tensor:
-    return attention_ref(q, k, v, causal=causal, scale=scale)
+    # contiguous, as the fake's result is: DTensor views a sharded result
+    # by the fake's strides (the plain version's is a transposed view
+    # where the heads are not grouped)
+    return attention_ref(q, k, v, causal=causal, scale=scale).contiguous()
 
 
 prefill_op.register_kernel("cuda")(_prefill_launch)

@@ -32,9 +32,10 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     combine_partials, flash_attention, flash_decode, flash_decode_partial,
     prefill_op)
 from repro_torch.models.layers import _norm_init, apply_rope
-from repro_torch.runtime.sharding import (all_reduce_over, local,
-                                          local_block, ranks_of, shard,
-                                          spec_of, whole_seq, with_partial)
+from repro_torch.runtime.sharding import (BANDS_WEIGHT, all_reduce_over,
+                                          band_layout, local, local_block,
+                                          ranks_of, shard, spec_of,
+                                          whole_seq, with_partial)
 
 NEG_INF = -1e30
 ATTENTION = ("flash", "plain")
@@ -53,22 +54,28 @@ ATTENTION_SPECS = {"wqkv": ("embed_fsdp", "heads"),
                    "wo": ("heads", "embed_fsdp")}
 
 
-def qkv_split(p, x, n_heads: int, n_kv: int, head_dim: int):
+def qkv_split(p, x, n_heads: int, n_kv: int, head_dim: int,
+              layout: str | None = None):
     """Fused projection + TM Split + head-layout reshape: q, k, v are views
     of the one product (B, S, (H + 2 KV) Hd).
 
-    Under rules that spread the heads over more than one rank, slicing
-    the product, whose shards do not end at the bands' edges, gathers it
-    whole: every head then runs on every rank.  Where that activation
-    gather would move more than a gather of the weight
-    (:func:`_split_first`), the split comes first instead: ``wqkv``'s
+    Under rules that spread the heads over more than one rank, the
+    product's shards do not end at the bands' edges, so it is gathered
+    whole, once (a slice of its sharded dim would gather it for each
+    band), and every head then runs on every rank.  Where that activation
+    gather would move more than a gather of the weight (``layout``, the
+    block's :func:`band_layout`, computed here where None, is
+    :data:`BANDS_WEIGHT`), the split comes first instead: ``wqkv``'s
     columns are gathered once, q is the product of x with its q band
     sharded as "heads", so each rank computes its own heads, as GSPMD
     keeps them (gathered after the product where they do not divide the
     ranks), and k and v come from one product with the k and v bands,
     sharded then gathered as "kv_heads" lays them out."""
     q_end = n_heads * head_dim
-    if _split_first(p["wqkv"], x, q_end):
+    if layout is None:
+        layout = band_layout(p["wqkv"], x, p["wqkv"].shape[1] - q_end,
+                             alike=False)
+    if layout == BANDS_WEIGHT:
         x = whole_seq(x)
         B, S, _ = x.shape
         w = shard(p["wqkv"], ("embed_fsdp", None))
@@ -81,28 +88,13 @@ def qkv_split(p, x, n_heads: int, n_kv: int, head_dim: int):
         return (q.view(B, S, n_heads, head_dim),
                 k.view(B, S, n_kv, head_dim), v.view(B, S, n_kv, head_dim))
     qkv = shard(whole_seq(x) @ p["wqkv"], ("batch", None, "heads"))
+    qkv = shard(qkv, ("batch", None, None))      # gathered once, then split
     B, S, _ = qkv.shape
     k_end = q_end + n_kv * head_dim
     q = qkv[..., :q_end].view(B, S, n_heads, head_dim)       # TM Split band 0
     k = qkv[..., q_end:k_end].view(B, S, n_kv, head_dim)     # band 1
     v = qkv[..., k_end:].view(B, S, n_kv, head_dim)          # band 2
     return q, k, v
-
-
-def _split_first(w, x, q_end: int) -> bool:
-    """Whether :func:`qkv_split` splits the weight before the product:
-    where the rules spread the heads over more than one rank and a rank
-    would gather fewer elements that way (its weight rows times the fused
-    columns, plus its activation rows times the k and v columns) than by
-    gathering the product (its activation rows times the fused columns):
-    prefill and training, where the rows of x outnumber the weight's; a
-    decode step's few rows gather the product."""
-    n = ranks_of("heads")
-    if n == 1:
-        return False
-    rows = x.shape[0] * x.shape[1] // ranks_of("batch")
-    d, fused = w.shape[0] // ranks_of("embed_fsdp"), w.shape[1]
-    return d * fused + rows * (fused - q_end) < rows * fused
 
 
 def _grouped_scores(q, k, scale):
@@ -301,7 +293,9 @@ def attention_block(p, x, inv_freq, *, n_heads: int, n_kv: int,
                          f"{attention!r}")
     flash = attention == "flash"
     B, S, _ = x.shape
-    q, k, v = qkv_split(p, x, n_heads, n_kv, head_dim)
+    layout = band_layout(p["wqkv"], x, p["wqkv"].shape[1] -
+                         n_heads * head_dim, alike=False)
+    q, k, v = qkv_split(p, x, n_heads, n_kv, head_dim, layout)
     if positions is None:
         base = 0 if cache_index is None else cache_index
         positions = (base + torch.arange(S, device=x.device)).expand(B, S)
@@ -350,8 +344,7 @@ def attention_block(p, x, inv_freq, *, n_heads: int, n_kv: int,
     else:
         attend = lambda q, k, v: full_attention(  # noqa: E731
             q, k, v, causal=causal)
-    if _split_first(p["wqkv"], x, n_heads * head_dim) and \
-            n_heads % ranks_of("heads") == 0:
+    if layout == BANDS_WEIGHT and n_heads % ranks_of("heads") == 0:
         out = _own_heads(attend, q, k, v, n_heads // n_kv)
     else:
         out = attend(q, k, v)

@@ -22,8 +22,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _norm_init
-from repro_torch.runtime.sharding import (local, local_block, ranks_of,
-                                          shard, whole_seq, with_partial)
+from repro_torch.runtime.sharding import (BANDS_PRODUCT, BANDS_WEIGHT,
+                                          BANDS_WHOLE, band_layout, local,
+                                          local_block, ranks_of, shard,
+                                          whole_seq, with_partial)
 
 
 # ===========================================================================
@@ -56,9 +58,19 @@ MAMBA2_SPECS = {"win": ("embed_fsdp", "mlp"), "wout": ("mlp", "embed_fsdp"),
 
 
 def _mamba2_split(p, u, meta):
-    """One product, TM Split into (z, x, B, C, dt) column bands (views)."""
+    """One product, TM Split into (z, x, B, C, dt) column bands (views).
+    The product, its columns over "mlp" under the rules, is gathered
+    once before the split: a band's slice of the sharded dim would gather
+    the whole product for each band.  Unlike attention's and RWKV6's
+    bands (:func:`band_layout`), the weight never goes first: the bands'
+    consumers (the depthwise conv over x, B and C together, the SSD scan,
+    the gated norm over z) run whole on every rank, so a product of the
+    gathered weight would have every rank compute the whole product, its
+    FLOPs times the "mlp" ranks, where the gather saves no more than the
+    product's bytes."""
     d_inner, d_state = meta["d_inner"], meta["d_state"]
     proj = shard(whole_seq(u) @ p["win"], ("batch", None, "mlp"))
+    proj = shard(proj, ("batch", None, None))
     z = proj[..., :d_inner]
     x = proj[..., d_inner:2 * d_inner]
     Bm = proj[..., 2 * d_inner:2 * d_inner + d_state]
@@ -191,6 +203,49 @@ def _promoted(w, x):
     return w.to(torch.promote_types(x.dtype, w.dtype))
 
 
+def _rwkv_bands(w, xs, layout: str, even: bool):
+    """RWKV6's fused projection, TM Split into its four column bands:
+    ``xs[b] @ w[:, b D:(b + 1) D]`` for the mixes r, k, v, g of ``xs`` and
+    ``w_rkvg`` (D, 4 D), ``w`` cast as :func:`_promoted`.  Where the rules
+    spread ``w``'s columns over ranks, a band's slice of them would gather
+    the whole weight for each band.  Instead, as the block's
+    :func:`band_layout` says, either (:data:`BANDS_WEIGHT`) the
+    columns are gathered once, in their own dtype, and each band is
+    sharded again over "heads" before its product, so that each rank
+    computes its own heads of it (where the heads divide the ranks,
+    ``even``: else the bands multiply whole, since :func:`_head_layout`
+    pads whole heads); or (:data:`BANDS_PRODUCT`) each rank multiplies
+    its own columns, cast there, by the mixes of the bands they belong
+    to, in one ``local``, and the (B, S, 4 D) product is gathered once and
+    split."""
+    D = w.shape[0]
+    if layout == BANDS_WEIGHT:
+        w = _promoted(shard(w, ("embed_fsdp", None)), xs[0])
+        cols = ("embed_fsdp", "heads" if even else None)
+        return [x @ shard(w[:, b * D:(b + 1) * D], cols)
+                for b, x in enumerate(xs)]
+    if layout == BANDS_WHOLE:
+        w = _promoted(w, xs[0])
+        return [x @ w[:, b * D:(b + 1) * D] for b, x in enumerate(xs)]
+    assert layout == BANDS_PRODUCT, layout
+    cols, act = (None, "heads"), ("batch", None, None)
+    lo, m = local_block(w.shape, cols, 1)
+
+    def own(w, *xs):
+        w = _promoted(w, xs[0])
+        return torch.cat([x @ w[:, max(b * D, lo) - lo:
+                                min((b + 1) * D, lo + m) - lo]
+                          for b, x in enumerate(xs)
+                          if b * D < lo + m and lo < (b + 1) * D], dim=-1)
+
+    # w's gradient sums each rank's batch rows, a mix's its own columns
+    prod = local(own, (cols,) + (act,) * len(xs), ("batch", None, "heads"),
+                 in_grad=(with_partial(cols, "batch"),) +
+                 (with_partial(act, "heads"),) * len(xs))(w, *xs)
+    prod = shard(prod, act)
+    return [prod[..., b * D:(b + 1) * D] for b in range(len(xs))]
+
+
 def _rwkv_mix(p, x, shifted):
     mu = p["mu"]
     return tuple(x * mu[i] + shifted * (1 - mu[i]) for i in range(5))
@@ -227,12 +282,12 @@ def _wkv_chunk(s, rt, kt, vt, lat, u, tri):
     return s, y_intra + y_inter
 
 
-def _head_layout(B: int, S: int, H: int, K: int):
+def _head_layout(B: int, S: int, H: int, K: int, own: bool):
     """``(split, merge)``: (B, S, H K) -> (B, S, Hp, K) and back, Hp the
-    heads the recurrence runs on.  Two views and Hp = H outside a
-    rules context or where the heads lie on one rank.  Where the rules
-    spread them over n ranks, ``split`` lays the heads dim out over them,
-    so that each rank runs the recurrence of its own heads
+    heads the recurrence runs on.  Two views and Hp = H unless each rank
+    runs ``own`` heads.  Then, the rules spreading them over n ranks,
+    ``split`` lays the heads dim out over them, so that each rank runs
+    the recurrence of its own heads
     (:func:`_wkv_own_heads`); if n does not divide H, a product's sharded
     H K dim would split heads between ranks, which DTensor cannot view,
     so ``split`` gathers the dim first, views it and pads the heads with
@@ -244,9 +299,13 @@ def _head_layout(B: int, S: int, H: int, K: int):
     gives 0."""
     n = ranks_of("heads")
     heads = ("batch", None, "heads", None)
-    if n == 1:
+    if not own:
+        # sharded after the view back (a chunk, no traffic), so that a
+        # gradient coming back sharded along H K is gathered before the
+        # view's backward, which cannot split uneven heads
         return (lambda t: t.reshape(B, S, H, K),
-                lambda t: t.reshape(B, S, H * K))
+                lambda t: shard(t.reshape(B, S, H * K),
+                                ("batch", None, "heads")))
     if H % n == 0:
         return (lambda t: shard(t.reshape(B, S, H, K), heads),
                 lambda t: t.reshape(B, S, H * K))
@@ -275,7 +334,8 @@ def _wkv_own_heads(state, r, k, v, la, u, chunk: int, chunked: bool):
     (PyTorch 2.11's) cannot fold a sharded heads dim into a product's
     batch.  ``u`` (H, K) and ``state`` (B, H, K, K) come whole and each
     rank takes its own heads of them, zero past H; ``u``'s gradient is
-    each rank's share, summed over the heads' ranks.  Returns ``(state
+    each rank's share, summed over the heads' and the batch's ranks.
+    Returns ``(state
     (B, H, K, K), y)``, y laid out as r, chunked as :func:`_wkv`'s."""
     H, Hp = u.shape[0], r.shape[2]
     lo, n = local_block((Hp,), ("heads",), 0)
@@ -297,7 +357,7 @@ def _wkv_own_heads(state, r, k, v, la, u, chunk: int, chunked: bool):
         [("batch", "heads", None, None),
          ("batch", None, None, "heads", None) if chunked else heads],
         in_grad=(None, None, None, None, None,
-                 with_partial((None, None), "heads")))(
+                 with_partial((None, None), "heads", "batch")))(
         state, r, k, v, la, u)
     if Hp > H:
         state = shard(state, whole)[:, :H]
@@ -340,18 +400,23 @@ def rwkv6_block(p, x, meta, *, x_prev=None, state=None, chunk: int = 64,
     x = whole_seq(x)                  # the token shift reads neighbours
     shifted = token_shift(x, x_prev)
     xr, xk, xv, xg, xw = _rwkv_mix(p, x, shifted)
-    w_rkvg = _promoted(p["w_rkvg"], xr)
-    split, merge = _head_layout(B, S, H, K)
-    r = split(xr @ w_rkvg[:, :D])
-    k = split(xk @ w_rkvg[:, D:2 * D])
-    v = split(xv @ w_rkvg[:, 2 * D:3 * D])
-    g = xg @ w_rkvg[:, 3 * D:]
+    # where the weight is split first, each rank runs the recurrence of
+    # its own heads; uneven heads then gather the recurrence's output
+    # (``merge``), which counts against the weight.  A product gathered
+    # whole (a decode step's few rows) runs every head on every rank, so
+    # that the state stays as whole as its slot and is never gathered
+    even = H % ranks_of("heads") == 0
+    layout = band_layout(p["w_rkvg"], xr, 0 if even else D, alike=True)
+    own = layout == BANDS_WEIGHT
+    r, k, v, g = _rwkv_bands(p["w_rkvg"], (xr, xk, xv, xg), layout, even)
+    split, merge = _head_layout(B, S, H, K, own)
+    r, k, v = split(r), split(k), split(v)
     w = -torch.exp(p["decay_base"] + (xw @ _promoted(p["w_decay"],
                                                      xw)).float())
     la = split(w)                          # log-decay (negative)
     r32, k32, v32 = r.float(), k.float(), v.float()
     chunked = not (stepwise or S == 1)
-    wkv = _wkv if ranks_of("heads") == 1 else _wkv_own_heads
+    wkv = _wkv_own_heads if own else _wkv
     state, ys = wkv(state, r32, k32, v32, la, p["u_bonus"], chunk, chunked)
     y = merge(ys)
 

@@ -189,12 +189,13 @@ def local(fn, in_names: Sequence, out_names, in_grad: Sequence = None):
                      device_mesh=mesh)
 
 
-def with_partial(names: Sequence[str | None], logical: str) -> tuple:
+def with_partial(names: Sequence[str | None], *logical: str) -> tuple:
     """The placements of ``names`` under the active rules, with a
-    ``Partial`` sum on the mesh axes ``logical`` maps onto: a result each
-    rank holds a share of, summed where it is next redistributed."""
+    ``Partial`` sum on the mesh axes each of ``logical`` maps onto: a
+    result each rank holds a share of, summed where it is next
+    redistributed."""
     mesh, rules = active()
-    axes = rules.get(logical) or ()
+    axes = {a for name in logical for a in rules.get(name) or ()}
     return tuple(Partial() if a in axes else p for a, p in zip(
         mesh.mesh_dim_names, placements_of(_resolve(names, rules), mesh)))
 
@@ -280,6 +281,42 @@ def _installed(state):
         yield
     finally:
         _ctx.state = prev
+
+
+BANDS_WHOLE, BANDS_WEIGHT, BANDS_PRODUCT = "whole", "weight", "product"
+
+
+def band_layout(w: torch.Tensor, x: torch.Tensor, after: int,
+                alike: bool) -> str:
+    """How a product of ``x`` (B, S, D) with the column bands of ``w``
+    (D, N), whose columns the rules spread over "heads", is split, chosen
+    once for a block.  Slicing a band off a sharded dim gathers the whole
+    dim, so the bands are never sliced off a sharded tensor:
+
+    * :data:`BANDS_WHOLE`: the heads lie on one rank; the bands are views.
+    * :data:`BANDS_WEIGHT`: ``w``'s columns are gathered once and each
+      band is sharded again before its product, so each rank computes its
+      own heads of it.
+    * :data:`BANDS_PRODUCT`: the product is gathered once (or each rank
+      multiplies its own columns by their bands' activations, and that
+      product is gathered once) and split.
+
+    The weight goes first where a rank gathers fewer elements that way:
+    its weight rows times N, plus its activation rows times ``after``
+    (columns of the products that are gathered after all), against its
+    activation rows times N.  Prefill and training, where the rows of x
+    outnumber the weight's; a decode step's few rows gather the product.
+    ``alike``: the product path needs shards alike (each rank's own
+    columns as one ``local`` block), so it takes the weight first where
+    the ranks do not divide N."""
+    n = ranks_of("heads")
+    if n == 1:
+        return BANDS_WHOLE
+    rows = x.shape[0] * x.shape[1] // ranks_of("batch")
+    d, cols = w.shape[0] // ranks_of("embed_fsdp"), w.shape[1]
+    if d * cols + rows * after < rows * cols or (alike and cols % n):
+        return BANDS_WEIGHT
+    return BANDS_PRODUCT
 
 
 def ranks_of(logical: str) -> int:

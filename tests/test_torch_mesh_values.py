@@ -14,10 +14,25 @@ across with ``params_from_numpy``):
   write into the rank that owns the row, at the last position and at one
   where the second "model" rank holds no live row;
 * rwkv6 smoke with 6 heads, which do not divide 4 ranks, on (1, 4) under
-  the train rules: the loss and every gradient;
+  the train rules: the loss and every gradient, at 2 x 16 tokens (the
+  band product gathered, every head on every rank) and at 2 x 128 (the
+  weight split first: the heads' uneven chunks, padded, each rank
+  running its own);
+* rwkv6-3b smoke (4 heads) on (2, 2) under the train rules at 4 x 32
+  tokens: the weight split first, each rank running its own heads of an
+  even split; the loss and every gradient;
 * granite-8b smoke's loss on (2, 2) under the train rules: the loss and
   every gradient, the embedding table's (the vocab-parallel lookup) and
-  ``wqkv``'s (the QKV bands) among them.
+  ``wqkv``'s (the QKV bands) among them;
+* rwkv6-3b smoke's decode steps on (2, 2) under the decode rules, from a
+  random state: RWKV6's four bands as each rank's own columns times
+  their mixes, the product gathered once, the logits and the state;
+* zamba2-7b smoke's prefill on (2, 2) under the prefill rules: Mamba2's
+  in-projection and the shared attention's QKV product, each gathered
+  once and split, the logits and the state.
+
+Each worker records the layouts :func:`band_layout` chose for a case, and
+the tests hold them to the path the case is there to cover.
 
 The four workers run once for the whole file, in one subprocess with a
 timeout of 300 s.
@@ -51,6 +66,16 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 TIMEOUT_S = 300
 B, T, S = 4, 32, 16    # decode batch and cache rows; the loss's sequence
 POSITIONS = {"last": T - 1, "early": 5}  # 5: rows 16-31 hold nothing live
+SSM_STEPS = 3          # rwkv6's decode steps from a random state
+# the layouts band_layout chooses in each case's blocks: rwkv6 6 heads on
+# (1, 4) splits the weight first once its rows outnumber 128 (the weight's
+# 96 x 384 elements plus the uneven heads' output gather against the
+# product's rows x 384); rwkv6-3b smoke on (2, 2) once they outnumber 32
+# (a rank's 32 weight rows)
+LAYOUTS = {"rwkv6_loss": ["product"], "rwkv6_own_loss": ["weight"],
+           "rwkv6_even_loss": ["weight"], "granite_loss": ["product"],
+           "rwkv6-3b_ssm_decode": ["product"],
+           "zamba2-7b_prefill": ["product"]}
 
 _WORKER = r"""
 import os
@@ -70,6 +95,8 @@ def run(rank, world, out):
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
     from repro_torch.launch.mesh import rules_for_cell, specialize_rules
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import ssm as tssm
     from repro_torch.models import transformer as tt
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.runtime import sharding as tsh
@@ -81,10 +108,23 @@ def run(rank, world, out):
         t = t.full_tensor() if isinstance(t, DTensor) else t
         return t.detach().numpy()
 
+    # the layouts the blocks choose, as the tests read them
+    seen = []
+
+    def recorded(layout):
+        def chosen(*args, **kw):
+            seen.append(layout(*args, **kw))
+            return seen[-1]
+        return chosen
+
+    tattn.band_layout = recorded(tattn.band_layout)
+    tssm.band_layout = recorded(tssm.band_layout)
+
     with open(os.path.join(out, "inputs.pkl"), "rb") as f:
         cases = pickle.load(f)
     res = {}
     for name, case in cases.items():
+        seen.clear()
         cfg = case["cfg"]
         mesh = init_device_mesh("cpu", case["dims"],
                                 mesh_dim_names=("data", "model"))
@@ -122,6 +162,31 @@ def run(rank, world, out):
             res[name + "/k"] = whole(caches["k"])
             res[name + "/v"] = whole(caches["v"])
             res[name + "/cache_placements"] = str(caches["k"].placements)
+        elif case["kind"] in ("ssm_decode", "prefill"):
+            from repro_torch.runtime.step import make_prefill_step
+            c_specs, s_specs = serve_state_specs(cfg)
+            caches = case["caches"] and reshard_state(
+                params_from_numpy(case["caches"]), c_specs, mesh, rules)
+            states = reshard_state(params_from_numpy(case["states"]),
+                                   s_specs, mesh, rules)
+            tokens = case["tokens"]
+            lgs = []
+            with tsh.use_rules(mesh, rules):
+                if case["kind"] == "prefill":
+                    lg, _, states = make_prefill_step(cfg)(
+                        params, placed(tokens, ("batch", None)), caches,
+                        states)
+                    lgs.append(lg)
+                else:
+                    step = make_decode_step(cfg)
+                    for i in range(tokens.shape[1]):
+                        _, lg, _, states = step(
+                            params, placed(tokens[:, i:i + 1],
+                                           ("batch", None)),
+                            None, states, i)
+                        lgs.append(lg)
+            res[name + "/logits"] = [whole(lg) for lg in lgs]
+            res[name + "/states"] = [whole(t) for t in tree_leaves(states)]
         else:
             leaves = [t.requires_grad_() for t in tree_leaves(params)]
             tokens = placed(case["tokens"], ("batch", None))
@@ -131,6 +196,7 @@ def run(rank, world, out):
                                             materialize_grads=True)
             res[name + "/loss"] = whole(loss)
             res[name + "/grads"] = [whole(g) for g in grads]
+        res[name + "/layouts"] = sorted(set(seen))
         dist.barrier()
     if rank == 0:
         with open(os.path.join(out, "results.pkl"), "wb") as f:
@@ -179,6 +245,30 @@ def _cases():
     cases["rwkv6_loss"] = dict(
         kind="loss", rules="train", dims=(1, 4), cfg=tc, jcfg=jc, params=_np_tree(jp),
         tokens=rs.randint(0, tc.vocab, (2, S)).astype(np.int32))
+    cases["rwkv6_own_loss"] = dict(
+        cases["rwkv6_loss"],
+        tokens=rs.randint(0, tc.vocab, (2, 8 * S)).astype(np.int32))
+    jc, tc = _configs("rwkv6-3b")
+    jp, _ = jt.init_lm(jc, jax.random.PRNGKey(3))
+    cases["rwkv6_even_loss"] = dict(
+        kind="loss", rules="train", dims=(2, 2), cfg=tc, jcfg=jc,
+        params=_np_tree(jp),
+        tokens=rs.randint(0, tc.vocab, (B, 2 * S)).astype(np.int32))
+    for arch, kind, rules, n_tok in (("rwkv6-3b", "ssm_decode", "decode",
+                                      SSM_STEPS),
+                                     ("zamba2-7b", "prefill", "prefill", S)):
+        jc, tc = _configs(arch)
+        jp, _ = jt.init_lm(jc, jax.random.PRNGKey(2))
+        caches = tt.init_caches(tc, B, n_tok, dtype=torch.float32,
+                                device="cpu")
+        states = tt.init_states(tc, B, device="cpu")
+        cases[f"{arch}_{kind}"] = dict(
+            kind=kind, rules=rules, dims=(2, 2), cfg=tc, jcfg=jc,
+            params=_np_tree(jp),
+            caches=caches and {n: t.numpy() for n, t in caches.items()},
+            states={n: 0.5 * rs.randn(*t.shape).astype(np.float32)
+                    for n, t in states.items()},
+            tokens=rs.randint(0, tc.vocab, (B, n_tok)).astype(np.int32))
     return cases
 
 
@@ -276,16 +366,21 @@ def _plain_loss(case):
                                      materialize_grads=True)
 
 
-@pytest.mark.parametrize("name", ["rwkv6_loss", "granite_loss"])
+@pytest.mark.parametrize("name", ["rwkv6_loss", "rwkv6_own_loss",
+                                  "rwkv6_even_loss", "granite_loss"])
 def test_loss_and_gradients_on_a_mesh_equal_unsharded(mesh_run, name):
     """lm_loss under the train rules: rwkv6 with 6 heads over 4 "model"
-    ranks (the heads' uneven chunks), granite on (2, 2) (the QKV bands,
-    the vocab-parallel embedding lookup): the loss and every gradient
-    leaf within 1e-5 relative of the unsharded port's, the loss within
-    1e-5 of the JAX package's ``lm_loss`` on the same weights (the bound
-    of ``test_torch_train``)."""
+    ranks, its band product gathered (32 rows) and its weight split first
+    (256 rows: the heads' uneven chunks, padded), rwkv6-3b smoke's 4 heads
+    over 2 ranks with its weight split first (each rank's own heads of an
+    even split), granite on (2, 2) (the QKV bands, the vocab-parallel
+    embedding lookup): each case's blocks choose the layout of
+    ``LAYOUTS``; the loss and every gradient leaf within 1e-5 relative of
+    the unsharded port's, the loss within 1e-5 of the JAX package's
+    ``lm_loss`` on the same weights (the bound of ``test_torch_train``)."""
     cases, res = mesh_run
     case = cases[name]
+    assert res[name + "/layouts"] == LAYOUTS[name]
     loss, grads = _plain_loss(case)
     _assert_rel(res[name + "/loss"], loss.detach(), 1e-5, f"{name} loss")
     got = res[name + "/grads"]
@@ -322,3 +417,80 @@ def test_embedding_gradient_on_a_mesh_equals_unsharded(mesh_run):
     assert res["embed/grad_placements"] == "(Partial(sum), Shard(dim=0))"
     used = np.flatnonzero(np.abs(res["embed/grad"]).sum(axis=1) > 0)
     assert np.array_equal(used, np.unique(case["tokens"]))
+
+
+def _jax_serve(case):
+    """:func:`_plain_serve` through the JAX package's jitted steps on the
+    same weights, caches, states and tokens."""
+    jc = case["jcfg"]
+    params = jax.tree.map(jnp.asarray, case["params"])
+    caches = case["caches"] and jax.tree.map(jnp.asarray, case["caches"])
+    states = jax.tree.map(jnp.asarray, case["states"])
+    tokens = jnp.asarray(case["tokens"])
+    if case["kind"] == "prefill":
+        lg, _, states = jax.jit(jstep.make_prefill_step(jc))(
+            params, tokens, caches, states)
+        return [lg], jax.tree.leaves(states)
+    step, lgs = jax.jit(jstep.make_decode_step(jc)), []
+    for i in range(tokens.shape[1]):
+        _, lg, _, states = step(params, tokens[:, i:i + 1], None, states, i)
+        lgs.append(lg)
+    return lgs, jax.tree.leaves(states)
+
+
+def _plain_serve(case):
+    """The case's prefill, or its decode steps, on the unsharded port:
+    ``(logits of each call, the state's leaves after the last)``."""
+    tc = case["cfg"]
+    params = params_from_numpy(case["params"])
+    caches = case["caches"] and params_from_numpy(case["caches"])
+    states = params_from_numpy(case["states"])
+    tokens = torch.tensor(case["tokens"])
+    if case["kind"] == "prefill":
+        lg, _, states = tstep.make_prefill_step(tc)(params, tokens, caches,
+                                                    states)
+        return [lg], tree_leaves(states)
+    step, lgs = tstep.make_decode_step(tc), []
+    for i in range(tokens.shape[1]):
+        _, lg, _, states = step(params, tokens[:, i:i + 1], None, states, i)
+        lgs.append(lg)
+    return lgs, tree_leaves(states)
+
+
+@pytest.mark.parametrize("name", ["rwkv6-3b_ssm_decode", "zamba2-7b_prefill"])
+def test_recurrent_bands_on_a_mesh_equal_unsharded(mesh_run, name):
+    """The recurrent families' column bands on the (2, 2) mesh, where the
+    rules spread the fused weights' columns over "model": rwkv6's decode
+    steps (each rank multiplies its own columns of ``w_rkvg`` by the mixes
+    of their bands, two bands a rank, and the product is gathered once;
+    every head then runs on every rank from the whole state) and
+    zamba2's prefill (Mamba2's in-projection and the shared attention's
+    QKV product, each gathered once and split): every call's logits and
+    the final state within 1e-5 relative of the unsharded port's; the
+    logits within the LM bound (``lm_logit_tol``) of the JAX package's
+    steps on the same weights, states and tokens, the state within 1e-4
+    of its largest magnitude (``test_torch_arch_smoke``'s bounds)."""
+    cases, res = mesh_run
+    case = cases[name]
+    assert res[name + "/layouts"] == LAYOUTS[name]
+    lgs, states = _plain_serve(case)
+    got = res[name + "/logits"]
+    assert len(got) == len(lgs)
+    for i, (a, b) in enumerate(zip(got, lgs)):
+        _assert_rel(a, b.detach(), 1e-5, f"{name} logits of call {i}")
+    got_states = res[name + "/states"]
+    assert len(got_states) == len(states)
+    for i, (a, b) in enumerate(zip(got_states, states)):
+        _assert_rel(a, b.detach(), 1e-5, f"{name} state leaf {i}")
+    jlgs, jstates = _jax_serve(case)
+    tol = lm_logit_tol(case["cfg"], params_from_numpy(case["params"]),
+                       case["tokens"].shape[1]).numpy()
+    for i, (a, b) in enumerate(zip(got, jlgs)):
+        err = np.abs(a.astype(np.float64) - np.asarray(b, np.float64))
+        assert (err <= tol).all(), (name, i, float(err.max()),
+                                    float(tol.min()))
+    assert len(jstates) == len(got_states)
+    for i, (a, b) in enumerate(zip(got_states, jstates)):
+        b = np.asarray(b, np.float64)
+        err = np.abs(a.astype(np.float64) - b).max()
+        assert err <= 1e-4 * max(np.abs(b).max(), 1e-30), (name, i, err)
