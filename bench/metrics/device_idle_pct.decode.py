@@ -1,0 +1,7 @@
+"""Share of the traced decode window in which no device operation ran."""
+
+from bench.harness import readers
+
+
+def read(r):
+    return readers.idle_pct(r, "decode")
