@@ -1,0 +1,8 @@
+"""Device time of the MoE block's expert products (its `moe/experts`
+spans, in the forward and the recompute) a traced step, in ms."""
+
+from bench.harness import spans
+
+
+def read(r):
+    return spans.device_ms_per_step(r, "moe/experts")

@@ -27,6 +27,7 @@ import torch
 from repro_torch.configs.registry import get_config, get_smoke, list_archs
 from repro_torch.core.executor import BACKENDS, resolve_device
 from repro_torch.models.transformer import init_caches, init_lm, init_states
+from repro_torch import obs
 from repro_torch.obs.tracer import as_tracer
 from repro_torch.runtime.step import make_decode_step, make_prefill_step
 
@@ -58,9 +59,12 @@ def serve(cfg, *, batch=4, prompt_len=32, gen=32, seed=0, device=None,
     families, recurrent states for ssm and hybrid).  Returns ``(tokens (batch,
     gen) int32, stats)`` with the JAX package's keys; on the card the
     clocks stop after ``torch.cuda.synchronize()``, where the JAX package
-    blocks until ready.  ``tracer`` records the prefill and each decode
-    step as spans on the ``lm`` track."""
-    tracer = as_tracer(tracer)
+    blocks until ready.  ``tracer`` (None: the process's current one,
+    :func:`repro_torch.obs.current`) records the prefill and each decode
+    step as spans on the ``lm`` track, each timed on the device, with the
+    model's spans inside them; the decode steps do not wait for the
+    device, as untraced ones do not."""
+    tracer = obs.current() if tracer is None else as_tracer(tracer)
     dev = resolve_device(device)
     params, prompts = lm_inputs(cfg, batch=batch, prompt_len=prompt_len,
                                 seed=seed, device=dev)
@@ -75,38 +79,34 @@ def serve(cfg, *, batch=4, prompt_len=32, gen=32, seed=0, device=None,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    sync()
-    t0 = time.monotonic()
-    with tracer.span(f"prefill@{batch}x{prompt_len}", track="lm",
-                     batch=batch, prompt_len=prompt_len):
-        lg, caches, states = prefill(params, prompts, caches, states)
-        tok = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
+    with obs.use(tracer):
         sync()
-    t_prefill = time.monotonic() - t0
+        t0 = time.monotonic()
+        with tracer.span(f"prefill@{batch}x{prompt_len}", track="lm",
+                         device=dev, batch=batch, prompt_len=prompt_len):
+            lg, caches, states = prefill(params, prompts, caches, states)
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
+            sync()
+        t_prefill = time.monotonic() - t0
 
-    if gen <= 0:
-        # prefill-only run: report prefill throughput, no decode rate
-        tps = batch * prompt_len / max(t_prefill, 1e-9)
-        log(f"prefill {batch}x{prompt_len}: {t_prefill*1e3:.1f} ms "
-            f"({tps:.1f} prompt tok/s, prefill-only)")
-        return torch.zeros((batch, 0), dtype=torch.int32, device=dev), {
-            "prefill_s": t_prefill, "decode_s": 0.0,
-            "tokens_per_s": tps, "prefill_only": True}
+        if gen <= 0:
+            # prefill-only run: report prefill throughput, no decode rate
+            tps = batch * prompt_len / max(t_prefill, 1e-9)
+            log(f"prefill {batch}x{prompt_len}: {t_prefill*1e3:.1f} ms "
+                f"({tps:.1f} prompt tok/s, prefill-only)")
+            return torch.zeros((batch, 0), dtype=torch.int32, device=dev), {
+                "prefill_s": t_prefill, "decode_s": 0.0,
+                "tokens_per_s": tps, "prefill_only": True}
 
-    out = [tok]
-    t0 = time.monotonic()
-    traced = tracer.enabled
-    for t in range(prompt_len, prompt_len + gen - 1):
-        if traced:
-            with tracer.span(f"decode/step@p{t}", track="lm"):
+        out = [tok]
+        t0 = time.monotonic()
+        for t in range(prompt_len, prompt_len + gen - 1):
+            with tracer.span(f"decode/step@p{t}", track="lm", device=dev):
                 tok, lg, caches, states = decode(params, tok, caches,
                                                  states, t)
-                sync()
-        else:
-            tok, lg, caches, states = decode(params, tok, caches, states, t)
-        out.append(tok)
-    sync()
-    t_decode = time.monotonic() - t0
+            out.append(tok)
+        sync()
+        t_decode = time.monotonic() - t0
     toks = torch.cat(out, dim=1)
     tps = batch * (gen - 1) / max(t_decode, 1e-9)
     log(f"prefill {batch}x{prompt_len}: {t_prefill*1e3:.1f} ms; "

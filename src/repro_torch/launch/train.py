@@ -6,6 +6,10 @@ entry point (``train(get_smoke(arch), device="cpu")``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mistral-nemo-12b \\
         --smoke --steps 50 --batch 8 --seq 64 --ckpt /tmp/ckpt
+
+``--trace OUT.json`` records every step's ``train/*`` spans (and the MoE
+block's ``moe/*`` spans and counters), each timed on the card, and exports
+them as Chrome-trace JSON (open at https://ui.perfetto.dev).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from repro_torch.core.executor import resolve_device
 from repro_torch.data.pipeline import PrefetchPipeline, SyntheticLM
 from repro_torch.launch.mesh import rules_for_cell
 from repro_torch.models.transformer import init_lm, lm_specs
+from repro_torch.obs import as_tracer
 from repro_torch.runtime import sharding as shard_lib
 from repro_torch.runtime.elastic import reshard_state
 from repro_torch.runtime.fault_tolerance import Heartbeat, StragglerDetector
@@ -30,19 +35,20 @@ from repro_torch.runtime.step import (init_train_state, make_train_step,
 
 def train(cfg, *, steps=50, batch=8, seq=64, ckpt_dir=None, ckpt_every=25,
           peak_lr=1e-2, compress=False, mesh=None, log_every=10, seed=0,
-          log=print, device=None):
+          log=print, device=None, tracer=None):
     """Train ``cfg`` from weights drawn with ``seed`` (or from the latest
     checkpoint in ``ckpt_dir``) up to ``steps`` on ``SyntheticLM``
     batches, on ``device`` (None means the card).  With ``mesh`` (a
     DeviceMesh over the process group the caller set up) the state is
     placed onto it by the train rules (``rules_for_cell("train")``), each
     batch is split over its batch axes and the step runs under those
-    rules.  Returns ``(state, losses)``, one loss for each step this call
-    ran."""
+    rules.  ``tracer`` records each step's spans
+    (:func:`make_train_step`).  Returns ``(state, losses)``, one loss for
+    each step this call ran."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     step_fn = make_train_step(cfg, peak_lr=peak_lr, warmup=max(steps // 10, 1),
-                              total=steps, compress=compress)
+                              total=steps, compress=compress, tracer=tracer)
     place = {}
     if mesh is None:
         state = init_train_state(cfg, gen, compress=compress, device=dev)
@@ -115,13 +121,22 @@ def main(argv=None):
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--compress", action="store_true")
     ap.add_argument("--lr", type=float, default=1e-2)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    ap.add_argument("--trace", metavar="OUT.json", default=None,
+                    help="record each step's spans and counters and export "
+                         "Chrome-trace JSON (open at https://ui.perfetto.dev)")
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    tracer = as_tracer(bool(args.trace))
     _, losses = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                       ckpt_dir=args.ckpt, compress=args.compress,
-                      peak_lr=args.lr)
+                      peak_lr=args.lr, device=args.device, tracer=tracer)
     print(f"final loss: {losses[-1]:.4f} (from {losses[0]:.4f})")
+    if args.trace:
+        trace = tracer.export_chrome_trace(args.trace)
+        print(f"trace: {len(trace['traceEvents'])} events -> {args.trace}")
 
 
 if __name__ == "__main__":

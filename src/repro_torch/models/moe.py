@@ -16,13 +16,22 @@ The un-assemble is a gather, not a scatter-add: each token reads back its k
 slots and sums them in ascending expert order, the order of the JAX
 package's serial scatter over the expert-major (E, C) table, so two runs on
 the card give the same bits.
+
+``moe_block`` records ``moe/route``, ``moe/dispatch``, ``moe/experts`` and
+``moe/combine`` spans on the process's current tracer
+(:func:`repro_torch.obs.current`), each timed on the input's device, and
+counts ``moe/slots`` (B·E·C) and ``moe/live_slots`` (the slots a token
+filled, counted on the device), only when tracing.  Under a checkpointed layer they fire twice a step: in the
+forward and in the backward's recompute.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
 from repro_torch.core import rme
 from repro_torch.models.layers import MLP_SPECS, _norm_init, init_mlp, mlp
 from repro_torch.runtime.sharding import local, shard, whole_seq
@@ -140,22 +149,32 @@ def moe_block(p, x, *, num_experts: int, top_k: int,
               n_shared: int = 0):
     """x: (B, S, D) -> ``(out (B, S, D), {"load_balance": f32 scalar})``."""
     B, S, D = x.shape
+    tr, dev = obs.current(), x.device
     # the router and the per-sequence dispatch read whole sequences
     x = whole_seq(x)
     E_phys = p["wi"].shape[0]  # >= num_experts when padded
-    probs, gates, expert_of = route(p, x, top_k=top_k,
-                                    router_softmax=router_softmax)
+    with tr.span("moe/route", device=dev):
+        probs, gates, expert_of = route(p, x, top_k=top_k,
+                                        router_softmax=router_softmax)
     capacity = capacity_of(S, top_k, num_experts, capacity_factor)
-    idx, valid, xe = _dispatch(x, expert_of, E_phys, capacity)
-    # expert-major layout, experts sharded over "model"
-    xe = shard(xe, ("batch", "experts", None, None))
-    ye = _experts(p, xe)
+    with tr.span("moe/dispatch", device=dev):
+        idx, valid, xe = _dispatch(x, expert_of, E_phys, capacity)
+    if tr.enabled:
+        # each rank counts its own batch rows
+        mine = valid.to_local() if isinstance(valid, DTensor) else valid
+        tr.count("moe/slots", mine.numel())
+        tr.count("moe/live_slots", mine.sum())
+    with tr.span("moe/experts", device=dev):
+        # expert-major layout, experts sharded over "model"
+        xe = shard(xe, ("batch", "experts", None, None))
+        ye = _experts(p, xe)
     # each token reads back its own sequence's slots: local to each rank's
     # batch rows, with every expert's rows at hand
     rows = ("batch", None, None)
     combine = local(_combine, ((None, "batch", None, None), rows, rows, rows,
                                rows, None), rows)
-    out = combine(ye, gates, expert_of, idx, valid, S).to(x.dtype)
+    with tr.span("moe/combine", device=dev):
+        out = combine(ye, gates, expert_of, idx, valid, S).to(x.dtype)
     if n_shared:
         out = out + mlp(p["shared"], x)
     # aux load-balancing loss

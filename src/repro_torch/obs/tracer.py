@@ -19,6 +19,21 @@ it.  When tracing is off, the module-level :data:`NULL_TRACER` stands in:
 every method is a no-op and ``enabled`` is ``False``, so hot paths guard
 per-instruction recording with one attribute check.
 
+**Device time.**  A span opened with ``device=`` a CUDA device records a
+pair of pooled timing events on the current stream, at open and at close;
+``SpanRecord.device_s`` is the time from when the stream reaches the
+span's start to when it reaches its end: the span's kernels plus any
+idle its own dispatch caused.  It is resolved lazily, by ``spans()`` or
+the export, which wait for the end event; nothing on the recording path
+waits for the device.  Likewise ``count`` takes a 0-d device tensor and
+keeps it, unread, until ``counters()``, ``count_between`` or the export
+adds it in.
+
+**The profiler's clock.**  The tracer also reads ``time.time_ns()`` at the
+instant of its epoch: :meth:`Tracer.profiler_ns` maps a recorded time to
+the nanoseconds ``torch.profiler`` (kineto) stamps its host and device
+events with, so a span can be laid against a device trace.
+
 ``export_chrome_trace(path)`` writes Chrome-trace JSON (the ``traceEvents``
 array format): open it at https://ui.perfetto.dev or ``chrome://tracing``.
 Tracks (``tid``) are one per engine/stream/thread, named via ``M``
@@ -28,13 +43,18 @@ Tracks (``tid``) are one per engine/stream/thread, named via ``M``
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import threading
 import time
 from typing import Any, Callable
 
-__all__ = ["SpanRecord", "Tracer", "NullTracer", "NULL_TRACER", "as_tracer"]
+import torch
+from torch.distributed.tensor import DTensor
+
+__all__ = ["SpanRecord", "Tracer", "NullTracer", "NULL_TRACER", "as_tracer",
+           "current", "process_tracer", "use"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +69,7 @@ class SpanRecord:
     args: tuple = ()           # ((key, value), ...) — JSON-safe payload
     overlap_ok: bool = False   # concurrent-lifetime span (request windows):
     # exempt from stack discipline, exported as an async b/e pair
+    device_s: float | None = None  # stream time start -> end (None: untimed)
 
     @property
     def duration_s(self) -> float:
@@ -65,10 +86,10 @@ class _Span:
     """Context manager returned by :meth:`Tracer.span`."""
 
     __slots__ = ("_tracer", "name", "track", "_args", "t_start", "t_end",
-                 "_depth")
+                 "_depth", "_events")
 
     def __init__(self, tracer: "Tracer", name: str, track: str | None,
-                 args: dict):
+                 args: dict, events):
         self._tracer = tracer
         self.name = name
         self.track = track
@@ -76,6 +97,7 @@ class _Span:
         self.t_start = 0.0
         self.t_end = 0.0
         self._depth = 0
+        self._events = events      # (start, end) timing events, or None
 
     def set(self, **args) -> "_Span":
         """Attach args mid-span (stage reports produced inside the region)."""
@@ -92,17 +114,22 @@ class _Span:
                           else threading.current_thread().name)
         self._depth = len(stack)
         stack.append(self)
+        if self._events is not None:
+            self._events[0].record()
         self.t_start = tracer._clock()
         return self
 
     def __exit__(self, *exc) -> bool:
         tracer = self._tracer
         self.t_end = tracer._clock()
+        if self._events is not None:
+            self._events[1].record()
         stack = tracer._stack()
         if stack and stack[-1] is self:
             stack.pop()
         tracer._record((self.name, self.track, self.t_start, self.t_end,
-                        self._depth, tuple(self._args.items()), False))
+                        self._depth, tuple(self._args.items()), False,
+                        self._events))
         return False
 
 
@@ -126,15 +153,26 @@ class Tracer:
         self.detail = detail
         self._clock = clock
         self.t0 = clock()
+        self.t0_ns = time.time_ns()   # the profiler's clock at ``t0``
         self._lock = threading.Lock()
         # raw span tuples (SpanRecord field order) — building the frozen
         # dataclass on record costs ~5x the append, so the hot path stores
-        # tuples and ``spans()`` materializes records lazily
+        # tuples and ``spans()`` materializes records lazily; the last
+        # field holds a span's timing events until they are resolved
         self._spans: list[tuple] = []
+        self._timed: list[int] = []             # spans with events pending
+        self._pool: list = []                   # resolved timing events
         self._instants: list[tuple] = []        # (name, track, t, args)
         self._counter_events: list[tuple] = []  # (name, track, t, value)
         self._counters: dict[str, float] = {}   # cumulative totals
+        self._device_counts: list[tuple] = []   # (name, track, t, tensor)
         self._tls = threading.local()
+
+    def profiler_ns(self, t: float) -> int:
+        """Recorded time ``t`` (``time.monotonic()`` seconds) on the
+        profiler's clock: Unix-epoch nanoseconds, as kineto stamps its
+        events."""
+        return self.t0_ns + round((t - self.t0) * 1e9)
 
     # --- recording --------------------------------------------------------
     def _stack(self) -> list:
@@ -145,12 +183,30 @@ class Tracer:
 
     def _record(self, rec: tuple) -> None:
         with self._lock:
+            if rec[-1] is not None:
+                self._timed.append(len(self._spans))
             self._spans.append(rec)
 
-    def span(self, name: str, track: str | None = None, **args) -> _Span:
+    def _event_pair(self, device):
+        """Two timing events for a span on ``device``, or None where the
+        span is not timed there (not a CUDA device, or a stream capturing
+        a graph, which may hold no timing event)."""
+        if device is None:
+            return None
+        if not isinstance(device, torch.device):
+            device = torch.device(device)
+        if device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+            return None
+        pool = self._pool
+        return tuple(pool.pop() if pool else
+                     torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def span(self, name: str, track: str | None = None, device=None,
+             **args) -> _Span:
         """Open a nested span on this thread (``track=None`` inherits the
-        enclosing span's track, else the thread's name)."""
-        return _Span(self, name, track, args)
+        enclosing span's track, else the thread's name).  With ``device``
+        a CUDA device the span is also timed on its current stream."""
+        return _Span(self, name, track, args, self._event_pair(device))
 
     def add_span(self, name: str, track: str, t_start: float, t_end: float,
                  overlap_ok: bool = False, **args) -> None:
@@ -160,7 +216,7 @@ class Tracer:
         track (in-flight request windows): they skip the stack-discipline
         check and export as Chrome async events."""
         self._record((name, track, t_start, t_end, 0,
-                      tuple(args.items()), overlap_ok))
+                      tuple(args.items()), overlap_ok, None))
 
     def instant(self, name: str, track: str | None = None, **args) -> None:
         t = self._clock()
@@ -169,11 +225,20 @@ class Tracer:
         with self._lock:
             self._instants.append((name, track, t, tuple(args.items())))
 
-    def count(self, name: str, delta: float = 1.0,
-              track: str = "counters") -> None:
+    def count(self, name: str, delta=1.0, track: str = "counters") -> None:
         """Accumulate ``delta`` into counter ``name`` and emit the running
-        total as a counter sample (a rising Perfetto counter track)."""
+        total as a counter sample (a rising Perfetto counter track).
+        ``delta`` may be a 0-d tensor (a DTensor counts this rank's local
+        value): it is kept as it is, with no kernel and no wait, and added
+        in when the counters are read.  A counter takes host deltas or
+        tensors, not both."""
         t = self._clock()
+        if isinstance(delta, torch.Tensor):
+            delta = (delta.to_local() if isinstance(delta, DTensor)
+                     else delta).detach()
+            with self._lock:
+                self._device_counts.append((name, track, t, delta))
+            return
         with self._lock:
             total = self._counters.get(name, 0.0) + delta
             self._counters[name] = total
@@ -187,11 +252,51 @@ class Tracer:
             self._counters[name] = value
             self._counter_events.append((name, track, t, value))
 
+    def reset(self) -> None:
+        """Drop everything recorded.  The timing events of dropped spans go
+        back to the pool: each is recorded anew before it is read again."""
+        with self._lock:
+            self._pool.extend(ev for t in self._spans
+                              if isinstance(t[-1], tuple) for ev in t[-1])
+            self._spans, self._timed, self._instants = [], [], []
+            self._counter_events, self._device_counts = [], []
+            self._counters = {}
+
     # --- introspection ----------------------------------------------------
+    def _fold_counts(self) -> None:
+        """Add the tensors ``count`` kept into their counters' totals and
+        samples (reading each waits for the kernel that made it)."""
+        with self._lock:
+            pending, self._device_counts = self._device_counts, []
+        values = [float(delta) for *_, delta in pending]
+        with self._lock:
+            for (name, track, t, _), value in zip(pending, values):
+                total = self._counters.get(name, 0.0) + value
+                self._counters[name] = total
+                self._counter_events.append((name, track, t, total))
+
+    def _resolve(self) -> list[tuple]:
+        """The raw spans with every span's timing events turned into its
+        device seconds (waiting for each end event) and pooled again."""
+        with self._lock:
+            timed, self._timed = self._timed, []
+            pending = [(i, self._spans[i][-1]) for i in timed]
+        done = []
+        for i, (start, end) in pending:
+            end.synchronize()
+            done.append((i, start.elapsed_time(end) * 1e-3))
+        with self._lock:
+            for i, device_s in done:
+                self._spans[i] = self._spans[i][:-1] + (device_s,)
+            self._pool.extend(ev for _, pair in pending for ev in pair)
+            raw = list(self._spans)
+        # a span closed since the first lock stays pending until next time
+        return [t[:-1] + (None,) if isinstance(t[-1], tuple) else t
+                for t in raw]
+
     def spans(self, prefix: str | None = None,
               track: str | None = None) -> list[SpanRecord]:
-        with self._lock:
-            raw = list(self._spans)
+        raw = self._resolve()
         if prefix is not None:
             raw = [t for t in raw if t[0].startswith(prefix)]
         if track is not None:
@@ -200,8 +305,21 @@ class Tracer:
 
     def counters(self) -> dict[str, float]:
         """Final cumulative/sampled value per counter name."""
+        self._fold_counts()
         with self._lock:
             return dict(self._counters)
+
+    def count_between(self, name: str, t_from: float, t_to: float) -> float:
+        """What ``count`` added to counter ``name`` from ``t_from`` to
+        ``t_to`` (recorded times): its total at the last sample up to
+        ``t_to`` less its total at the last one before ``t_from``."""
+        self._fold_counts()
+        with self._lock:
+            samples = [(t, v) for n, _, t, v in self._counter_events
+                       if n == name]
+        before = [v for t, v in samples if t < t_from]
+        upto = [v for t, v in samples if t <= t_to]
+        return (upto[-1] if upto else 0.0) - (before[-1] if before else 0.0)
 
     def tracks(self) -> list[str]:
         with self._lock:
@@ -249,9 +367,13 @@ class Tracer:
         return {track: i for i, track in enumerate(ordered)}
 
     def chrome_trace(self) -> dict:
-        """The trace as a Chrome-trace dict (``{"traceEvents": [...]}``)."""
+        """The trace as a Chrome-trace dict (``{"traceEvents": [...]}``).
+        A device-timed span carries ``device_ms`` among its args;
+        ``otherData.profiler_ns_at_ts0`` is the profiler's clock at ``ts``
+        0, to overlay the spans on a ``torch.profiler`` export."""
+        spans = self._resolve()
+        self._fold_counts()
         with self._lock:
-            spans = list(self._spans)
             instants = list(self._instants)
             counter_events = list(self._counter_events)
         t0 = self.t0
@@ -268,7 +390,7 @@ class Tracer:
             events.append({"ph": "M", "pid": 1, "tid": i,
                            "name": "thread_name", "args": {"name": track}})
         for i, (name, track, t_start, t_end, _depth, args,
-                overlap_ok) in enumerate(spans):
+                overlap_ok, device_s) in enumerate(spans):
             if overlap_ok:
                 # concurrent lifetimes on one track: an async begin/end pair
                 # (grouped by cat+id) renders overlap correctly in Perfetto
@@ -280,6 +402,8 @@ class Tracer:
                 events.append({**common, "ph": "e",
                                "ts": (t_end - t0) * 1e6})
                 continue
+            if device_s is not None:
+                args += (("device_ms", device_s * 1e3),)
             events.append({"ph": "X", "pid": 1, "tid": tid[track],
                            "name": name, "cat": name.split("/", 1)[0],
                            "ts": (t_start - t0) * 1e6,
@@ -294,7 +418,8 @@ class Tracer:
                            "name": name, "ts": (t - t0) * 1e6,
                            "args": {"value": value}})
         events.sort(key=lambda e: e.get("ts", -1.0))
-        return {"traceEvents": events, "displayTimeUnit": "ms"}
+        return {"traceEvents": events, "displayTimeUnit": "ms",
+                "otherData": {"profiler_ns_at_ts0": self.t0_ns}}
 
     def export_chrome_trace(self, path: str) -> dict:
         """Write the Chrome-trace JSON to ``path`` and return the dict."""
@@ -325,7 +450,8 @@ class NullTracer:
 
     _SPAN = _NullSpan()
 
-    def span(self, name: str, track: str | None = None, **args):
+    def span(self, name: str, track: str | None = None, device=None,
+             **args):
         return self._SPAN
 
     def add_span(self, name: str, track: str, t_start: float, t_end: float,
@@ -335,8 +461,7 @@ class NullTracer:
     def instant(self, name: str, track: str | None = None, **args) -> None:
         pass
 
-    def count(self, name: str, delta: float = 1.0,
-              track: str = "counters") -> None:
+    def count(self, name: str, delta=1.0, track: str = "counters") -> None:
         pass
 
     def counter(self, name: str, value: float,
@@ -349,6 +474,9 @@ class NullTracer:
 
     def counters(self) -> dict[str, float]:
         return {}
+
+    def count_between(self, name: str, t_from: float, t_to: float) -> float:
+        return 0.0
 
     def tracks(self) -> list[str]:
         return []
@@ -367,6 +495,53 @@ class NullTracer:
 
 
 NULL_TRACER = NullTracer()
+
+
+# --- the process's current tracer ------------------------------------------
+
+_current: Tracer | NullTracer | None = None
+_process = Tracer()
+_in_session = False     # the process tracer records a running session
+
+
+@contextlib.contextmanager
+def use(tracer: Tracer | NullTracer):
+    """Make ``tracer`` the process's current one (:func:`current`) inside
+    the block.  It is a module global, not a thread-local: autograd's
+    device thread recomputes checkpointed layers, and their spans belong to
+    the step that runs the backward.  So one traced caller at a time."""
+    global _current
+    before, _current = _current, tracer
+    try:
+        yield tracer
+    finally:
+        _current = before
+
+
+def current() -> Tracer | NullTracer:
+    """The tracer that :func:`use` set; with none set, the process tracer
+    (:func:`process_tracer`) while a ``torch.profiler`` session records,
+    else :data:`NULL_TRACER`.  So every profiled run of the port carries
+    its own spans, with no knob.  The first call of a session clears what
+    the process tracer holds of the last one, so it holds one session at
+    most (two sessions with no call between them make one)."""
+    global _in_session
+    if _current is not None:
+        return _current
+    if torch.autograd._profiler_enabled():
+        if not _in_session:
+            _process.reset()
+            _in_session = True
+        return _process
+    _in_session = False
+    return NULL_TRACER
+
+
+def process_tracer() -> Tracer:
+    """The tracer :func:`current` gives while a profiler records: it holds
+    the latest profiler session's spans and counters until the next
+    session begins."""
+    return _process
 
 
 def as_tracer(value: Any) -> Tracer | NullTracer:

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
 from repro_torch.models.transformer import (ModelConfig, forward, init_lm,
                                             lm_loss, logits)
 from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
@@ -80,7 +81,8 @@ def _whole(t):
 
 def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
                     warmup: int = 100, total: int = 10000,
-                    compress: bool = False, max_norm: float = 1.0):
+                    compress: bool = False, max_norm: float = 1.0,
+                    tracer=None):
     """``train_step(state, batch)`` -> ``(state, metrics)``: ``lm_loss``
     and its gradient with respect to every parameter, then (with
     ``compress``) the int8 round trip, then AdamW at the learning rate of
@@ -91,30 +93,50 @@ def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
     ``load_balance``, plain tensors also when the state lies on a mesh.
     Under a mesh (the state DTensors, the step inside ``use_rules``) each
     gradient is redistributed to its parameter's placements before the
-    compression and AdamW."""
+    compression and AdamW.
+
+    Each call is a ``train/step`` span of ``tracer`` (None: the process's
+    current one at the call, :func:`repro_torch.obs.current`), run under
+    ``obs.use`` of it so the model's spans join it, holding
+    ``train/forward`` (``lm_loss``), ``train/backward`` (the gradient,
+    each layer's recompute included), ``train/compress`` (with
+    ``compress``) and ``train/optimizer`` (the schedule and AdamW), each
+    timed on the batch's device."""
     def train_step(state, batch):
+        tr = obs.current() if tracer is None else tracer
+        dev = batch["labels"].device
+        with obs.use(tr), tr.span("train/step", device=dev):
+            return _train_step(state, batch, tr, dev)
+
+    def _train_step(state, batch, tr, dev):
         params = tree_map(lambda p: p.detach().requires_grad_(),
                           state["params"])
         leaves = tree_leaves(params)
         with torch.enable_grad():
-            loss, aux = lm_loss(cfg, params, batch.get("tokens"),
-                                batch["labels"], embeds=batch.get("embeds"))
+            with tr.span("train/forward", device=dev):
+                loss, aux = lm_loss(cfg, params, batch.get("tokens"),
+                                    batch["labels"],
+                                    embeds=batch.get("embeds"))
             # a frontend's weights that the loss does not read get zeros
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
+            with tr.span("train/backward", device=dev):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
         by_leaf = dict(zip(map(id, leaves), grads))
         # under a mesh: each gradient onto its parameter's placements, where
         # the data-parallel all-reduce and the FSDP reduce-scatter happen
         grads = tree_map(lambda p: _placed_like(by_leaf[id(p)], p), params)
         new_state = dict(state)
         if compress:
-            grads, new_state["ef"] = compress_decompress(grads, state["ef"])
+            with tr.span("train/compress", device=dev):
+                grads, new_state["ef"] = compress_decompress(grads,
+                                                             state["ef"])
         opt = AdamWState(**state["opt"])
-        lr = cosine_schedule(opt.step, peak_lr=peak_lr, warmup=warmup,
-                             total=total)
-        params, opt, om = adamw_update(grads, opt, lr, max_norm=max_norm,
-                                       param_dtype=cfg.dtype,
-                                       params=state["params"])
+        with tr.span("train/optimizer", device=dev):
+            lr = cosine_schedule(opt.step, peak_lr=peak_lr, warmup=warmup,
+                                 total=total)
+            params, opt, om = adamw_update(grads, opt, lr, max_norm=max_norm,
+                                           param_dtype=cfg.dtype,
+                                           params=state["params"])
         new_state["params"] = params
         new_state["opt"] = {"step": opt.step, "master": opt.master,
                             "m": opt.m, "v": opt.v}

@@ -2038,3 +2038,90 @@ def test_card_mesh_decode_equals_plain_on_card(card_mesh):
     assert torch.equal(got.full_tensor(), want)
     for n in ("k", "v"):
         assert torch.equal(on_mesh[n].full_tensor(), caches[n])
+
+
+# -- tracing on the card: device time and device counters ---------------------
+
+@pytest.mark.gpu
+def test_tracer_spans_carry_device_time_on_card(cuda):
+    from repro_torch.obs import Tracer
+    tr = Tracer()
+    a = torch.randn(2048, 2048, device=cuda)
+    a @ a
+    torch.cuda.synchronize()
+    with tr.span("outer", device=cuda):
+        with tr.span("inner", device=cuda):
+            for _ in range(10):
+                a @ a
+        a @ a
+        tr.count("live", (a > 0).sum())
+        tr.count("host", 1)
+    inner, outer = tr.spans()
+    assert 0 < inner.device_s < outer.device_s
+    # ten 17.2 GFLOP products take more than a millisecond on any card
+    assert inner.device_s > 1e-3
+    assert tr.counters() == {"live": float((a > 0).sum()), "host": 1.0}
+    pooled = len(tr._pool)
+    assert pooled == 4
+    with tr.span("again", device=cuda):
+        a @ a
+    assert len(tr._pool) == pooled - 2
+    assert tr.spans()[-1].device_s > 0 and len(tr._pool) == pooled
+
+
+@pytest.mark.gpu
+def test_tracer_span_inside_graph_capture_is_not_timed(cuda):
+    from repro_torch.obs import Tracer
+    tr = Tracer()
+    x = torch.ones(1024, device=cuda)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        x * 2
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        with tr.span("captured", device=cuda):
+            y = x * 2
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, x * 2)
+    (sp,) = tr.spans()
+    assert sp.device_s is None
+
+
+@pytest.mark.gpu
+def test_traced_train_step_times_every_span_on_card(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.runtime.step import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_smoke("qwen2-moe-a2.7b"), remat="full")
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    state = init_train_state(cfg, gen(0), device=cuda)
+    rows = torch.randint(0, cfg.vocab, (2, 33), device=cuda, generator=gen(1))
+    batch = {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
+    tr = obs.Tracer()
+    state, _ = make_train_step(cfg, tracer=tr)(state, batch)
+    spans = tr.spans()
+    assert all(s.device_s is not None and s.device_s > 0 for s in spans)
+    by = {}
+    for s in spans:
+        by[s.name] = by.get(s.name, 0.0) + s.device_s
+    parts = by["train/forward"] + by["train/backward"] + by["train/optimizer"]
+    assert parts <= by["train/step"] * (1 + 1e-3)
+    for name in ("moe/route", "moe/dispatch", "moe/experts", "moe/combine"):
+        assert sum(s.name == name for s in spans) == 2 * cfg.n_layers
+    c = tr.counters()
+    assert 0 < c["moe/live_slots"] <= c["moe/slots"]
+    # a profiled step fills the process tracer, with device time: the
+    # session's first call cleared what an earlier session left there
+    proc = obs.process_tracer()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        state, _ = make_train_step(cfg)(state, batch)
+    new = proc.spans()
+    assert sum(s.name == "train/step" for s in new) == 1
+    assert all(s.device_s is not None for s in new)
