@@ -123,14 +123,18 @@ phases and fails on any mismatch:
    "full") cut to 4 of its 24 layers, batch 4 x 1024 tokens of
    ``SyntheticLM``, 6 steps at peak lr 1e-2: exactly 6 x 4 x 2
    ``rme_assemble`` launches (the MoE dispatch in each layer's forward and
-   in its recompute) and no other kernel (the train path runs the plain
-   attention, as the reference trains); every loss finite and the last
-   below the first; every parameter in bf16 after training; step ms,
-   tokens/s, peak memory and the optimizer's share; then step 0 again from
-   the same seed: its loss equal, bit for bit, to the path's and to the
-   same forward with the plain dispatch, its gradient norm within 1e-2 of
-   the plain one, the weights unchanged by it (lr 0 in warmup) and every
-   leaf in bf16 after it; (14b) the smoke config in f32 with int8
+   in its recompute), 6 of ``adamw_sumsq`` and of ``adamw_apply`` (the
+   fused AdamW, one table of leaves a step) and no other kernel (the train
+   path runs the plain attention, as the reference trains); every loss
+   finite and the last below the first; every parameter in bf16 after
+   training; step ms, tokens/s, peak memory and the optimizer's share;
+   then step 0 again from the same seed: its loss equal, bit for bit, to
+   the path's and to the same forward with the plain dispatch, its
+   gradient norm within 1e-2 of the plain one, the weights unchanged by it
+   (lr 0 in warmup) and every leaf in bf16 after it; the fused AdamW
+   against its plain version on the state's leaves up to 2^28 elements,
+   and the optimizer timed beside its bound of 30 bytes a parameter, its
+   plain version and ``torch.optim.AdamW(fused=True)``; (14b) the smoke config in f32 with int8
    gradient compression, checkpointed, restored bit for bit and resumed,
    its losses within 1e-3 of the same runs on the CPU, its checkpoints
    kept for 15b;
@@ -139,7 +143,8 @@ phases and fails on any mismatch:
    ``mesh=``: the state placed by the train rules, each batch split over
    the batch axes, every gradient redistributed to its parameter's
    placements; exactly 6 x 4 x 2 ``rme_assemble`` launches (through its
-   sharding rule) and no other kernel; steps 0-1's losses 14a's bit for
+   sharding rule), 14a's AdamW launches (on each leaf's local shard) and no
+   other kernel; steps 0-1's losses 14a's bit for
    bit, step 2 within MESH_STEP2_RTOL, steps 3-5 within MESH_LATE_RTOL
    (the run is chaotic there, 14a's own reruns differing by 5%); step ms
    beside 14a's; (15b)
@@ -191,7 +196,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-from repro_torch.core.fp_bounds import bf16_ulp, conv_tol  # noqa: E402
+from repro_torch.core.fp_bounds import (bf16_ulp, conv_tol,  # noqa: E402
+                                        ulps_apart)
 from repro_torch.tree import tree_map  # noqa: E402
 from repro_torch.models.partitioned import (  # noqa: E402
     CAPACITY, CHAINED_PATHS, CONF, UNFUSED_PATHS, detect_program,
@@ -2788,6 +2794,18 @@ CKPT_BATCH, CKPT_SEQ = 4, 64
 # 1e-2, where a rounding that moves one int8 code moves that gradient
 # element by a whole quantization step
 CKPT_LOSS_RTOL = 1e-3
+# the fused AdamW against its plain version on the same card tensors, over
+# the trained tree's leaves up to ADAMW_CHECK_ELEMS elements: the master, m
+# and v within ADAMW_STATE_ULPS (the same operations, an eager kernel's
+# FMA contracted or not), the bf16 parameter within one ulp (a rounding of
+# a master weight a few ulps off), the norm within ADAMW_NORM_RTOL (f32
+# sums in another order)
+ADAMW_CHECK_ELEMS = 1 << 28
+ADAMW_STATE_ULPS, ADAMW_PARAM_ULPS, ADAMW_NORM_RTOL = 4, 1, 1e-6
+# what one update needs a parameter: the bf16 gradient read twice (the
+# norm, the update), the f32 master, m and v read and written, the bf16
+# parameter written (bench/counts/lm.py's ADAMW_BYTES)
+ADAMW_BYTES_PER_PARAM = 30
 
 
 def _train_cfg():
@@ -2827,19 +2845,101 @@ def train_full_width(cfg, dev) -> dict:
             "peak": torch.cuda.max_memory_allocated(dev)}
 
 
-def _optimizer_ms(cfg, state) -> float:
-    """Wall time of one ``adamw_update`` over the whole state (zero
-    gradients: its work does not depend on their values), after one
-    untimed call."""
+def _optimizer_ms(cfg, state, update=None) -> float:
+    """Device time of one ``update`` (``adamw_update``: the kernels) over
+    the whole state (zero gradients: its work does not depend on their
+    values), a mean over back-to-back calls after an untimed one."""
     from repro_torch.optim.adamw import AdamWState, adamw_update
     from repro_torch.tree import tree_map
+    update = update or adamw_update
     grads = tree_map(torch.zeros_like, state["params"])
     opt = AdamWState(**state["opt"])
     lr = torch.zeros((), device=opt.step.device)
-    return wall_ms(lambda: adamw_update(grads, opt, lr,
-                                        param_dtype=cfg.dtype,
-                                        params=state["params"]),
-                   iters=2, warmup=1)
+    return cuda_ms(lambda: update(grads, opt, lr, param_dtype=cfg.dtype,
+                                  params=state["params"]), iters=3, warmup=1)
+
+
+def _fused_adamw_ms(state) -> float:
+    """Device time of one ``torch.optim.AdamW(fused=True)`` step over the
+    f32 master weights with f32 zero gradients, the state's m and v as its
+    moments: PyTorch's own fused AdamW, timed as the library yardstick
+    (the port never calls it; it writes no bf16 parameter and reads the
+    gradient once)."""
+    from repro_torch.tree import tree_leaves
+    masters = tree_leaves(state["opt"]["master"])
+    for w in masters:
+        w.grad = torch.zeros_like(w)
+    opt = torch.optim.AdamW(masters, lr=1e-4, betas=(0.9, 0.95),
+                            weight_decay=0.1, fused=True)
+    for w, mu, nu in zip(masters, tree_leaves(state["opt"]["m"]),
+                         tree_leaves(state["opt"]["v"])):
+        opt.state[w] = {"step": torch.zeros((), device=w.device),
+                        "exp_avg": mu, "exp_avg_sq": nu}
+    ms = cuda_ms(opt.step, iters=3, warmup=1)
+    for w in masters:
+        w.grad = None
+    return ms
+
+
+def adamw_check(cfg, state, dev) -> dict:
+    """The fused AdamW (``adamw_update`` on card tensors) against its plain
+    version (``adamw_update_plain``) on copies of the same leaves of a
+    state after a step: the leaves of ``state`` in tree order that fit
+    in ADAMW_CHECK_ELEMS, bf16 gradients of 1e-5 drawn from the seed (a
+    global norm under 1: the clip scale is 1 on both paths, whose norms
+    differ in the last bits), lr 1e-2.  Returns the largest distances in
+    ulps and the norms' relative gap."""
+    from repro_torch.kernels import adamw as ak
+    from repro_torch.optim.adamw import (AdamWState, adamw_update,
+                                         adamw_update_plain)
+    from repro_torch.tree import tree_leaves
+    leaves = list(zip(*(tree_leaves(state[k]) if k == "params" else
+                        tree_leaves(state["opt"][k])
+                        for k in ("params", "master", "m", "v"))))
+    picked, total = [], 0
+    for leaf in leaves:
+        if total + leaf[0].numel() <= ADAMW_CHECK_ELEMS:
+            picked.append(leaf)
+            total += leaf[0].numel()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    grads = [torch.randn(p.shape, generator=gen, device=dev).mul_(1e-5)
+             .to(cfg.dtype) for p, *_ in picked]
+    lr = torch.full((), 1e-2, device=dev)
+    outs = []
+    for update in (adamw_update, adamw_update_plain):
+        params = [p.clone() for p, *_ in picked]
+        opt = AdamWState(step=state["opt"]["step"].clone(),
+                         master=[w.clone() for _, w, _, _ in picked],
+                         m=[mu.clone() for _, _, mu, _ in picked],
+                         v=[nu.clone() for *_, nu in picked])
+        before = ak.adamw_apply.launches
+        new, opt, met = update(grads, opt, lr, param_dtype=cfg.dtype,
+                               params=params)
+        launched = ak.adamw_apply.launches - before
+        outs.append((new, opt, met["grad_norm"], launched))
+    torch.cuda.synchronize(dev)
+    (kp, ko, kn, k_launched), (pp, po, pn, p_launched) = outs
+    if (k_launched, p_launched) != (len(ak.tables(len(picked))), 0):
+        raise AssertionError(f"adamw: {k_launched} kernel launches, "
+                             f"{p_launched} from the plain version")
+    worst = {}
+    for name, a, b in (("master", ko.master, po.master), ("m", ko.m, po.m),
+                       ("v", ko.v, po.v), ("param", kp, pp)):
+        worst[name] = max(int(ulps_apart(x, y).max()) for x, y in zip(a, b))
+    rel = abs(float(kn) - float(pn)) / float(pn)
+    if not float(pn) < 1.0:
+        raise AssertionError(f"adamw: a gradient norm {float(pn)} clips")
+    log(f"adamw: the kernels against the plain version on {len(picked)} of "
+        f"the state's {len(leaves)} leaves ({total / 1e6:.1f} M elements), "
+        f"a step at lr 1e-2 after step 0: at most {worst} ulps apart "
+        f"(limits {ADAMW_STATE_ULPS}, parameter {ADAMW_PARAM_ULPS}); "
+        f"gradient norm {float(kn)!r} against {float(pn)!r} ({rel:.3g}, "
+        f"limit {ADAMW_NORM_RTOL})")
+    if max(worst[k] for k in ("master", "m", "v")) > ADAMW_STATE_ULPS or \
+            worst["param"] > ADAMW_PARAM_ULPS or not rel <= ADAMW_NORM_RTOL:
+        raise AssertionError(f"adamw: the kernels against the plain "
+                             f"version: {worst} ulps, norm {rel:.3g}")
+    return {"ulps": worst, "norm_rel": rel}
 
 
 def train_check(cfg, run: dict, card: str, dev) -> dict:
@@ -2855,7 +2955,7 @@ def train_check(cfg, run: dict, card: str, dev) -> dict:
 
     from repro_torch.data.pipeline import SyntheticLM, to_device
     from repro_torch.models.transformer import init_lm, lm_loss
-    from repro_torch.optim.adamw import global_norm
+    from repro_torch.optim.adamw import adamw_update_plain, global_norm
     from repro_torch.tree import tree_leaves
     from repro_torch.runtime.step import init_train_state, make_train_step
 
@@ -2918,7 +3018,11 @@ def train_check(cfg, run: dict, card: str, dev) -> dict:
         if b.dtype != cfg.dtype:
             raise AssertionError(f"a parameter in {b.dtype} after step 0")
         require_equal(b, a.to(cfg.dtype), "a parameter after step 0 at lr 0")
+    check = adamw_check(cfg, state, dev)
     opt_ms = _optimizer_ms(cfg, state)
+    plain_ms = _optimizer_ms(cfg, state, adamw_update_plain)
+    library_ms = _fused_adamw_ms(state)
+    bound_ms = ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3
     del state, met
     torch.cuda.empty_cache()
 
@@ -2935,14 +3039,33 @@ def train_check(cfg, run: dict, card: str, dev) -> dict:
         f"the step {again_ms:.3f} ms), median {step_ms:.3f} ms = "
         f"{tokens / step_ms * 1e3:.1f} tokens/s; peak {_gib(run['peak'])}; "
         f"the optimizer alone {opt_ms:.3f} ms "
-        f"({opt_ms / step_ms:.3f} of a step)")
+        f"({opt_ms / step_ms:.3f} of a step; bound {bound_ms:.3f} ms at "
+        f"{ADAMW_BYTES_PER_PARAM} bytes a parameter, plain {plain_ms:.3f}, "
+        f"torch.optim.AdamW(fused=True) {library_ms:.3f})")
     log(f"model {cfg.name} step 0: loss {float(plain_loss)!r} through the "
         f"kernels and the plain dispatch, bit for bit, and the path's; "
         f"gradient norm {norm:.6g} against {plain_norm:.6g} plain "
         f"({rel:.3g}, limit {GRAD_NORM_RTOL}); weights unchanged at lr 0; "
         f"every leaf {cfg.dtype} after step 0 and after step "
         f"{TRAIN_STEPS - 1}")
-    return {"step_ms": step_ms, "opt_ms": opt_ms, "norm_rel": rel}
+    row = dict(
+        name="adamw_apply", route="cuda",
+        source="src/repro_torch/csrc/adamw.cu",
+        replaces="none (the JAX package's AdamW is jnp)",
+        max_abs_err=None, ms=opt_ms, call_ms=opt_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
+        shape=f"adamw_update (adamw_sumsq + adamw_apply) over "
+              f"{n_params / 1e9:.3f} B parameters, bf16 gradients and "
+              f"parameters, f32 master, m and v; ulps {check['ulps']}")
+    return {"step_ms": step_ms, "opt_ms": opt_ms, "norm_rel": rel,
+            "row": row}
+
+
+def _adamw_tables(state) -> int:
+    """The fused AdamW's launches of each kernel a step on ``state``."""
+    from repro_torch.kernels.adamw import tables
+    from repro_torch.tree import tree_leaves
+    return len(tables(len(tree_leaves(state["params"]))))
 
 
 def train_checkpoint_path(dev, keep: str) -> dict:
@@ -3425,11 +3548,11 @@ KERNELS = {  # slice -> the kernels its path must launch
     "13b": ("rme_assemble", "flash_attention", "flash_decode"),
     # slice 14 ports no kernel: the train path runs plain attention, as
     # the reference trains, and its MoE dispatch on the assemble kernel
-    "14a": ("rme_assemble",),
-    "14b": ("rme_assemble",),
+    "14a": ("rme_assemble", "adamw_sumsq", "adamw_apply"),
+    "14b": ("rme_assemble", "adamw_sumsq", "adamw_apply"),
     # slice 15 ports no kernel: the train path on a mesh and the loss on
     # DTensor weights reach the assemble kernel through its sharding rule
-    "15a": ("rme_assemble",),
+    "15a": ("rme_assemble", "adamw_sumsq", "adamw_apply"),
     "15b": ("rme_assemble",),
     # the decode step on the card mesh, its cache's rows over "model": the
     # partial mode of flash_decode
@@ -3438,6 +3561,7 @@ KERNELS = {  # slice -> the kernels its path must launch
 
 
 def _wrappers() -> dict:
+    from repro_torch.kernels import adamw as ak
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.img2col import img2col as ik
     from repro_torch.kernels.matmul_tm import chain as xc
@@ -3459,7 +3583,9 @@ def _wrappers() -> dict:
             "xchain_prologue": xc.xchain_prologue,
             "flash_attention": fa.flash_attention,
             "flash_decode": fa.flash_decode,
-            "flash_decode_partial": fa.flash_decode_partial}
+            "flash_decode_partial": fa.flash_decode_partial,
+            "adamw_sumsq": ak.adamw_sumsq,
+            "adamw_apply": ak.adamw_apply}
 
 
 def launch_counts() -> dict[str, int]:
@@ -3625,11 +3751,15 @@ def main() -> int:
     want = {k: 0 for k in counts14a}
     # a launch a layer in the forward and one in the remat recompute
     want["rme_assemble"] = TRAIN_STEPS * train_cfg.n_layers * 2
+    # a launch of each a table of the tree's leaves a step
+    want["adamw_sumsq"] = want["adamw_apply"] = TRAIN_STEPS * _adamw_tables(
+        run["state"])
     if counts14a != want:
         raise AssertionError(f"slice 14a launches {counts14a}, expected "
                              f"{want}")
     plain14a = {"losses": list(run["losses"])}
     plain14a.update(train_check(train_cfg, run, card, dev))
+    rows.append(plain14a.pop("row"))
     del run
     ckpt14b = tempfile.TemporaryDirectory()
     _, counts14b = run_path("14b", lambda: train_checkpoint_path(
@@ -3648,6 +3778,8 @@ def main() -> int:
             train_cfg, mesh, dev))
         want = {k: 0 for k in counts15a}
         want["rme_assemble"] = TRAIN_STEPS * train_cfg.n_layers * 2
+        want["adamw_sumsq"] = want["adamw_apply"] = \
+            TRAIN_STEPS * _adamw_tables(run["state"])
         if counts15a != want:
             raise AssertionError(f"slice 15a launches {counts15a}, expected "
                                  f"{want}")

@@ -30,6 +30,21 @@ def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+def ulps_apart(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """How many steps of their dtype (float32 or bfloat16) lie between
+    ``a`` and ``b``, elementwise, as int64: 0 where they are equal (+0 and
+    -0 alike), 1 where they are neighbours."""
+    if a.dtype != b.dtype:
+        raise TypeError(f"ulps_apart: {a.dtype} against {b.dtype}")
+    bits, mag = {torch.float32: (torch.int32, 0x7FFFFFFF),
+                 torch.bfloat16: (torch.int16, 0x7FFF)}[a.dtype]
+
+    def key(t):  # the bits as an int that counts up with the value
+        i = t.view(bits).to(torch.int64)
+        return torch.where(i >= 0, i, -(i & mag))
+    return (key(a) - key(b)).abs()
+
+
 def conv_tol(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
              pad: int = 0) -> torch.Tensor:
     """Elementwise bound on the distance between two float32 evaluations of

@@ -91,6 +91,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "flash_attention_decode_partial": [_P] * 7 + [_I] * 8
         + [_I64] * 10 + [_F, _P],
     },
+    "adamw": {
+        "adamw_sumsq": [_P, _P, _P, _I, _P, _I64, _P, _P],
+        "adamw_apply": [_P] * 7 + [_I] + [_P] * 4 + [_F] * 6 + [_P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

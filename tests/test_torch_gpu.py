@@ -2125,3 +2125,292 @@ def test_traced_train_step_times_every_span_on_card(cuda):
     new = proc.spans()
     assert sum(s.name == "train/step" for s in new) == 1
     assert all(s.device_s is not None for s in new)
+
+
+# -- the fused AdamW (csrc/adamw.cu) against its plain version ----------------
+
+# leaf sizes: a vector tail, one element, several partial sums, a matrix, none
+ADAMW_SIZES = {"z_tail": (2048 + 3,), "a_one": (1,), "m_tiles": (3 * 16384 + 5,),
+               "k_mat": (37, 129), "e_empty": (0,)}
+ADAMW_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _adamw_tree(dev, gdt, pdt, seed, sizes=ADAMW_SIZES, odd=("z_tail",),
+                gscale=1e-3):
+    """``(grads, AdamWState, params)`` on ``dev``, drawn from ``seed``; the
+    leaves named in ``odd`` are views one element into their buffers (not
+    16-byte aligned) in every tree.  The dict's keys are out of sorted
+    order, so the update's tree order and the norm's leaf order differ.
+    Gradients of ``gscale`` 1e-3 have a global norm under 1: the clip
+    scale is exactly 1 on both paths, whose norms differ in the last bits
+    (their sums run in other orders), and a step of lr 1e-2 on master
+    weights of 5e-2 cancels enough to turn one ulp of a scale into dozens
+    of the master's."""
+    from repro_torch.optim.adamw import AdamWState
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(shape, dtype, scale, off):
+        n = int(np.prod(shape))
+        buf = (torch.randn(n + off, generator=gen) * scale).to(dtype)
+        return buf.to(dev)[off:].view(shape)
+
+    trees = {k: {} for k in ("g", "w", "m", "v", "p")}
+    for name, shape in sizes.items():
+        off = int(name in odd)
+        trees["g"][name] = draw(shape, gdt, gscale, off)
+        trees["w"][name] = draw(shape, torch.float32, 5e-2, off)
+        trees["m"][name] = draw(shape, torch.float32, 1e-3, off)
+        trees["v"][name] = draw(shape, torch.float32, 1e-3, off).square_()
+        trees["p"][name] = draw(shape, pdt, 1.0, off)
+    state = AdamWState(step=torch.tensor(3, dtype=torch.int32, device=dev),
+                       master=trees["w"], m=trees["m"], v=trees["v"])
+    return trees["g"], state, trees["p"]
+
+
+def _adamw_clone(grads, state, params):
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.tree import tree_map
+    return (grads, AdamWState(step=state.step.clone(),
+                              master=tree_map(torch.clone, state.master),
+                              m=tree_map(torch.clone, state.m),
+                              v=tree_map(torch.clone, state.v)),
+            tree_map(torch.clone, params))
+
+
+def _adamw_steps(update, grads, state, params, pdt, steps=2, **kw):
+    lr = torch.full((), 1e-2, device=state.step.device)
+    for _ in range(steps):
+        params, state, met = update(grads, state, lr, param_dtype=pdt,
+                                    params=params, **kw)
+    torch.cuda.synchronize()
+    return params, state, met["grad_norm"]
+
+
+def _local_leaves(tree):
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_leaves
+    return [t.to_local() if isinstance(t, DTensor) else t
+            for t in tree_leaves(tree)]
+
+
+def _assert_adamw_close(got, want):
+    """m, v and the master within 4 ulps, the parameter within 1, the
+    gradient norm within 1e-6 relative."""
+    from repro_torch.core.fp_bounds import ulps_apart
+    (gp, gs, gn), (wp, ws, wn) = got, want
+    for name, a, b, ulps in (("master", gs.master, ws.master, 4),
+                             ("m", gs.m, ws.m, 4), ("v", gs.v, ws.v, 4),
+                             ("param", gp, wp, 1)):
+        for x, y in zip(_local_leaves(a), _local_leaves(b)):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            if x.numel():
+                assert int(ulps_apart(x, y).max()) <= ulps, name
+    gn, wn = (float(x.full_tensor() if hasattr(x, "full_tensor") else x)
+              for x in (gn, wn))
+    assert abs(gn - wn) <= 1e-6 * wn, (gn, wn)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gdt", ADAMW_DTYPES)
+@pytest.mark.parametrize("pdt", ADAMW_DTYPES)
+def test_adamw_kernels_match_plain_on_card(cuda, gdt, pdt):
+    """Two steps of ``adamw_update`` (the kernels: vector tails, a
+    misaligned view, an empty leaf, several partial sums) against
+    ``adamw_update_plain`` on copies of the same card tensors; one launch
+    of each kernel a step; the parameter written in place."""
+    from repro_torch.kernels import adamw as ak
+    from repro_torch.optim.adamw import adamw_update, adamw_update_plain
+    tree = _adamw_tree(cuda, gdt, pdt, seed=1)
+    twin = _adamw_clone(*tree)
+    before = ak.adamw_sumsq.launches, ak.adamw_apply.launches
+    got = _adamw_steps(adamw_update, *tree, pdt)
+    assert (ak.adamw_sumsq.launches - before[0],
+            ak.adamw_apply.launches - before[1]) == (2, 2)
+    assert all(a is b for a, b in zip(got[0].values(), tree[2].values()))
+    want = _adamw_steps(adamw_update_plain, *twin, pdt)
+    assert (ak.adamw_sumsq.launches - before[0],
+            ak.adamw_apply.launches - before[1]) == (2, 2)
+    _assert_adamw_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pdt", ADAMW_DTYPES)
+def test_adamw_kernels_clip_as_the_plain_version_on_card(cuda, pdt):
+    """Gradients of norm about 240, clipped to 1: the kernels' step equals
+    the plain version's on the f32 gradients scaled by the kernels' own
+    clip scale (a norm of 1 up to rounding, under its max_norm of 2, so
+    scale 1 there): the scale read on
+    the card multiplies each f32 gradient once, as there."""
+    from repro_torch.optim.adamw import (_clip_scale, adamw_update,
+                                         adamw_update_plain)
+    from repro_torch.tree import tree_map
+    grads, state, params = _adamw_tree(cuda, torch.float32, pdt, seed=10,
+                                       gscale=1.0)
+    twin = _adamw_clone(grads, state, params)
+    got = _adamw_steps(adamw_update, grads, state, params, pdt, steps=1)
+    scale = _clip_scale(got[2], 1.0)
+    assert float(scale) < 1e-2
+    scaled = tree_map(lambda g: g * scale, twin[0])
+    want = _adamw_steps(adamw_update_plain, scaled, *twin[1:], pdt, steps=1,
+                        max_norm=2.0)
+    _assert_adamw_close(got[:2] + (want[2],), want)
+
+
+@pytest.mark.gpu
+def test_adamw_kernels_cast_leaves_of_another_dtype_on_card(cuda):
+    """A parameter of another dtype than ``param_dtype`` (or none) gets a
+    new tensor, as in the plain version; the old leaf is left as it was."""
+    from repro_torch.optim.adamw import adamw_update, adamw_update_plain
+    grads, state, params = _adamw_tree(cuda, torch.bfloat16, torch.float32,
+                                       seed=2)
+    kept = {k: t.clone() for k, t in params.items()}
+    twin = _adamw_clone(grads, state, params)
+    got = _adamw_steps(adamw_update, grads, state, params, torch.bfloat16)
+    want = _adamw_steps(adamw_update_plain, *twin, torch.bfloat16)
+    for k, t in got[0].items():
+        assert t.dtype == torch.bfloat16 and t is not params[k]
+        assert torch.equal(params[k], kept[k])
+    _assert_adamw_close(got, want)
+    grads, state, _ = _adamw_tree(cuda, torch.float32, torch.float32, seed=3)
+    twin = _adamw_clone(grads, state, {})
+    got = _adamw_steps(adamw_update, grads, state, None, torch.bfloat16)
+    want = _adamw_steps(adamw_update_plain, twin[0], twin[1], None,
+                        torch.bfloat16)
+    _assert_adamw_close(got, want)
+
+
+@pytest.mark.gpu
+def test_adamw_tree_larger_than_a_table_on_card(cuda):
+    """150 leaves (three tables of at most 64, dtypes mixed) take three
+    launches of each kernel a step, and match the plain version."""
+    from repro_torch.kernels import adamw as ak
+    from repro_torch.optim.adamw import adamw_update, adamw_update_plain
+    rng = np.random.RandomState(4)
+    sizes = {f"l{i:03d}": (int(rng.randint(0, 5000)),) for i in range(150)}
+    grads, state, params = _adamw_tree(cuda, torch.bfloat16, torch.bfloat16,
+                                       seed=4, sizes=sizes,
+                                       odd=("l007", "l100"))
+    grads = {k: (g.float() if i % 3 == 0 else g)
+             for i, (k, g) in enumerate(grads.items())}
+    twin = _adamw_clone(grads, state, params)
+    assert [len(r) for r in ak.tables(150)] == [64, 64, 22]
+    before = ak.adamw_sumsq.launches, ak.adamw_apply.launches
+    got = _adamw_steps(adamw_update, grads, state, params, torch.bfloat16)
+    assert (ak.adamw_sumsq.launches - before[0],
+            ak.adamw_apply.launches - before[1]) == (6, 6)
+    want = _adamw_steps(adamw_update_plain, *twin, torch.bfloat16)
+    _assert_adamw_close(got, want)
+
+
+@pytest.mark.gpu
+def test_adamw_kernels_give_the_same_bits_twice_on_card(cuda):
+    """Two runs on the same inputs: every state leaf, every parameter and
+    the norm bit for bit (no float atomics); the sums of squares of a leaf
+    of 2^24 + 3 elements too."""
+    from repro_torch.kernels.adamw import adamw_sumsq
+    from repro_torch.optim.adamw import adamw_update
+    runs = [_adamw_steps(adamw_update, *_adamw_tree(
+        cuda, torch.bfloat16, torch.bfloat16, seed=6), torch.bfloat16)
+        for _ in range(2)]
+    (ap, as_, an), (bp, bs, bn) = runs
+    assert torch.equal(an, bn)
+    for a, b in zip(_local_leaves([ap, as_.master, as_.m, as_.v]),
+                    _local_leaves([bp, bs.master, bs.m, bs.v])):
+        assert torch.equal(a, b)
+    big = torch.randn(2 ** 24 + 3, device=cuda).to(torch.bfloat16)
+    assert torch.equal(adamw_sumsq([big, big[1:]]),
+                       adamw_sumsq([big, big[1:]]))
+    ref = big.double().square().sum()
+    assert abs(float(adamw_sumsq([big])[0]) - float(ref)) <= 1e-6 * float(ref)
+
+
+@pytest.mark.gpu
+def test_adamw_update_does_not_sync_on_card(cuda):
+    """With the device lr, ``adamw_update`` on card tensors makes no call
+    that waits for the device."""
+    from repro_torch.optim.adamw import adamw_update
+    tree = _adamw_tree(cuda, torch.bfloat16, torch.bfloat16, seed=7)
+    lr = torch.full((), 1e-2, device=cuda)
+    adamw_update(*tree[:2], lr, params=tree[2])  # builds and loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        adamw_update(*tree[:2], lr, params=tree[2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_adamw_counts_every_element_as_the_kernels_on_card(cuda):
+    """Under a tracer: ``adamw/kernel_elems`` equals ``adamw/elems``, every
+    element of the tree, on the card; only ``adamw/elems`` for the plain
+    version."""
+    from repro_torch import obs
+    from repro_torch.optim.adamw import adamw_update, adamw_update_plain
+    tree = _adamw_tree(cuda, torch.bfloat16, torch.bfloat16, seed=8)
+    n = sum(int(np.prod(s)) for s in ADAMW_SIZES.values())
+    lr = torch.full((), 1e-2, device=cuda)
+    tr = obs.Tracer()
+    with obs.use(tr):
+        adamw_update(*tree[:2], lr, params=tree[2])
+    assert tr.counters() == {"adamw/elems": n, "adamw/kernel_elems": n}
+    tr = obs.Tracer()
+    with obs.use(tr):
+        adamw_update_plain(*tree[:2], lr, params=tree[2])
+    assert tr.counters() == {"adamw/elems": n}
+
+
+@pytest.mark.gpu
+def test_adamw_kernels_refuse_what_they_do_not_take_on_card(cuda):
+    from repro_torch.kernels.adamw import adamw_apply, adamw_sumsq
+    with pytest.raises(TypeError, match="dtype"):
+        adamw_sumsq([torch.ones(8, dtype=torch.float16, device=cuda)])
+    with pytest.raises(ValueError, match="CUDA"):
+        adamw_sumsq([torch.ones(8, device=cuda), torch.ones(8)])
+    g = torch.ones(8, device=cuda)
+    w = torch.ones(16, device=cuda)[::2]
+    one = torch.ones((), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw_apply([g], [w], [g.clone()], [g.clone()], [g.clone()],
+                    scale=one, c1=one, c2=one, lr=one, b1=0.9, b2=0.95,
+                    eps=1e-8, weight_decay=0.1)
+    with pytest.raises(ValueError, match="size"):
+        adamw_apply([g], [torch.ones(9, device=cuda)], [g.clone()],
+                    [g.clone()], [g.clone()], scale=one, c1=one, c2=one,
+                    lr=one, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+@pytest.mark.gpu
+def test_adamw_kernels_on_card_mesh_shards(card_mesh):
+    """DTensor leaves on the (1, 1) card mesh (sharded and replicated):
+    the kernels run on each local shard, the norm a partial sum where a
+    leaf is sharded, and the result matches the plain version's."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+
+    from repro_torch.kernels import adamw as ak
+    from repro_torch.optim.adamw import (AdamWState, adamw_update,
+                                         adamw_update_plain)
+    from repro_torch.tree import tree_map
+    sizes = {k: s for k, s in ADAMW_SIZES.items() if k != "e_empty"}
+
+    def placed(seed):
+        grads, state, params = _adamw_tree(torch.device("cuda"),
+                                           torch.bfloat16, torch.bfloat16,
+                                           seed=seed, sizes=sizes, odd=())
+        put = lambda t: distribute_tensor(  # noqa: E731
+            t, card_mesh, [Shard(0), Replicate()] if t.shape[0] > 40
+            else [Replicate(), Replicate()])
+        return (tree_map(put, grads),
+                AdamWState(step=state.step, master=tree_map(put, state.master),
+                           m=tree_map(put, state.m), v=tree_map(put, state.v)),
+                tree_map(put, params))
+
+    before = ak.adamw_apply.launches
+    got = _adamw_steps(adamw_update, *placed(9), torch.bfloat16)
+    assert ak.adamw_apply.launches - before == 2
+    assert all(isinstance(t, DTensor) for t in got[0].values())
+    want = _adamw_steps(adamw_update_plain, *placed(9), torch.bfloat16)
+    _assert_adamw_close(got, want)

@@ -122,8 +122,12 @@ def test_train_step_records_its_phases_and_each_moe_span_twice_a_layer():
     assert tr.nesting_errors() == []
     assert all(s.device_s is None for s in spans)
     c = tr.counters()
-    assert set(c) == {"moe/slots", "moe/live_slots"}
+    # the CPU's leaves take the plain AdamW: no kernel elements counted
+    assert set(c) == {"moe/slots", "moe/live_slots", "adamw/elems"}
     assert 0 < c["moe/live_slots"] <= c["moe/slots"]
+    assert c["adamw/elems"] == sum(t.numel() for t in tree_leaves(
+        init_train_state(cfg, torch.Generator().manual_seed(0),
+                         device=CPU)["params"]))
 
 
 def test_train_step_without_remat_counts_each_moe_span_once_a_layer():
@@ -359,5 +363,5 @@ def test_train_cli_trace_exports_each_steps_spans(tmp_path, capsys):
     assert xs.count("train/optimizer") == 2
     assert xs.count("moe/experts") == 2 * get_smoke("qwen2-moe-a2.7b").n_layers
     counters = {e["name"] for e in trace["traceEvents"] if e["ph"] == "C"}
-    assert counters == {"moe/slots", "moe/live_slots"}
+    assert counters == {"moe/slots", "moe/live_slots", "adamw/elems"}
     assert "profiler_ns_at_ts0" in trace["otherData"]
