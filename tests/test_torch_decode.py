@@ -220,7 +220,6 @@ def test_session_draws_its_weights_from_the_generator(cfg):
     assert torch.equal(runs[0][1], runs[1][1])
 
 
-@pytest.mark.slow
 def test_session_32_step_decode_bit_exact(cfg, params):
     """The acceptance run: prefill + 32 decode steps, every step's logits
     and caches bit-exact against the uncompiled model, the KV cache

@@ -194,7 +194,7 @@ def _run(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(ROOT, "src") + os.pathsep + ROOT
     out = subprocess.run([sys.executable, "-c", script], env=env,
-                         capture_output=True, text=True, timeout=900)
+                         capture_output=True, text=True)
     assert out.returncode == 0, out.stderr[-4000:]
     return json.loads(out.stdout.strip().splitlines()[-1])
 

@@ -42,6 +42,10 @@ from tests.test_torch_support import assert_same  # noqa: E402
 
 CPU = "cpu"
 WAIT = 120
+# the batch window of the isolation tests, which need their requests in one
+# group: long enough for a loaded host to submit them all, and no cost, as
+# a full group dispatches at once
+GROUP_S = 1.0
 
 
 # module-level so every request shares one fn identity (one bucket lineage)
@@ -332,7 +336,7 @@ def test_bisect_retry_rescues_innocents_bit_exact(backend):
     never reaching isolation."""
     plan = FaultPlan(specs=(FaultSpec(site="phase", match="tpu",
                                       mode="fail", count=3),), seed=3)
-    with _server(max_batch=4, batch_timeout_s=0.05, backend=backend,
+    with _server(max_batch=4, batch_timeout_s=GROUP_S, backend=backend,
                  retry_attempts=2) as srv:
         with FaultInjector(plan) as inj:
             futs = [srv.submit(_tm_fn, _args(i)) for i in range(4)]
@@ -389,7 +393,7 @@ def test_stream_fault_isolation_on_and_off(scheduler, retry):
     and isolation never engages."""
     plan = FaultPlan(specs=(FaultSpec(site="stream", mode="fail", count=1),),
                      seed=9 if retry else 11)
-    with _server(max_batch=4, batch_timeout_s=0.05, scheduler=scheduler,
+    with _server(max_batch=4, batch_timeout_s=GROUP_S, scheduler=scheduler,
                  retry_attempts=retry) as srv:
         with FaultInjector(plan):
             futs = [srv.submit(_tm_fn, _args(i)) for i in range(4)]
@@ -448,7 +452,7 @@ def test_hung_phase_times_out_and_engine_keeps_serving():
 
 
 def test_hung_group_is_rescued_when_isolation_on():
-    with _server(max_batch=2, batch_timeout_s=0.02, retry_attempts=2,
+    with _server(max_batch=2, batch_timeout_s=GROUP_S, retry_attempts=2,
                  phase_timeout_factor=5.0, phase_timeout_floor_s=0.15) as srv:
         # warm the HEIGHT-2 class: deadlines attach to warm hits only
         warm = [srv.submit(_tm_fn, _args(i)) for i in range(2)]

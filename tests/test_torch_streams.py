@@ -367,8 +367,7 @@ def test_stream_soak_event_ordering_and_bit_exact(backend):
         for t in threads:
             t.start()
         for t in threads:
-            t.join(timeout=600)
-        assert not any(t.is_alive() for t in threads)
+            t.join()
         measured = rt.overlap()
     assert not failures, failures[:3]
     assert len(results) == n_threads * n_per_thread
