@@ -32,6 +32,10 @@ phases and fails on any mismatch:
    ``torch.mm``); ``tm_chain``'s run plan at the neck (R, elements an
    access, the bytes of its run tables beside the full pullback's, which
    must stay under 64 KB); each RME compaction's scan rounds per stream;
+   the cross-entropy kernels (``xent_rows``, ``xent_grad``) at the train
+   cell's (4096, 151936) bf16 logits against the plain loss's nll and
+   gradient, timed beside their bound, the plain version and
+   ``F.cross_entropy``;
 2. slice 1, per-instruction lowering: the paper's Table III operators as
    single-instruction ``TMProgram``s through ``TMExecutor(backend="cuda")``
    against ``backend="reference"``, bit-exact, with the expected ``cuda.*``
@@ -124,7 +128,8 @@ phases and fails on any mismatch:
    ``SyntheticLM``, 6 steps at peak lr 1e-2: exactly 6 x 4 x 2
    ``rme_assemble`` launches (the MoE dispatch in each layer's forward and
    in its recompute), 6 of ``adamw_sumsq`` and of ``adamw_apply`` (the
-   fused AdamW, one table of leaves a step) and no other kernel (the train
+   fused AdamW, one table of leaves a step), 6 of ``xent_rows`` and of
+   ``xent_grad`` (the loss) and no other kernel (the train
    path runs the plain attention, as the reference trains); every loss
    finite and the last below the first; every parameter in bf16 after
    training; step ms, tokens/s, peak memory and the optimizer's share;
@@ -144,13 +149,16 @@ phases and fails on any mismatch:
    the batch axes, every gradient redistributed to its parameter's
    placements; exactly 6 x 4 x 2 ``rme_assemble`` launches (through its
    sharding rule), 14a's AdamW launches (on each leaf's local shard) and no
-   other kernel; steps 0-1's losses 14a's bit for
-   bit, step 2 within MESH_STEP2_RTOL, steps 3-5 within MESH_LATE_RTOL
+   other kernel but the loss's two (its DTensor logits through
+   ``local_map``, each rank's shard whole rows); steps 0-1's losses 14a's
+   bit for bit, step 2 within MESH_STEP2_RTOL, steps 3-5 within
+   MESH_LATE_RTOL
    (the run is chaotic there, 14a's own reruns differing by 5%); step ms
    beside 14a's; (15b)
    the 4-layer weights placed by ``reshard_state``, ``lm_loss`` on them
-   under the train rules: 4 launches, the loss the plain forward's bit for
-   bit, the weights back whole and placed again bit for bit, 14b's
+   under the train rules: 4 launches and one of ``xent_rows`` (no
+   gradient is taken), the loss the plain forward's bit for bit, the
+   weights back whole and placed again bit for bit, 14b's
    checkpoint restored onto the mesh with its spec tree bit for bit;
    (15d) Phi-4-mini at full width cut to 4 layers, batch 8, prefilled
    plainly into a 1088-row cache, then 8 decode steps on the card mesh
@@ -985,12 +993,87 @@ def kernel_phase(dev, gen, espcn: dict) -> list[dict]:
              resize_row(dev, gen), matmul_tm_row(espcn),
              xchain_commit_row(espcn), xchain_prologue_row(dev, gen)]
     rows += flash_rows(dev, gen)
+    rows.append(xent_row(dev))
     for r in rows:
         log(f"kernel {r['name']:17s} {r['shape']}: {r['ms']:.4f} ms device "
             f"({r['call_ms']:.4f} per call with host work; plain "
             f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, library "
             f"{r['library_ms']}) max|err| {r['max_abs_err']}")
     return rows
+
+
+# the loss at the train cell's shape: 4 x 1024 positions over Qwen1.5-MoE's
+# 151936-token vocabulary, bf16 logits drawn N(0, 1)
+XENT_ROWS, XENT_VOCAB = 4096, 151936
+
+
+def xent_row(dev) -> dict:
+    """The cross-entropy kernels at the train cell's shape against the
+    plain loss on the same card tensors (``dnll`` the mean's 1 / rows):
+    each row's nll within 1e-5 relative plus the rounding of lse at its
+    magnitude, every gradient element within one bf16 ulp; ``xent_rows``
+    and ``xent_grad`` each timed beside its bound (the logits read once
+    each, the gradient written once), the plain version's forward and
+    backward, and ``F.cross_entropy``'s forward and backward on the same
+    bf16 logits (the library yardstick: the port never calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.fp_bounds import U32
+    from repro_torch.kernels import xent
+    with torch.inference_mode(False):
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        logits = torch.randn((XENT_ROWS, XENT_VOCAB), generator=g,
+                             device=dev).to(torch.bfloat16)
+        labels = torch.randint(0, XENT_VOCAB, (XENT_ROWS,), generator=g,
+                               device=dev)
+        dnll = torch.full((XENT_ROWS,), 1.0 / XENT_ROWS, device=dev)
+        nll, mx, sm = xent.xent_rows(logits, labels)
+        grad = xent.xent_grad(logits, labels, mx, sm, dnll)
+        x = logits.clone().requires_grad_()
+        want = xent.nll_plain(x, labels)
+        (want_grad,) = torch.autograd.grad(want, [x], dnll)
+        want = want.detach()
+        nll_err = float(((nll - want).abs() / (1e-5 * want.abs()
+                                               + 4 * U32 * mx.abs())).max())
+        ulps = int(ulps_apart(grad, want_grad).max())
+        log(f"kernel xent_rows + xent_grad: nll within {nll_err:.3g} of its "
+            f"tolerance, the gradient {ulps} bf16 ulps from the plain "
+            f"version's at most")
+        if not (nll_err <= 1.0 and ulps <= 1):
+            raise AssertionError(f"xent: nll {nll_err:.3g} of its "
+                                 f"tolerance, gradient {ulps} ulps")
+        del want_grad, grad
+        fwd_ms = graph_ms(lambda: xent.xent_rows(logits, labels), iters=5)
+        bwd_ms = graph_ms(lambda: xent.xent_grad(logits, labels, mx, sm,
+                                                 dnll), iters=5)
+
+        def kernels():
+            _, m, s = xent.xent_rows(logits, labels)
+            return xent.xent_grad(logits, labels, m, s, dnll)
+
+        call_ms = cuda_ms(kernels, iters=10)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(
+            xent.nll_plain(x, labels), [x], dnll), iters=3, warmup=1)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            F.cross_entropy(x, labels, reduction="none"), [x],
+            dnll.to(torch.bfloat16)),
+            iters=3, warmup=1)
+    elem = logits.numel() * logits.element_size()
+    fwd_bound = (elem + XENT_ROWS * (8 + 12)) / HBM_BYTES_PER_S * 1e3
+    bwd_bound = (2 * elem + XENT_ROWS * (8 + 12)) / HBM_BYTES_PER_S * 1e3
+    log(f"kernel xent_rows {fwd_ms:.4f} ms (bound {fwd_bound:.4f}), "
+        f"xent_grad {bwd_ms:.4f} ms (bound {bwd_bound:.4f}), both "
+        f"{call_ms:.4f} ms per call; plain forward and backward "
+        f"{plain_ms:.4f} ms, F.cross_entropy forward and backward "
+        f"{library_ms:.4f} ms")
+    return dict(
+        name="xent_rows", route="cuda", source="src/repro_torch/csrc/xent.cu",
+        replaces="none (the JAX package's loss is jnp)",
+        max_abs_err=max_abs_err(nll, want), ms=fwd_ms + bwd_ms,
+        call_ms=call_ms, plain_ms=plain_ms, bound_ms=fwd_bound + bwd_bound,
+        bound_by="bytes", library_ms=library_ms,
+        shape=f"xent_rows {fwd_ms:.4f} + xent_grad {bwd_ms:.4f} ms on "
+              f"({XENT_ROWS}, {XENT_VOCAB}) bf16 logits; {ulps} ulps")
 
 
 def _sdpa(q, k, v, **kw):
@@ -3548,12 +3631,16 @@ KERNELS = {  # slice -> the kernels its path must launch
     "13b": ("rme_assemble", "flash_attention", "flash_decode"),
     # slice 14 ports no kernel: the train path runs plain attention, as
     # the reference trains, and its MoE dispatch on the assemble kernel
-    "14a": ("rme_assemble", "adamw_sumsq", "adamw_apply"),
-    "14b": ("rme_assemble", "adamw_sumsq", "adamw_apply"),
+    "14a": ("rme_assemble", "adamw_sumsq", "adamw_apply", "xent_rows",
+            "xent_grad"),
+    "14b": ("rme_assemble", "adamw_sumsq", "adamw_apply", "xent_rows",
+            "xent_grad"),
     # slice 15 ports no kernel: the train path on a mesh and the loss on
     # DTensor weights reach the assemble kernel through its sharding rule
-    "15a": ("rme_assemble", "adamw_sumsq", "adamw_apply"),
-    "15b": ("rme_assemble",),
+    # and the loss's kernels through local_map (15b takes no gradient)
+    "15a": ("rme_assemble", "adamw_sumsq", "adamw_apply", "xent_rows",
+            "xent_grad"),
+    "15b": ("rme_assemble", "xent_rows"),
     # the decode step on the card mesh, its cache's rows over "model": the
     # partial mode of flash_decode
     "15d": ("flash_decode_partial",),
@@ -3562,6 +3649,7 @@ KERNELS = {  # slice -> the kernels its path must launch
 
 def _wrappers() -> dict:
     from repro_torch.kernels import adamw as ak
+    from repro_torch.kernels import xent
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.img2col import img2col as ik
     from repro_torch.kernels.matmul_tm import chain as xc
@@ -3585,7 +3673,9 @@ def _wrappers() -> dict:
             "flash_decode": fa.flash_decode,
             "flash_decode_partial": fa.flash_decode_partial,
             "adamw_sumsq": ak.adamw_sumsq,
-            "adamw_apply": ak.adamw_apply}
+            "adamw_apply": ak.adamw_apply,
+            "xent_rows": xent.xent_rows,
+            "xent_grad": xent.xent_grad}
 
 
 def launch_counts() -> dict[str, int]:
@@ -3754,6 +3844,8 @@ def main() -> int:
     # a launch of each a table of the tree's leaves a step
     want["adamw_sumsq"] = want["adamw_apply"] = TRAIN_STEPS * _adamw_tables(
         run["state"])
+    # the loss's two kernels once a step (outside the remat recompute)
+    want["xent_rows"] = want["xent_grad"] = TRAIN_STEPS
     if counts14a != want:
         raise AssertionError(f"slice 14a launches {counts14a}, expected "
                              f"{want}")
@@ -3780,6 +3872,7 @@ def main() -> int:
         want["rme_assemble"] = TRAIN_STEPS * train_cfg.n_layers * 2
         want["adamw_sumsq"] = want["adamw_apply"] = \
             TRAIN_STEPS * _adamw_tables(run["state"])
+        want["xent_rows"] = want["xent_grad"] = TRAIN_STEPS
         if counts15a != want:
             raise AssertionError(f"slice 15a launches {counts15a}, expected "
                                  f"{want}")
@@ -3791,6 +3884,7 @@ def main() -> int:
             train_cfg, mesh, dev))
         want = {k: 0 for k in counts15b}
         want["rme_assemble"] = train_cfg.n_layers
+        want["xent_rows"] = 1
         if counts15b != want:
             raise AssertionError(f"slice 15b launches {counts15b}, expected "
                                  f"{want}")

@@ -95,6 +95,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "adamw_sumsq": [_P, _P, _P, _I, _P, _I64, _P, _P],
         "adamw_apply": [_P] * 7 + [_I] + [_P] * 4 + [_F] * 6 + [_P],
     },
+    "xent": {
+        "xent_rows": [_P, _I64, _I64, _I64, _I, _I64, _I64] + [_P] * 6,
+        "xent_grad": [_P, _I64, _I64, _I64, _I, _I64, _I64] + [_P] * 5
+        + [_I64, _P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -14,7 +14,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
+from repro_torch.kernels import xent
 from repro_torch.runtime.sharding import (local, local_block, ranks_of,
                                           reduce_scatter_over, shard,
                                           spec_of, whole_seq, with_partial)
@@ -160,15 +163,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  ignore_id: int = -1) -> torch.Tensor:
     """Mean next-token CE over valid positions.  logits (B, S, V), taken
-    in f32; labels (B, S), ``ignore_id`` marks a position left out."""
-    logits = logits.float()
-    m = torch.amax(logits, dim=-1, keepdim=True)
-    lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
-    gold = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None]
-                        .to(torch.int64))
-    # the difference taken before the last dim is dropped: under a mesh
-    # whose vocab is sharded, ``gold`` is a masked partial sum over the
-    # vocab shards, which DTensor reduces only at the gathered shape
-    nll = (lse[..., None] - gold)[..., 0]
+    in f32; labels (B, S), ``ignore_id`` marks a position left out.
+
+    Each position's nll comes, on the card, from the kernels of
+    ``csrc/xent.cu`` (:func:`repro_torch.kernels.xent.nll`, the gradient
+    one more kernel; a DTensor's on each rank's shard); anywhere else (the
+    CPU, the dry-run's meta tensors) from the plain version, the eager f32
+    chain.  The mean over valid positions is PyTorch on either.  While
+    tracing it counts ``xent/rows`` (the positions of this rank's logits)
+    and ``xent/kernel_rows`` (those the kernels took)."""
+    card = xent.on_card(logits)
+    nll = (xent.nll if card else xent.nll_plain)(logits, labels)
+    tr = obs.current()
+    if tr.enabled:
+        shape = (logits.to_local() if isinstance(logits, DTensor)
+                 else logits).shape
+        rows = shape[:-1].numel()
+        tr.count("xent/rows", rows)
+        if card:
+            tr.count("xent/kernel_rows", rows)
     valid = (labels != ignore_id).float()
     return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)

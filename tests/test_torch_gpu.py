@@ -2414,3 +2414,288 @@ def test_adamw_kernels_on_card_mesh_shards(card_mesh):
     assert all(isinstance(t, DTensor) for t in got[0].values())
     want = _adamw_steps(adamw_update_plain, *placed(9), torch.bfloat16)
     _assert_adamw_close(got, want)
+
+
+# -- the fused cross entropy (csrc/xent.cu) against its plain version ----------
+
+# name -> (V, dtype, rows, logits drawn as scale * N(0, 1) + offset, the
+# last columns at -1e9 as unembed's pad mask sets them)
+XENT_CASES = {
+    "qwen_bf16": (151936, torch.bfloat16, 64, 1.0, 0.0, 0),
+    "qwen_f32": (151936, torch.float32, 32, 1.0, 0.0, 0),
+    "granite_pad_bf16": (49280, torch.bfloat16, 64, 2.0, 0.0, 125),
+    "small_1000_bf16": (1000, torch.bfloat16, 96, 2.0, 0.0, 0),
+    "small_1000_f32": (1000, torch.float32, 96, 2.0, 0.0, 0),
+    "big_1e4_bf16": (1000, torch.bfloat16, 96, 1e4, 0.0, 0),
+    "offset_1e4_f32": (1000, torch.float32, 96, 3.0, 1e4, 0),
+}
+
+
+def _xent_case(dev, case, seed, ignore_every=7):
+    """(logits (2, rows / 2, V), labels) on ``dev`` from ``seed``; every
+    ``ignore_every``-th position at the ignore id -1."""
+    V, dtype, rows, scale, offset, pad = XENT_CASES[case]
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, V, generator=gen) * scale + offset
+    if pad:
+        x[:, V - pad:] = -1e9
+    labels = torch.randint(0, V - pad, (rows,), generator=gen)
+    if ignore_every:
+        labels[::ignore_every] = -1
+    return (x.to(dtype).view(2, rows // 2, V).to(dev),
+            labels.view(2, rows // 2).to(dev))
+
+
+def _xent_loss_grad(logits, labels):
+    from repro_torch.models.layers import softmax_xent
+    x = logits.detach().clone().requires_grad_()
+    loss = softmax_xent(x, labels)
+    (grad,) = torch.autograd.grad(loss, [x])
+    torch.cuda.synchronize()
+    return loss.detach(), grad
+
+
+def _xent_plain(monkeypatch, logits, labels):
+    """The loss and gradient by the plain version on the same card
+    tensors."""
+    from repro_torch.kernels import xent
+    with monkeypatch.context() as mp:
+        mp.setattr(xent, "on_card", lambda t: False)
+        return _xent_loss_grad(logits, labels)
+
+
+def _assert_xent_grad_close(got, want):
+    """Every element within one bf16 ulp of the plain version's: bf16
+    gradients at most one step apart, f32 ones within a bf16 ulp at the
+    plain value's magnitude.  The kernel's terms are the plain chain's,
+    rounded alike; the plain chain's amax branch adds the rounding of a
+    sum over the row at each row's max."""
+    from repro_torch.core.fp_bounds import bf16_ulp, ulps_apart
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.bfloat16:
+        assert int(ulps_apart(got, want).max()) <= 1
+    else:
+        err = (got.double() - want.double()).abs()
+        assert bool((err <= bf16_ulp(want)).all()), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(XENT_CASES))
+def test_xent_kernels_match_plain_on_card(cuda, case, monkeypatch):
+    """``softmax_xent`` on card logits (one launch of each kernel) against
+    the plain version on the same tensors: each row's max equal, its nll
+    and the loss within 1e-5 relative plus the rounding of lse at its
+    magnitude on either side (4 u |max|), every gradient element within
+    one bf16 ulp, the gradient of an ignored position exactly zero."""
+    from repro_torch.core.fp_bounds import U32
+    from repro_torch.kernels import xent
+    logits, labels = _xent_case(cuda, case, seed=1)
+    V = logits.shape[-1]
+    before = xent.xent_rows.launches, xent.xent_grad.launches
+    loss, grad = _xent_loss_grad(logits, labels)
+    assert (xent.xent_rows.launches - before[0],
+            xent.xent_grad.launches - before[1]) == (1, 1)
+    want_loss, want_grad = _xent_plain(monkeypatch, logits, labels)
+    assert (xent.xent_rows.launches - before[0],
+            xent.xent_grad.launches - before[1]) == (1, 1)
+    nll, mx, _ = xent.xent_rows(logits.view(-1, V), labels.view(-1))
+    want_nll = xent.nll_plain(logits, labels).view(-1)
+    assert torch.equal(mx, logits.view(-1, V).float().amax(-1))
+    slack = 4 * U32 * mx.abs()
+    assert bool(((nll - want_nll).abs()
+                 <= 1e-5 * want_nll.abs() + slack).all())
+    valid = labels.view(-1) != -1
+    assert abs(float(loss) - float(want_loss)) <= \
+        1e-5 * abs(float(want_loss)) + float(slack[valid].mean())
+    _assert_xent_grad_close(grad, want_grad)
+    assert not bool(grad.view(-1, V)[~valid].any())
+
+
+@pytest.mark.gpu
+def test_xent_kernels_with_every_position_ignored_on_card(cuda):
+    """Every label at the ignore id: the loss 0 and a zero gradient, as
+    the plain version gives, both kernels launched."""
+    from repro_torch.kernels import xent
+    logits, labels = _xent_case(cuda, "small_1000_bf16", seed=2,
+                                ignore_every=1)
+    before = xent.xent_rows.launches, xent.xent_grad.launches
+    loss, grad = _xent_loss_grad(logits, labels)
+    assert (xent.xent_rows.launches - before[0],
+            xent.xent_grad.launches - before[1]) == (1, 1)
+    assert float(loss) == 0.0 and not bool(grad.any())
+
+
+@pytest.mark.gpu
+def test_xent_kernels_give_the_same_bits_twice_on_card(cuda):
+    """Two runs on the same inputs: each row's nll, max and sum and the
+    gradient bit for bit (block-wide sums in a fixed order, no atomics)."""
+    from repro_torch.kernels import xent
+    logits, labels = _xent_case(cuda, "qwen_bf16", seed=3)
+    rows = logits.view(-1, logits.shape[-1])
+    a = xent.xent_rows(rows, labels.view(-1))
+    b = xent.xent_rows(rows, labels.view(-1))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    dnll = torch.rand(rows.shape[0], device=cuda)
+    assert torch.equal(xent.xent_grad(rows, labels.view(-1), a[1], a[2], dnll),
+                       xent.xent_grad(rows, labels.view(-1), a[1], a[2], dnll))
+    assert torch.equal(_xent_loss_grad(logits, labels)[1],
+                       _xent_loss_grad(logits, labels)[1])
+
+
+@pytest.mark.gpu
+def test_xent_counts_rows_on_card(cuda, monkeypatch):
+    """Under a tracer: ``xent/kernel_rows`` equals ``xent/rows`` on the
+    card, only ``xent/rows`` on the plain version."""
+    from repro_torch import obs
+    logits, labels = _xent_case(cuda, "small_1000_bf16", seed=4)
+    tr = obs.Tracer()
+    with obs.use(tr):
+        _xent_loss_grad(logits, labels)
+    assert tr.counters() == {"xent/rows": 96, "xent/kernel_rows": 96}
+    tr = obs.Tracer()
+    with obs.use(tr):
+        _xent_plain(monkeypatch, logits, labels)
+    assert tr.counters() == {"xent/rows": 96}
+
+
+@pytest.mark.gpu
+def test_xent_kernels_refuse_what_they_do_not_take_on_card(cuda):
+    """Card logits of another dtype, with a strided last dimension or
+    with rows that are not whole 16-byte vectors raise (no fallback, no
+    launch), as do row tensors of the wrong dtype or size: V = 1003, a
+    row 2 bytes past an aligned address, rows 1001 bf16 elements apart."""
+    from repro_torch.kernels import xent
+    from repro_torch.models.layers import softmax_xent
+    logits, labels = _xent_case(cuda, "small_1000_f32", seed=5)
+    before = xent.xent_rows.launches, xent.xent_grad.launches
+    with pytest.raises(TypeError, match="dtype"):
+        softmax_xent(logits.half(), labels)
+    with pytest.raises(ValueError, match="contiguous"):
+        softmax_xent(logits.transpose(1, 2).contiguous().transpose(1, 2),
+                     labels)
+    wide = torch.zeros(96, 1008, dtype=torch.bfloat16, device=cuda)
+    flat = labels.view(-1)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        softmax_xent(wide[:, :1003].contiguous().view(2, 48, 1003), labels)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        xent.xent_rows(wide[:, 1:1001], flat)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        xent.xent_rows(wide.view(-1)[:96 * 1001].view(96, 1001)[:, :1000],
+                       flat)
+    assert (xent.xent_rows.launches, xent.xent_grad.launches) == before
+    rows = logits.view(-1, logits.shape[-1])
+    with pytest.raises(ValueError, match="row tensor"):
+        xent.xent_rows(rows, labels.view(-1).int())
+    nll, mx, sm = xent.xent_rows(rows, labels.view(-1))
+    with pytest.raises(ValueError, match="row tensor"):
+        xent.xent_grad(rows, labels.view(-1), mx, sm, nll[:-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("place", ["rows", "vocab"])
+def test_xent_on_card_mesh_takes_the_kernels(card_mesh, place):
+    """DTensor logits on the (1, 1) card mesh, split over the batch or
+    over the vocabulary: one launch of each kernel on the rank's shard,
+    which is the whole row, and the loss and the gradient the plain card
+    tensor's bit for bit."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels import xent
+    from repro_torch.models.layers import softmax_xent
+    cuda = torch.device("cuda")
+    logits, labels = _xent_case(cuda, "granite_pad_bf16", seed=6)
+    want_loss, want_grad = _xent_loss_grad(logits, labels)
+    before = xent.xent_rows.launches, xent.xent_grad.launches
+    placed = [Shard(0), Replicate()] if place == "rows" else \
+        [Replicate(), Shard(2)]
+    dl = distribute_tensor(logits, card_mesh, placed)
+    dlab = distribute_tensor(labels, card_mesh, [Shard(0), Replicate()])
+    loss, grad = _xent_loss_grad(dl, dlab)
+    assert (xent.xent_rows.launches - before[0],
+            xent.xent_grad.launches - before[1]) == (1, 1)
+    assert torch.equal(loss.full_tensor(), want_loss)
+    assert torch.equal(grad.full_tensor(), want_grad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["qwen_bf16", "granite_pad_bf16",
+                                  "offset_1e4_f32"])
+def test_xent_partial_form_over_column_blocks_on_card(cuda, case):
+    """The partial form on four column blocks of the rows (strided views
+    whole vectors wide, as a rank's share of a split vocabulary),
+    combined as the ranks combine them (``combine``, here over the
+    stacked blocks): each row's
+    max the whole form's, its nll within 1e-5 relative plus the rounding
+    of lse at its magnitude, each block's gradient within one bf16 ulp of
+    the whole form's columns; a block that does not hold a row's gold
+    column reads 0 there."""
+    from repro_torch.core.fp_bounds import U32
+    from repro_torch.kernels import xent
+    logits, labels = _xent_case(cuda, case, seed=8)
+    V = logits.shape[-1]
+    rows, flat = logits.view(-1, V), labels.view(-1)
+    nll, mx, sm = xent.xent_rows(rows, flat)
+    dnll = torch.rand(rows.shape[0], device=cuda)
+    want = xent.xent_grad(rows, flat, mx, sm, dnll)
+    w = -(-V // 32) * 8  # whole vectors; the last block the shortest
+    parts = [xent.xent_rows_part(rows[:, c:c + w], flat, c, V)
+             for c in range(0, V, w)]
+    held = [((flat.clamp(min=0) >= c) & (flat.clamp(min=0) < c + w))
+            for c in range(0, V, w)]
+    for (_, _, gold), h in zip(parts, held):
+        assert not bool(gold[~h].any())
+    m, s, got = xent.combine(*(torch.stack(t) for t in zip(*parts)),
+                             lambda t: t.amax(0), lambda t: t.sum(0))
+    assert torch.equal(m, mx)
+    assert bool(((got - nll).abs() <= 1e-5 * nll.abs()
+                 + 4 * U32 * mx.abs()).all())
+    grad = torch.cat([xent.xent_grad(rows[:, c:c + w], flat, m, s, dnll, c,
+                                     V) for c in range(0, V, w)], dim=1)
+    _assert_xent_grad_close(grad, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "phi4-mini-3.8b"])
+def test_lm_loss_gradients_through_the_xent_kernels_on_card(cuda, full_f32,
+                                                            arch,
+                                                            monkeypatch):
+    """``lm_loss`` of a smoke config (f32; MoE and dense) on the card
+    through the kernels against the same with the plain loss: the loss
+    within 1e-5 relative, every parameter's gradient within one bf16 ulp
+    of the plain one's, an ulp taken at no less than 2^-8 of the leaf's
+    largest magnitude (f32 sums of products, whose terms differ in the
+    last bits, cancel in the small elements)."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.core.fp_bounds import bf16_ulp
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.kernels import xent
+    from repro_torch.models.transformer import init_lm, lm_loss
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_smoke(arch)
+    params = tree_map(lambda t: t.to(cuda),
+                      init_lm(cfg, torch.Generator().manual_seed(7),
+                              device="cpu"))
+    batch = to_device(SyntheticLM(cfg.vocab, 2, 32, 7).batch_at(0), cuda)
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+
+    def run():
+        loss, _ = lm_loss(cfg, params, batch["tokens"], batch["labels"])
+        return loss.detach(), torch.autograd.grad(loss, leaves,
+                                                  allow_unused=True,
+                                                  materialize_grads=True)
+
+    before = xent.xent_rows.launches
+    loss, grads = run()
+    assert xent.xent_rows.launches - before == 1
+    with monkeypatch.context() as mp:
+        mp.setattr(xent, "on_card", lambda t: False)
+        want_loss, want = run()
+    assert xent.xent_rows.launches - before == 1
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    for g, w in zip(grads, want):
+        if not w.numel():
+            continue
+        floor = torch.full_like(w, float(w.abs().max()) / 256)
+        tol = bf16_ulp(torch.maximum(w.abs(), floor))
+        assert bool(((g.double() - w.double()).abs() <= tol).all())

@@ -122,9 +122,12 @@ def test_train_step_records_its_phases_and_each_moe_span_twice_a_layer():
     assert tr.nesting_errors() == []
     assert all(s.device_s is None for s in spans)
     c = tr.counters()
-    # the CPU's leaves take the plain AdamW: no kernel elements counted
-    assert set(c) == {"moe/slots", "moe/live_slots", "adamw/elems"}
+    # the CPU's leaves take the plain AdamW and the plain loss: no kernel
+    # elements or rows counted
+    assert set(c) == {"moe/slots", "moe/live_slots", "adamw/elems",
+                      "xent/rows"}
     assert 0 < c["moe/live_slots"] <= c["moe/slots"]
+    assert c["xent/rows"] == _batch(cfg)["labels"].numel()
     assert c["adamw/elems"] == sum(t.numel() for t in tree_leaves(
         init_train_state(cfg, torch.Generator().manual_seed(0),
                          device=CPU)["params"]))
@@ -363,5 +366,6 @@ def test_train_cli_trace_exports_each_steps_spans(tmp_path, capsys):
     assert xs.count("train/optimizer") == 2
     assert xs.count("moe/experts") == 2 * get_smoke("qwen2-moe-a2.7b").n_layers
     counters = {e["name"] for e in trace["traceEvents"] if e["ph"] == "C"}
-    assert counters == {"moe/slots", "moe/live_slots", "adamw/elems"}
+    assert counters == {"moe/slots", "moe/live_slots", "adamw/elems",
+                        "xent/rows"}
     assert "profiler_ns_at_ts0" in trace["otherData"]
