@@ -7,35 +7,12 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (at first
 use, into ``build/``, one ``nvcc`` per source, all at once), then runs its
 phases and fails on any mismatch:
 
-1. kernels  — each kernel at the main path's shapes against its plain
-   PyTorch version on the card (bit-exact; the conv and resize within a
-   stated tolerance), with its device time (from a CUDA graph of
-   back-to-back launches) and its time per call with the wrapper's host
-   work, the plain version's time, its bound (the larger of bytes over
-   3.35 TB/s and f32 operations over 67 TFLOP/s; bf16 operations over 989
-   TFLOP/s for the flash kernels) and, where one PyTorch
-   call computes the same function, that call's device time;
-   tm_affine_block's path (vector, tile or scalar) and bytes per access are
-   logged on the timed transpose and on HWC -> CHW f32 and the int8
-   transpose at the same size, each bit-exact and timed beside its bound
-   and ``permute().contiguous()``; matmul_tm's plan (A stages by TMA or
-   cp.async, the tile BM x BN) beside its row; the conv's plan and its
-   FMA loop alone, with EDSR's head (C = 3) and up (N = 12) convs checked
-   and timed beside ``F.conv2d``; the commit's plan and each of its two
-   phases timed alone; tm_affine_gather's plan (separable or general, the
-   run, bytes per access) on the Table III upsample, pixel shuffle, pixel
-   unshuffle and rearrange, each bit-exact and timed beside its bound, the
-   upsample also beside ``F.interpolate`` (nearest, channels-last: its
-   library call) and ``x.flatten()[index]``; the prologue's plan, each of
-   its two phases alone, and the same work split (``tm_chain``, then
-   ``conv2d``, which the one launch has to beat; ``tm_chain``, then
-   ``torch.mm``); ``tm_chain``'s run plan at the neck (R, elements an
-   access, the bytes of its run tables beside the full pullback's, which
-   must stay under 64 KB); each RME compaction's scan rounds per stream;
-   the cross-entropy kernels (``xent_rows``, ``xent_grad``) at the train
-   cell's (4096, 151936) bf16 logits against the plain loss's nll and
-   gradient, timed beside their bound, the plain version and
-   ``F.cross_entropy``;
+1. kernels  — every row of the kernel table but AdamW's
+   (``repro_torch.tools.kernel_table.ROWS``): each kernel at the main
+   path's shapes against its plain PyTorch version on the card, with its
+   device time, its time per call with the wrapper's host work, the plain
+   version's, its bound and the library call's, and what each row logs
+   beside it (plans, paths, phases alone, the other dtypes);
 2. slice 1, per-instruction lowering: the paper's Table III operators as
    single-instruction ``TMProgram``s through ``TMExecutor(backend="cuda")``
    against ``backend="reference"``, bit-exact, with the expected ``cuda.*``
@@ -67,17 +44,7 @@ phases and fails on any mismatch:
    Rearrange crossing declined over the 128 MiB budget kept from the JAX
    package, the neck realized as ``cuda.xchain.prologue``), both heads
    against the eager model and the hand-partitioned chained forward;
-6. slice 5, the LM serving loop: the two flash kernels join the kernel
-   phase at Phi-4-mini's shapes (prefill q (8, 1024, 24, 128) against
-   k/v (8, 1024, 8, 128), causal; decode against a (8, 1088, 8, 128)
-   cache at length 1025; bf16), each with its achieved TFLOP/s or TB/s
-   and its ratio to SDPA's time in the same run, and flash_decode's
-   partial mode (``flash_decode_partial``) on the same cache in 4 row
-   blocks, each block's (o, lse) against its plain version and the
-   blocks combined against the whole-cache flash_decode, one block timed
-   beside SDPA over it, and the f32 prefill (the
-   FMA kernel, off the LM's bf16 path: a row of the log's table, not of
-   the ``kernels`` line); then ``repro_torch.launch.serve.serve``
+6. slice 5, the LM serving loop: ``repro_torch.launch.serve.serve``
    runs Phi-4-mini 3.8B at its full published width (32 layers, random
    bf16 weights from seed 0) on batch 8, 1024-token prompts, 64 generated
    tokens: exactly 32 flash_attention and 32 x 63 flash_decode launches and
@@ -204,25 +171,20 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-from repro_torch.core.fp_bounds import (bf16_ulp, conv_tol,  # noqa: E402
-                                        ulps_apart)
+from repro_torch.core.fp_bounds import bf16_ulp, ulps_apart  # noqa: E402
+from repro_torch.h100 import (bound_ms, card_line, events_ms,  # noqa: E402
+                              graph_ms)
 from repro_torch.tree import tree_map  # noqa: E402
 from repro_torch.models.partitioned import (  # noqa: E402
     CAPACITY, CHAINED_PATHS, CONF, UNFUSED_PATHS, detect_program,
     edsr_partitioned_forward, eager_forward, partitioned_forward)
+from repro_torch.tools import kernel_table  # noqa: E402
+from repro_torch.tools.kernel_table import (  # noqa: E402
+    EDSR_IMG, ESPCN_IMG, IMG, LM_BATCH, LM_GEN, LM_PROMPT, SEED, TABLE3,
+    conv_mag, espcn_setup, log, max_abs_err, require_equal, require_within,
+    shuffle)
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-F32_FLOP_PER_S = 67e12     # f32 outside the tensor cores, the same sheet
-BF16_FLOP_PER_S = 989e12   # bf16 on the tensor cores, dense, the same sheet
-SECTOR = 32                # bytes: the least a strided load moves from HBM
-SEED = 0
-IMG = (8, 448, 448, 3)     # batch 8, paper Table III input
 N_CLASSES = 80
-TABLE3 = (448, 448, 64)    # paper Table III feature map
-EDSR_IMG = (8, 224, 224, 3)  # EDSR x2: batch 8 -> (8, 448, 448, 3)
-# ESPCN x3 on one 640x360 frame -> 1920x1080 (the ESPCN paper's 1080p
-# video setting, Shi et al. CVPR 2016)
-ESPCN_IMG = (1, 360, 640, 3)
 # partitioned EDSR vs the eager model: 18 stacked f32 convs (K <= 576)
 # summed in other orders, and cuDNN may pick a transform algorithm; the
 # residual branches are scaled by 0.1, so the errors stay near the f32
@@ -232,50 +194,11 @@ EDSR_RTOL = 1e-4
 # slice 5: Phi-4-mini 3.8B at full width (its published config), batch 8,
 # 1024-token prompts, 64 generated tokens: a 1088-row KV cache
 LM_ARCH = "phi4-mini-3.8b"
-LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 64
 # the kernel path's logits may be at most 2x as far from the f32 plain run
 # as the bf16 plain run is, plus LM_FLOOR_ULPS bf16 ulps of the step's
 # largest |f32 logit| (two roundings of each logit, and one of its inputs
 # either way)
 LM_FLOOR_ULPS = 4
-
-
-def log(msg: str) -> None:
-    print(msg, flush=True)
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    start, end = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, iters: int = 20) -> float:
-    """Device time of ``fn()`` per call: ``iters`` calls captured in one CUDA
-    graph and replayed, so no host work sits between the launches."""
-    fn()  # builds, caches and first allocations happen outside the capture
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start, end = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / iters
 
 
 def wall_ms(fn, iters: int = 5, warmup: int = 1) -> float:
@@ -290,975 +213,9 @@ def wall_ms(fn, iters: int = 5, warmup: int = 1) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    if a.numel() == 0:
-        return 0.0
-    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
-
-
-def require_within(a: torch.Tensor, b: torch.Tensor, tol, what: str) -> None:
-    """Every element of ``a`` within ``tol`` (a number or an elementwise
-    tensor) of ``b``."""
-    if a.shape != b.shape or a.dtype != b.dtype:
-        raise AssertionError(f"{what}: shapes {tuple(a.shape)} / "
-                             f"{tuple(b.shape)}, dtypes {a.dtype} / {b.dtype}")
-    err = (a.to(torch.float64) - b.to(torch.float64)).abs()
-    if not bool((err <= tol).all()):
-        raise AssertionError(f"{what}: max |err| {float(err.max())} past the "
-                             f"tolerance")
-
-
-def require_equal(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
-    if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
-        raise AssertionError(f"{what}: mismatch (shapes {tuple(a.shape)} / "
-                             f"{tuple(b.shape)}, max |err| "
-                             f"{max_abs_err(a, b) if a.shape == b.shape else 'n/a'})")
-
-
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
-
-def _rounds(src: torch.Tensor, cnt: torch.Tensor, n: int) -> str:
-    """The scan rounds each stream took: the walk stops after the round in
-    which the count reaches the capacity (or at the stream's end)."""
-    from repro_torch.kernels.rme_gather import rme_gather as rg
-    rounds = []
-    for b in range(src.shape[0]):
-        c = int(cnt[b])
-        scanned = int(src[b, c - 1]) + 1 if c == src.shape[1] > 0 else n
-        rounds.append(-(-scanned // rg.ROUND_ROWS))
-    return (f"scan rounds of {rg.ROUND_ROWS} rows per stream {rounds} "
-            f"(a {n}-row stream is {-(-n // rg.ROUND_ROWS)})")
-
-
-def chain_row(dev, gen) -> dict:
-    """tm_chain at the YOLOv3-Tiny neck: u0 (8, 14, 14, 128) upsample x2,
-    then Route with the skip map (8, 28, 28, 128) -> (8, 28, 28, 256)."""
-    from repro_torch.core import affine as af
-    from repro_torch.kernels.tm_affine import chain as ch
-
-    batch = (IMG[0],)
-    up = af.batch_extend_map(af.upsample_map((14, 14, 128), 2), batch)
-    route = tuple(af.batch_extend_map(m, batch) for m in
-                  af.route_maps([(28, 28, 128), (28, 28, 128)]))
-    sig = ch.ChainSig(links=((up, None),), route_maps=route, route_band=0,
-                      dtype="float32")
-    plan = ch.chain_plan_of(sig)
-    u0 = torch.rand(up.in_shape, generator=gen).to(dev)
-    skip = torch.rand(route[1].in_shape, generator=gen).to(dev)
-    got = ch.tm_chain(sig, u0, (skip,))
-    ref = ch.chain_plain(u0, plan, (skip,))
-    require_equal(got, ref, "tm_chain")
-    require_equal(got, torch.cat([u0.repeat_interleave(2, 1)
-                                  .repeat_interleave(2, 2), skip], -1),
-                  "tm_chain vs upsample + concatenate")
-    f32 = 4
-    nbytes = (u0.numel() + skip.numel() + got.numel()) * f32
-    consts = sum(a.nbytes for a in [plan.j]
-                 + [a for lv in plan.levels for a in (lv.mask, lv.p)
-                    if a is not None]
-                 + [a for ex in plan.extras for a in (ex.idx, ex.mask)
-                    if a is not None])
-    rp = ch.build_run_plan(sig)
-    table, outer = rp.table_bytes, rp.outer_bytes
-    log(f"kernel tm_chain: {nbytes} bytes of data; run tables {table} bytes "
-        f"(staged per block) + {outer} bytes per-run tables = "
-        f"{table + outer} bytes read in place of {consts} bytes of full "
-        f"pullback constants (neither in the bound); runs of R = "
-        f"{rp.run}, {rp.vec} element(s) an access; {len(plan.levels)} "
-        f"level(s), {len(plan.extras)} extra band(s)")
-    if table + outer >= 64 * 1024:
-        raise AssertionError(f"tm_chain: {table + outer} bytes of run tables "
-                             f"at the neck, expected under 64 KB")
-    return dict(
-        name="tm_chain", route="cuda",
-        source="src/repro_torch/csrc/tm_chain.cu",
-        replaces="src/repro/kernels/tm_affine/chain.py:340",
-        max_abs_err=max_abs_err(got, ref),
-        ms=graph_ms(lambda: ch.tm_chain(sig, u0, (skip,))),
-        call_ms=cuda_ms(lambda: ch.tm_chain(sig, u0, (skip,))),
-        plain_ms=cuda_ms(lambda: ch.chain_plain(u0, plan, (skip,))),
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None,
-        shape="neck upsample x2 (8, 14, 14, 128) + Route (8, 28, 28, 128) "
-              "f32")
-
-
-def chained_evaluate_row(dev, gen) -> dict:
-    """rme_evaluate_chained at head 2's detect tail: the raw grid
-    (8, 28, 28, 255) pulled back as (8, 2352, 85) record streams."""
-    from repro_torch.core import affine as af
-    from repro_torch.kernels.rme_gather import rme_gather as rg
-    from repro_torch.kernels.tm_affine.chain import fold_pullback
-
-    f32 = 4
-    m = af.batch_extend_map(af.reshape_map((28, 28, 255), (2352, 85)),
-                            (IMG[0],))
-    j, ok, fill = fold_pullback((m,))
-    idx = torch.from_numpy(j.reshape(m.out_shape)).to(dev)
-    ok = None if ok is None else torch.from_numpy(
-        ok.reshape(m.out_shape)).to(dev)
-    pred = torch.randn(m.in_shape, generator=gen).to(dev)
-
-    def call():
-        return rg.rme_evaluate_chained(pred, idx, ok, fill, CONF, CAPACITY,
-                                       score_index=4)
-
-    got = call()
-    ref = rg.evaluate_chained_plain(pred, idx, ok, fill, CONF, CAPACITY,
-                                    score_index=4)
-    unchained = rg.evaluate_plain(pred.reshape(m.out_shape), CONF, CAPACITY,
-                                  score_index=4)
-    for g, r, u, what in zip(got, ref, unchained, ("rows", "idx", "count")):
-        require_equal(g, r, f"rme_evaluate_chained {what}")
-        require_equal(g, u, f"rme_evaluate_chained {what} vs unchained")
-    B, N, D = m.out_shape
-    src, cnt = ref[1], ref[2]
-    nbytes = consts = 0
-    for b in range(B):  # what this run's data needs (the walk stops early)
-        c = int(cnt[b])
-        scanned = int(src[b, c - 1]) + 1 if c == CAPACITY else N
-        # a scanned, unkept row costs one sector of scores (and one of its
-        # pullback index); a kept row is read whole (and its D indices)
-        nbytes += (scanned - c) * SECTOR + c * D * f32
-        consts += (scanned - c) * SECTOR + c * D * 4
-    nbytes += B * (CAPACITY * D * f32 + CAPACITY * 4 + 4)  # packed output
-    log(f"kernel rme_evaluate_chained: {nbytes} bytes of data, {consts} "
-        f"bytes of pullback index read (not in the bound), ok mask "
-        f"{'none' if ok is None else 'present'}; {_rounds(src, cnt, N)}")
-    return dict(
-        name="rme_evaluate_chained", route="cuda",
-        source="src/repro_torch/csrc/rme_gather.cu",
-        replaces="src/repro/kernels/rme_gather/rme_gather.py:176",
-        max_abs_err=max(max_abs_err(g, r) for g, r in zip(got, ref)),
-        ms=graph_ms(call), call_ms=cuda_ms(call),
-        plain_ms=cuda_ms(lambda: rg.evaluate_chained_plain(
-            pred, idx, ok, fill, CONF, CAPACITY, score_index=4)),
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None,
-        shape=f"(8, 28, 28, 255) -> (8, 2352, 85) f32 cap {CAPACITY}, "
-              f"{int(cnt.sum())} kept")
-
-
-def img2col_row(dev, gen) -> dict:
-    """img2col at Table III: (448, 448, 64) f32, 3x3 stride 1, no padding
-    (site #11, overlapping slabs); the other dtypes are checked beside it,
-    the 2x2 stride-2 case (site #10) checked and timed."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-    from repro_torch.kernels.img2col import img2col as ik
-
-    x = torch.rand(TABLE3, generator=gen).to(dev)
-    got = ik.img2col(x, 3, 3, 1, 0)
-    ref = ik.img2col_plain(x, 3, 3, 1, 0)
-    require_equal(got, ref, "img2col")
-    err = max_abs_err(got, ref)
-    nbytes = (x.numel() + got.numel()) * 4
-    del got, ref
-    for dtype in (torch.int8, torch.int32, torch.bfloat16):
-        xd = (x * 200 - 100).to(dtype)
-        require_equal(ik.img2col(xd, 3, 3, 1, 0),
-                      ik.img2col_plain(xd, 3, 3, 1, 0), f"img2col[{dtype}]")
-    # the library call: one strided copy of the (OH, OW, ky, kx, C) window
-    # view, which is this layout; F.unfold's (channel-major columns, rows
-    # last) is timed beside it as the nearest conv-library call
-    def unfold_copy(k, s):
-        return lambda: (x.unfold(0, k, s).unfold(1, k, s)
-                        .permute(0, 1, 3, 4, 2)
-                        .reshape(-1, k * k * x.shape[2]))
-
-    lib3, lib2 = unfold_copy(3, 1), unfold_copy(2, 2)
-    require_equal(lib3(), ik.img2col(x, 3, 3, 1, 0),
-                  "img2col vs the unfold copy")
-    xn = x.permute(2, 0, 1)[None]  # NCHW view of the same memory
-    unfold_ms = graph_ms(lambda: F.unfold(xn, 3), iters=10)
-    s2 = ik.img2col(x, 2, 2, 2, 0)
-    require_equal(s2, ik.img2col_plain(x, 2, 2, 2, 0), "img2col 2x2 s2")
-    require_equal(s2, lib2(), "img2col 2x2 s2 vs the unfold copy")
-    s2_bytes = (x.numel() + s2.numel()) * 4
-    del s2
-    s2_ms = graph_ms(lambda: ik.img2col(x, 2, 2, 2, 0), iters=10)
-    s2_call_ms = cuda_ms(lambda: ik.img2col(x, 2, 2, 2, 0), iters=10)
-    s2_plain_ms = cuda_ms(lambda: ik.img2col_plain(x, 2, 2, 2, 0), iters=3,
-                          warmup=1)
-    log(f"kernel img2col 2x2 stride 2 (448, 448, 64) f32 (site #10): "
-        f"{s2_ms:.4f} ms device ({s2_call_ms:.4f} per call with host work; "
-        f"plain {s2_plain_ms:.4f}, bound "
-        f"{s2_bytes / HBM_BYTES_PER_S * 1e3:.4f}, library (unfold copy) "
-        f"{graph_ms(lib2, iters=10):.4f}); int8, int32, bf16 at 3x3 s1 "
-        f"bit-exact; F.unfold 3x3 (columns channel-major, another layout) "
-        f"{unfold_ms:.4f} ms")
-    return dict(
-        name="img2col", route="cuda",
-        source="src/repro_torch/csrc/img2col.cu",
-        replaces="src/repro/kernels/img2col/img2col.py:94",
-        max_abs_err=err,
-        ms=graph_ms(lambda: ik.img2col(x, 3, 3, 1, 0), iters=10),
-        call_ms=cuda_ms(lambda: ik.img2col(x, 3, 3, 1, 0), iters=10),
-        plain_ms=cuda_ms(lambda: ik.img2col_plain(x, 3, 3, 1, 0), iters=3,
-                         warmup=1),
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=graph_ms(lib3, iters=10),
-        shape="3x3 stride 1 (448, 448, 64) -> (198916, 576) f32")
-
-
-def _conv_check(x, w, what: str) -> float:
-    """conv2d of x by w (pad 1) against its plain version: f32 within
-    2 gamma_K sum |x w|, bf16 one bf16 ulp more; returns the f32 max
-    |err|."""
-    from repro_torch.kernels.img2col import img2col as ik
-    got, ref = ik.conv2d(x, w, 1, 1), ik.conv2d_plain(x, w, 1, 1)
-    require_within(got, ref, conv_tol(x, w, 1, 1), f"{what} f32")
-    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
-    gb, rb = ik.conv2d(xb, wb, 1, 1), ik.conv2d_plain(xb, wb, 1, 1)
-    require_within(gb, rb, conv_tol(xb, wb, 1, 1) + bf16_ulp(rb),
-                   f"{what} bf16")
-    return max_abs_err(got, ref)
-
-
-def _conv_bound(x, w, out_numel: int) -> tuple[float, str, float]:
-    """(bound ms, what bounds it, GFLOP) of a conv of x by w, f32."""
-    H, W, C = x.shape
-    flops = 2 * H * W * w.shape[3] * w.shape[0] * w.shape[1] * C
-    nbytes = (x.numel() + w.numel() + out_numel) * 4
-    t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops > t_bytes else "bytes", flops / 1e9)
-
-
-def conv2d_row(dev, gen) -> dict:
-    """The implicit-GEMM conv at the EDSR body conv: (224, 224, 64) by
-    (3, 3, 64, 64), pad 1, f32 (timed) and bf16 (checked); its plan and
-    its FMA loop alone are logged, and EDSR's head (C = 3 -> 64, the
-    cp.async path) and up conv (64 -> 12) are checked and timed beside it,
-    each with its bound and F.conv2d."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.img2col import img2col as ik
-
-    H, W, C = EDSR_IMG[1], EDSR_IMG[2], 64
-    for name, cin, cout in (("head", 3, 64), ("up", 64, 12)):
-        xs = torch.rand((H, W, cin), generator=gen).to(dev)
-        ws = ((torch.rand((3, 3, cin, cout), generator=gen) - 0.5)
-              * 0.1).to(dev)
-        err = _conv_check(xs, ws, f"conv2d EDSR {name}")
-        plan = ik.conv2d_plan(xs, ws, 1, 1)
-        bound, by, gflop = _conv_bound(xs, ws, H * W * cout)
-        xn, wn = xs.permute(2, 0, 1)[None], ws.permute(3, 2, 0, 1)
-        log(f"kernel conv2d EDSR {name} ({H}, {W}, {cin}) x (3, 3, {cin}, "
-            f"{cout}) f32, {gflop:.3f} GFLOP: {plan}; max |err| {err}; "
-            f"{graph_ms(lambda: ik.conv2d(xs, ws, 1, 1)):.4f} ms device, "
-            f"bound {bound:.4f} ({by}), F.conv2d "
-            f"{graph_ms(lambda: F.conv2d(xn, wn, padding=1)):.4f}")
-    x = torch.rand((H, W, C), generator=gen).to(dev)
-    w = ((torch.rand((3, 3, C, C), generator=gen) - 0.5) * 0.1).to(dev)
-    err = _conv_check(x, w, "conv2d")
-    got = ik.conv2d(x, w, 1, 1)
-    bound, by, gflop = _conv_bound(x, w, got.numel())
-    plan = ik.conv2d_plan(x, w, 1, 1)
-    fma = graph_ms(lambda: ik.conv2d_fma_probe(x, w, 1, 1))
-    log(f"kernel conv2d plan: {plan} (rounds {plan.rounds}, last round "
-        f"{plan.last_fill:.3f} full); the FMA loop alone (no loads) "
-        f"{fma:.4f} ms = {gflop / fma:.1f} TFLOP/s, "
-        f"{gflop / fma / (F32_FLOP_PER_S / 1e12):.3f} of 67; f32 max |err| "
-        f"{err} (tolerance 2 gamma_576 sum|xw|)")
-    xn, wn = x.permute(2, 0, 1)[None], w.permute(3, 2, 0, 1)
-    return dict(
-        name="conv2d", route="cuda",
-        source="src/repro_torch/csrc/img2col.cu",
-        replaces="src/repro/kernels/img2col/img2col.py:130",
-        max_abs_err=err,
-        ms=graph_ms(lambda: ik.conv2d(x, w, 1, 1)),
-        call_ms=cuda_ms(lambda: ik.conv2d(x, w, 1, 1)),
-        plain_ms=cuda_ms(lambda: ik.conv2d_plain(x, w, 1, 1)),
-        bound_ms=bound, bound_by=by,
-        library_ms=graph_ms(lambda: F.conv2d(xn, wn, padding=1)),
-        shape="EDSR body conv (224, 224, 64) x (3, 3, 64, 64) pad 1 f32, "
-              f"{gflop:.3f} GFLOP")
-
-
-def resize_row(dev, gen) -> dict:
-    """Bilinear resize of the Table III map, (448, 448, 64) ->
-    (224, 224, 64), f32 (timed) and bf16 (checked)."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.resize import resize as rk
-
-    x = torch.rand(TABLE3, generator=gen).to(dev)
-    got = rk.resize_bilinear(x, 224, 224)
-    ref = rk.resize_plain(x, 224, 224)
-    require_within(got, ref, 1e-5, "resize f32")
-    xb = x.to(torch.bfloat16)
-    gb, rb = rk.resize_bilinear(xb, 224, 224), rk.resize_plain(xb, 224, 224)
-    require_within(gb, rb, bf16_ulp(rb), "resize bf16")
-    xn = x.permute(2, 0, 1)[None]
-    lib = F.interpolate(xn, size=(224, 224), mode="bilinear",
-                        align_corners=False)
-    log(f"kernel resize: f32 max |err| {max_abs_err(got, ref)} (tolerance "
-        f"1e-5), bf16 {max_abs_err(gb, rb)} (one bf16 ulp); F.interpolate "
-        f"vs the kernel {max_abs_err(lib[0].permute(1, 2, 0), got)}")
-    nbytes = (x.numel() + got.numel()) * 4
-    return dict(
-        name="resize", route="cuda",
-        source="src/repro_torch/csrc/resize.cu",
-        replaces="src/repro/kernels/resize/resize.py:52",
-        max_abs_err=max_abs_err(got, ref),
-        ms=graph_ms(lambda: rk.resize_bilinear(x, 224, 224)),
-        call_ms=cuda_ms(lambda: rk.resize_bilinear(x, 224, 224)),
-        plain_ms=cuda_ms(lambda: rk.resize_plain(x, 224, 224)),
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=graph_ms(lambda: F.interpolate(
-            xn, size=(224, 224), mode="bilinear", align_corners=False)),
-        shape="(448, 448, 64) -> (224, 224, 64) f32")
-
-
-def _conv_mag(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """sum |x w| of an NHWC SAME conv (stride 1) in float64: the scale of
-    its rounding bound 2 gamma_K sum |x w| (K = kh kw C)."""
-    from repro_torch.models.cnn import conv2d_nhwc
-    return conv2d_nhwc(x.double().abs(), w.double().abs(), 1, "SAME")
-
-
-def _shuffle(y: torch.Tensor, s: int) -> torch.Tensor:
-    """PixelShuffle of an NHWC map, the paper's c-major channel order."""
-    B, H, W, Cs = y.shape
-    C = Cs // (s * s)
-    return (y.reshape(B, H, W, C, s, s).permute(0, 1, 4, 2, 5, 3)
-            .reshape(B, H * s, W * s, C))
-
-
-def espcn_setup(dev, gen) -> dict:
-    """ESPCN x3 at init_espcn's widths (5x5 to 64, 3x3 to 32, 3x3 to 27)
-    with random weights, one 640x360 frame, the eager output and the
-    feature map its last conv reads."""
-    from repro_torch.models import cnn
-    model = cnn.init_espcn(gen, s=3, device=dev)
-    img = torch.rand(ESPCN_IMG, generator=gen).to(dev)
-    h = torch.tanh(cnn.conv2d(torch.tanh(cnn.conv2d(img, model.c1)),
-                              model.c2))
-    return dict(model=model, img=img, eager=model(img), h=h)
-
-
-def matmul_tm_row(e: dict) -> dict:
-    """matmul_tm (#13) at ESPCN's last layer in im2col form: the
-    (360, 640, 32) map's 3x3 patches (230400, 288) by the (288, 27)
-    weights, stored through the pixel-shuffle epilogue as (1080, 1920, 3)."""
-    from repro_torch.kernels.img2col.ops import img2col_call
-    from repro_torch.kernels.matmul_tm import matmul_tm as mk
-    from repro_torch.core.fp_bounds import gamma
-
-    (_, H, W, _), C, s = e["h"].shape, 3, 3
-    patches = img2col_call(e["h"][0], kh=3, kw=3, stride=1, pad=1)
-    w = e["model"].c3.reshape(-1, C * s * s).contiguous()
-    ep = mk.Epilogue("pixel_shuffle", H, W, C, s)
-    got = mk.matmul_tm(patches, w, ep)
-    ref = mk.matmul_tm_plain(patches, w, ep)
-    K = patches.shape[1]
-    mag = _shuffle((patches.double().abs() @ w.double().abs())
-                   .reshape(1, H, W, -1), s)[0]
-    require_within(got, ref, 2 * gamma(K) * mag, "matmul_tm pixel shuffle")
-    M, N = patches.shape[0], w.shape[1]
-    flops = 2 * M * N * K
-    nbytes = (patches.numel() + w.numel() + got.numel()) * 4
-    plan = mk.mm_plan(M, K, N, patches.dtype, patches.data_ptr() % 16 == 0)
-    log(f"kernel matmul_tm plan: A stages by {plan.path}, tiles BM {plan.BM} "
-        f"x BN {plan.BN} for ({M}, {K}) x ({K}, {N}) f32")
-    # the identity and transposed epilogues at the same product
-    for mode in ("identity", "transpose"):
-        g = mk.matmul_tm(patches, w, mk.Epilogue(mode))
-        r = mk.matmul_tm_plain(patches, w, mk.Epilogue(mode))
-        bound = 2 * gamma(K) * (patches.double().abs() @ w.double().abs())
-        require_within(g, r, bound.T if mode == "transpose" else bound,
-                       f"matmul_tm {mode}")
-        ms = graph_ms(lambda: mk.matmul_tm(patches, w, mk.Epilogue(mode)),
-                      iters=10)
-        log(f"kernel matmul_tm {mode} epilogue: {ms:.4f} ms device, bound "
-            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} (bytes)")
-    return dict(
-        name="matmul_tm", route="cuda",
-        source="src/repro_torch/csrc/matmul_tm.cu",
-        replaces="src/repro/kernels/matmul_tm/matmul_tm.py:85",
-        max_abs_err=max_abs_err(got, ref),
-        ms=graph_ms(lambda: mk.matmul_tm(patches, w, ep), iters=10),
-        call_ms=cuda_ms(lambda: mk.matmul_tm(patches, w, ep), iters=10),
-        plain_ms=cuda_ms(lambda: mk.matmul_tm_plain(patches, w, ep),
-                         iters=5),
-        bound_ms=max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
-        bound_by=("operations" if flops / F32_FLOP_PER_S
-                  > nbytes / HBM_BYTES_PER_S else "bytes"),
-        library_ms=graph_ms(lambda: torch.mm(patches, w), iters=10),
-        shape="ESPCN last layer im2col (230400, 288) x (288, 27) -> "
-              "pixel shuffle (1080, 1920, 3) f32")
-
-
-def xchain_commit_row(e: dict) -> dict:
-    """xchain_commit (#14) at ESPCN's crossing: the 3x3 conv of the
-    (1, 360, 640, 32) map to 27 channels, through the PixelShuffle x3 chain
-    into (1, 1080, 1920, 3)."""
-    from repro_torch.core import affine as af
-    from repro_torch.core.fp_bounds import gamma
-    from repro_torch.kernels.matmul_tm import chain as xc
-    from repro_torch.kernels.tm_affine.chain import ChainSig
-
-    h, w = e["h"], e["model"].c3
-    g = xc.Gemm("conv", tuple(h.shape), tuple(w.shape), 1, "SAME")
-    m = af.batch_extend_map(af.pixel_shuffle_map(g.out_shape[1:], 3), (1,))
-    sig = ChainSig(links=((m, None),), dtype="float32")
-    got = xc.xchain_commit(sig, g, h, w)
-    ref = xc.xchain_commit_plain(sig, g, h, w)
-    tol = 2 * gamma(g.words()[3]) * _shuffle(_conv_mag(h, w), 3)
-    require_within(got, ref, tol, "xchain_commit")
-    flops = g.flops()
-    nbytes = (h.numel() + w.numel() + got.numel()) * 4
-    ms = graph_ms(lambda: xc.xchain_commit(sig, g, h, w), iters=10)
-    product, walk = (graph_ms(lambda: xc.xchain_commit_phase(
-        sig, g, h, w, phase), iters=10) for phase in ("product", "chain"))
-    plan = xc.xchain_commit_card_plan(g, h)
-    log(f"kernel xchain_commit plan: {plan} (rounds {plan.rounds}, last "
-        f"round {plan.last_fill:.3f} full), scratch {g.out_shape} f32; "
-        f"{ms:.4f} ms; the kernel with one phase: product {product:.4f}, "
-        f"chain {walk:.4f}")
-    return dict(
-        name="xchain_commit", route="cuda",
-        source="src/repro_torch/csrc/xchain_commit.cu",
-        replaces="src/repro/kernels/matmul_tm/chain.py:222",
-        max_abs_err=max_abs_err(got, ref),
-        ms=ms,
-        call_ms=cuda_ms(lambda: xc.xchain_commit(sig, g, h, w), iters=10),
-        plain_ms=cuda_ms(lambda: xc.xchain_commit_plain(sig, g, h, w),
-                         iters=10),
-        bound_ms=max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
-        bound_by=("operations" if flops / F32_FLOP_PER_S
-                  > nbytes / HBM_BYTES_PER_S else "bytes"),
-        library_ms=None,
-        shape="ESPCN conv3 (1, 360, 640, 32) x (3, 3, 32, 27) -> "
-              "PixelShuffle x3 (1, 1080, 1920, 3) f32")
-
-
-def xchain_prologue_row(dev, gen) -> dict:
-    """xchain_prologue (#15) at the YOLOv3-Tiny neck: upsample x2 of u
-    (8, 14, 14, 128), Route with the skip map (8, 28, 28, 128), into
-    head 2's 1x1 conv (1, 1, 256, 255); logged with its plan, each of its
-    two phases alone, and the same work split: the port's own two kernels
-    (tm_chain, then conv2d), which the one launch has to beat, and
-    tm_chain, then torch.mm."""
-    from repro_torch.core import affine as af
-    from repro_torch.core.fp_bounds import gamma
-    from repro_torch.kernels.img2col import img2col as ik
-    from repro_torch.kernels.matmul_tm import chain as xc
-    from repro_torch.kernels.tm_affine import chain as ch
-
-    batch = (IMG[0],)
-    up = af.batch_extend_map(af.upsample_map((14, 14, 128), 2), batch)
-    route = tuple(af.batch_extend_map(m, batch) for m in
-                  af.route_maps([(28, 28, 128), (28, 28, 128)]))
-    sig = ch.ChainSig(links=((up, None),), route_maps=route, route_band=0,
-                      dtype="float32")
-    u = torch.rand(up.in_shape, generator=gen).to(dev)
-    skip = torch.rand(route[1].in_shape, generator=gen).to(dev)
-    w = ((torch.rand((1, 1, 256, 255), generator=gen) - 0.5) / 8).to(dev)
-    g = xc.Gemm("conv", (8, 28, 28, 256), tuple(w.shape), 1, "SAME")
-    got = xc.xchain_prologue(sig, g, 0, u, w, (skip,))
-    ref = xc.xchain_prologue_plain(sig, g, 0, u, w, (skip,))
-    cat = torch.cat([u.repeat_interleave(2, 1).repeat_interleave(2, 2),
-                     skip], -1)
-    require_within(got, ref, 2 * gamma(256) * _conv_mag(cat, w),
-                   "xchain_prologue")
-    flops = g.flops()
-    nbytes = (u.numel() + skip.numel() + w.numel() + got.numel()) * 4
-    ms = graph_ms(lambda: xc.xchain_prologue(sig, g, 0, u, w, (skip,)))
-    walk, product = (graph_ms(lambda: xc.xchain_prologue_phase(
-        sig, g, 0, u, w, phase, (skip,))) for phase in ("chain", "product"))
-    w2 = w.reshape(256, 255)
-    split = graph_ms(lambda: torch.mm(ch.tm_chain(sig, u, (skip,))
-                                      .reshape(-1, 256), w2))
-    mm = graph_ms(lambda: torch.mm(cat.reshape(-1, 256), w2))
-    ported = graph_ms(lambda: ik.conv2d(ch.tm_chain(sig, u, (skip,))
-                                        .reshape(-1, 1, 256), w))
-    plan = xc.xchain_prologue_card_plan(g, cat)
-    log(f"kernel xchain_prologue plan: {plan} (rounds {plan.rounds}, last "
-        f"round {plan.last_fill:.3f} full), scratch {tuple(cat.shape)} f32; "
-        f"{ms:.4f} ms; the kernel with one phase: chain {walk:.4f}, product "
-        f"{product:.4f}; split tm_chain + conv2d {ported:.4f} (the one "
-        f"launch {'beats' if ms < ported else 'does not beat'} it); split "
-        f"tm_chain + torch.mm {split:.4f} (torch.mm alone {mm:.4f}, TF32 "
-        f"off)")
-    return dict(
-        name="xchain_prologue", route="cuda",
-        source="src/repro_torch/csrc/xchain_prologue.cu",
-        replaces="src/repro/kernels/matmul_tm/chain.py:312",
-        max_abs_err=max_abs_err(got, ref),
-        ms=ms,
-        call_ms=cuda_ms(lambda: xc.xchain_prologue(sig, g, 0, u, w,
-                                                   (skip,))),
-        plain_ms=cuda_ms(lambda: xc.xchain_prologue_plain(sig, g, 0, u, w,
-                                                          (skip,))),
-        bound_ms=max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
-        bound_by=("operations" if flops / F32_FLOP_PER_S
-                  > nbytes / HBM_BYTES_PER_S else "bytes"),
-        library_ms=None,
-        shape="YOLO neck upsample (8, 14, 14, 128) + Route (8, 28, 28, 128) "
-              "-> head2 1x1 conv (1, 1, 256, 255) f32")
-
-
-def gather_maps_log(x: torch.Tensor) -> None:
-    """tm_affine_gather's plan (path, run R, bytes per access) on the four
-    Table III operator maps that reach gather mode, each bit-exact against
-    its plain version and timed beside its byte bound (input read once,
-    output written once)."""
-    from repro_torch.core import affine as af
-    from repro_torch.kernels.tm_affine import tm_affine as ta
-
-    gen = torch.Generator().manual_seed(SEED + 1)
-    xr = torch.rand((448, 448, 3), generator=gen).to(x.device)
-    cases = (("upsample", x, af.upsample_map(TABLE3, 2)),
-             ("pixelshuffle", x, af.pixel_shuffle_map(TABLE3, 2)),
-             ("pixelunshuffle", x, af.pixel_unshuffle_map(TABLE3, 2)),
-             ("rearrange", xr, af.rearrange_map((448, 448, 3), 1, 16)))
-    for name, xx, m in cases:
-        launch = ta.gather_launch(m, xx)
-        plan = ta.separable_plan(m, xx.element_size())
-        got = ta.tm_affine_gather(xx, m)
-        require_equal(got, ta.gather_plain(xx, m), f"tm_affine_gather {name}")
-        ms = graph_ms(lambda: ta.tm_affine_gather(xx, m), iters=10)
-        bound = ((xx.numel() + got.numel()) * xx.element_size()
-                 / HBM_BYTES_PER_S * 1e3)
-        run = (f"run R {plan.R} from axis {plan.suffix}"
-               if plan is not None else "no separable run")
-        log(f"kernel tm_affine_gather {name} {tuple(xx.shape)} -> "
-            f"{tuple(got.shape)} f32: path {launch.path}, {run}, "
-            f"{launch.vbytes} B per access; {ms:.4f} ms device, bound "
-            f"{bound:.4f} ({bound / ms:.2f} of it)")
-
-
-def block_maps_log(x: torch.Tensor, m, plan, gen) -> None:
-    """tm_affine_block's path and bytes per access on the timed transpose,
-    and two more maps of the Table III size, each bit-exact against its
-    plain version and timed beside its byte bound and one
-    ``permute(...).contiguous()``: HWC -> CHW in f32 (the tile path) and
-    the transpose in int8 (16-byte vectors of 16 elements)."""
-    from repro_torch.core import affine as af
-    from repro_torch.kernels.tm_affine import tm_affine as ta
-
-    xi = torch.randint(-128, 128, TABLE3, generator=gen,
-                       dtype=torch.int8).to(x.device)
-    chw = af.axis_permutation_map(TABLE3, (2, 0, 1))
-    cases = (("transpose f32", x, m, plan),
-             ("HWC->CHW f32", x, chw, ta.analyze_block_mode(chw)),
-             ("transpose int8", xi, m, plan))
-    for name, xx, mm, pl in cases:
-        regs = ta._block_regs(mm, pl, xx.dtype, xx.device)
-        got = ta.tm_affine_block(xx, mm, pl)
-        require_equal(got, ta.block_plain(xx, mm, pl),
-                      f"tm_affine_block {name}")
-        ms = graph_ms(lambda: ta.tm_affine_block(xx, mm, pl))
-        lib = graph_ms(lambda: xx.permute(*pl.src_axis).contiguous())
-        bound = 2 * xx.numel() * xx.element_size() / HBM_BYTES_PER_S * 1e3
-        log(f"kernel tm_affine_block {name} {TABLE3}: path {regs.path}, "
-            f"{regs.vbytes} B per access; {ms:.4f} ms device, bound "
-            f"{bound:.4f} ({ms / bound:.2f}x), permute().contiguous() "
-            f"{lib:.4f}")
-
-
-def kernel_phase(dev, gen, espcn: dict) -> list[dict]:
-    import torch.nn.functional as F
-
-    from repro_torch.core import affine as af
-    from repro_torch.core.engine import gather_indices
-    from repro_torch.kernels.rme_gather import rme_gather as rg
-    from repro_torch.kernels.tm_affine import tm_affine as ta
-
-    rows = []
-    f32 = 4
-
-    # block mode: Transpose at Table III size (448x448x64 f32)
-    m = af.transpose_map(TABLE3)
-    plan = ta.analyze_block_mode(m)
-    x = torch.rand(TABLE3, generator=gen).to(dev)
-    got = ta.tm_affine_block(x, m, plan)
-    ref = ta.block_plain(x, m, plan)
-    require_equal(got, ref, "tm_affine_block")
-    nbytes = 2 * x.numel() * f32
-    block_maps_log(x, m, plan, gen)
-    rows.append(dict(
-        name="tm_affine_block", route="cuda",
-        source="src/repro_torch/csrc/tm_affine.cu",
-        replaces="src/repro/kernels/tm_affine/tm_affine.py:203",
-        max_abs_err=max_abs_err(got, ref),
-        ms=graph_ms(lambda: ta.tm_affine_block(x, m, plan)),
-        call_ms=cuda_ms(lambda: ta.tm_affine_block(x, m, plan)),
-        plain_ms=cuda_ms(lambda: ta.block_plain(x, m, plan)),
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=graph_ms(lambda: x.permute(1, 0, 2).contiguous()),
-        shape="transpose 448x448x64 f32"))
-
-    # gather mode: Upsample x2 at Table III size (448x448x64 -> 896x896x64)
-    m = af.upsample_map(TABLE3, 2)
-    got = ta.tm_affine_gather(x, m)
-    ref = ta.gather_plain(x, m)
-    require_equal(got, ref, "tm_affine_gather")
-    flat, _ = gather_indices(m, dev)
-    flat = flat.reshape(-1)
-    xf = x.reshape(-1)
-    require_equal(xf[flat].reshape(m.out_shape), got, "upsample index")
-    # the same upsample in one PyTorch call: x as a channels-last NCHW view
-    xcl = x.permute(2, 0, 1).unsqueeze(0)
-    interp = lambda: F.interpolate(xcl, scale_factor=2,  # noqa: E731
-                                   mode="nearest")
-    require_equal(interp()[0].permute(1, 2, 0), got, "upsample interpolate")
-    index_ms = graph_ms(lambda: xf[flat], iters=10)
-    gather_maps_log(x)
-    nbytes = (x.numel() + got.numel()) * f32
-    rows.append(dict(
-        name="tm_affine_gather", route="cuda",
-        source="src/repro_torch/csrc/tm_affine.cu",
-        replaces="src/repro/kernels/tm_affine/tm_affine.py:256",
-        max_abs_err=max_abs_err(got, ref),
-        ms=graph_ms(lambda: ta.tm_affine_gather(x, m), iters=10),
-        call_ms=cuda_ms(lambda: ta.tm_affine_gather(x, m)),
-        plain_ms=cuda_ms(lambda: ta.gather_plain(x, m), iters=5),
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=graph_ms(interp, iters=10),
-        shape="upsample x2 448x448x64 f32"))
-    log(f"kernel tm_affine_gather upsample: library F.interpolate nearest "
-        f"(channels-last) {rows[-1]['library_ms']:.4f} ms, x.flatten()[index] "
-        f"{index_ms:.4f} ms")
-    del flat, xf
-
-    # RME evaluate: YOLO head-2 record streams (batch 8, 28*28*3 rows of 85)
-    recs = torch.randn((IMG[0], 28 * 28 * 3, 5 + N_CLASSES),
-                       generator=gen).to(dev)
-    got = rg.rme_evaluate(recs, CONF, CAPACITY, score_index=4)
-    ref = rg.evaluate_plain(recs, CONF, CAPACITY, score_index=4)
-    for g, r, what in zip(got, ref, ("rows", "idx", "count")):
-        require_equal(g, r, f"rme_evaluate {what}")
-    B, N, D = recs.shape
-    idx, cnt = ref[1], ref[2]
-    nbytes = 0
-    for b in range(B):  # what this run's data needs (the walk stops early)
-        c = int(cnt[b])
-        scanned = int(idx[b, c - 1]) + 1 if c == CAPACITY else N
-        # a score sits a record (D * 4 bytes) from the next, so each scanned
-        # row that is not kept costs one sector; a kept row is read whole
-        nbytes += (scanned - c) * SECTOR + c * D * f32
-    nbytes += B * (CAPACITY * D * f32 + CAPACITY * 4 + 4)  # packed output
-    log(f"kernel rme_evaluate: {_rounds(idx, cnt, N)}")
-    rows.append(dict(
-        name="rme_evaluate", route="cuda",
-        source="src/repro_torch/csrc/rme_gather.cu",
-        replaces="src/repro/kernels/rme_gather/rme_gather.py:105",
-        max_abs_err=max(max_abs_err(g, r) for g, r in zip(got, ref)),
-        ms=graph_ms(lambda: rg.rme_evaluate(recs, CONF, CAPACITY,
-                                            score_index=4)),
-        call_ms=cuda_ms(lambda: rg.rme_evaluate(recs, CONF, CAPACITY,
-                                                score_index=4)),
-        plain_ms=cuda_ms(lambda: rg.evaluate_plain(recs, CONF, CAPACITY,
-                                                   score_index=4)),
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None,
-        shape=f"(8, 2352, 85) f32 cap {CAPACITY}, "
-              f"{int(cnt.sum())} kept"))
-    evaluated = ref
-
-    rows.append(chain_row(dev, gen))
-    rows.append(chained_evaluate_row(dev, gen))
-
-    # RME assemble: the same records under mask = score >= CONF, which is
-    # rme_evaluate's test, so the packed rows must equal its rows as well
-    mask = recs[..., 4] >= CONF
-    got = rg.rme_assemble(recs, mask, CAPACITY)
-    ref = rg.assemble_plain(recs, mask, CAPACITY)
-    for g, r, what in zip(got, ref, ("rows", "count")):
-        require_equal(g, r, f"rme_assemble {what}")
-    require_equal(got[0], evaluated[0], "rme_assemble rows vs rme_evaluate")
-    require_equal(got[1], evaluated[2], "rme_assemble count vs rme_evaluate")
-    nbytes = 0
-    for b in range(B):  # the walk stops once the buffer is full
-        c = int(cnt[b])
-        scanned = int(idx[b, c - 1]) + 1 if c == CAPACITY else N
-        nbytes += scanned + c * D * f32  # one mask byte per scanned row
-    nbytes += B * (CAPACITY * D * f32 + 4)  # packed rows and count
-    log(f"kernel rme_assemble: {_rounds(idx, cnt, N)}")
-    rows.append(dict(
-        name="rme_assemble", route="cuda",
-        source="src/repro_torch/csrc/rme_gather.cu",
-        replaces="src/repro/kernels/rme_gather/rme_gather.py:222",
-        max_abs_err=max(max_abs_err(g, r) for g, r in zip(got, ref)),
-        ms=graph_ms(lambda: rg.rme_assemble(recs, mask, CAPACITY)),
-        call_ms=cuda_ms(lambda: rg.rme_assemble(recs, mask, CAPACITY)),
-        plain_ms=cuda_ms(lambda: rg.assemble_plain(recs, mask, CAPACITY)),
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None,
-        shape=f"(8, 2352, 85) f32 mask score >= {CONF} cap {CAPACITY}"))
-    rows += [img2col_row(dev, gen), conv2d_row(dev, gen),
-             resize_row(dev, gen), matmul_tm_row(espcn),
-             xchain_commit_row(espcn), xchain_prologue_row(dev, gen)]
-    rows += flash_rows(dev, gen)
-    rows.append(xent_row(dev))
-    for r in rows:
-        log(f"kernel {r['name']:17s} {r['shape']}: {r['ms']:.4f} ms device "
-            f"({r['call_ms']:.4f} per call with host work; plain "
-            f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, library "
-            f"{r['library_ms']}) max|err| {r['max_abs_err']}")
-    return rows
-
-
-# the loss at the train cell's shape: 4 x 1024 positions over Qwen1.5-MoE's
-# 151936-token vocabulary, bf16 logits drawn N(0, 1)
-XENT_ROWS, XENT_VOCAB = 4096, 151936
-
-
-def xent_row(dev) -> dict:
-    """The cross-entropy kernels at the train cell's shape against the
-    plain loss on the same card tensors (``dnll`` the mean's 1 / rows):
-    each row's nll within 1e-5 relative plus the rounding of lse at its
-    magnitude, every gradient element within one bf16 ulp; ``xent_rows``
-    and ``xent_grad`` each timed beside its bound (the logits read once
-    each, the gradient written once), the plain version's forward and
-    backward, and ``F.cross_entropy``'s forward and backward on the same
-    bf16 logits (the library yardstick: the port never calls it)."""
-    import torch.nn.functional as F
-
-    from repro_torch.core.fp_bounds import U32
-    from repro_torch.kernels import xent
-    with torch.inference_mode(False):
-        g = torch.Generator(device=dev).manual_seed(SEED)
-        logits = torch.randn((XENT_ROWS, XENT_VOCAB), generator=g,
-                             device=dev).to(torch.bfloat16)
-        labels = torch.randint(0, XENT_VOCAB, (XENT_ROWS,), generator=g,
-                               device=dev)
-        dnll = torch.full((XENT_ROWS,), 1.0 / XENT_ROWS, device=dev)
-        nll, mx, sm = xent.xent_rows(logits, labels)
-        grad = xent.xent_grad(logits, labels, mx, sm, dnll)
-        x = logits.clone().requires_grad_()
-        want = xent.nll_plain(x, labels)
-        (want_grad,) = torch.autograd.grad(want, [x], dnll)
-        want = want.detach()
-        nll_err = float(((nll - want).abs() / (1e-5 * want.abs()
-                                               + 4 * U32 * mx.abs())).max())
-        ulps = int(ulps_apart(grad, want_grad).max())
-        log(f"kernel xent_rows + xent_grad: nll within {nll_err:.3g} of its "
-            f"tolerance, the gradient {ulps} bf16 ulps from the plain "
-            f"version's at most")
-        if not (nll_err <= 1.0 and ulps <= 1):
-            raise AssertionError(f"xent: nll {nll_err:.3g} of its "
-                                 f"tolerance, gradient {ulps} ulps")
-        del want_grad, grad
-        fwd_ms = graph_ms(lambda: xent.xent_rows(logits, labels), iters=5)
-        bwd_ms = graph_ms(lambda: xent.xent_grad(logits, labels, mx, sm,
-                                                 dnll), iters=5)
-
-        def kernels():
-            _, m, s = xent.xent_rows(logits, labels)
-            return xent.xent_grad(logits, labels, m, s, dnll)
-
-        call_ms = cuda_ms(kernels, iters=10)
-        plain_ms = cuda_ms(lambda: torch.autograd.grad(
-            xent.nll_plain(x, labels), [x], dnll), iters=3, warmup=1)
-        library_ms = cuda_ms(lambda: torch.autograd.grad(
-            F.cross_entropy(x, labels, reduction="none"), [x],
-            dnll.to(torch.bfloat16)),
-            iters=3, warmup=1)
-    elem = logits.numel() * logits.element_size()
-    fwd_bound = (elem + XENT_ROWS * (8 + 12)) / HBM_BYTES_PER_S * 1e3
-    bwd_bound = (2 * elem + XENT_ROWS * (8 + 12)) / HBM_BYTES_PER_S * 1e3
-    log(f"kernel xent_rows {fwd_ms:.4f} ms (bound {fwd_bound:.4f}), "
-        f"xent_grad {bwd_ms:.4f} ms (bound {bwd_bound:.4f}), both "
-        f"{call_ms:.4f} ms per call; plain forward and backward "
-        f"{plain_ms:.4f} ms, F.cross_entropy forward and backward "
-        f"{library_ms:.4f} ms")
-    return dict(
-        name="xent_rows", route="cuda", source="src/repro_torch/csrc/xent.cu",
-        replaces="none (the JAX package's loss is jnp)",
-        max_abs_err=max_abs_err(nll, want), ms=fwd_ms + bwd_ms,
-        call_ms=call_ms, plain_ms=plain_ms, bound_ms=fwd_bound + bwd_bound,
-        bound_by="bytes", library_ms=library_ms,
-        shape=f"xent_rows {fwd_ms:.4f} + xent_grad {bwd_ms:.4f} ms on "
-              f"({XENT_ROWS}, {XENT_VOCAB}) bf16 logits; {ulps} ulps")
-
-
-def _sdpa(q, k, v, **kw):
-    """One PyTorch call of the same attention (the yardstick only): SDPA
-    on (B, H, S, D) views, the GQA grouping by ``enable_gqa``."""
-    import torch.nn.functional as F
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                  enable_gqa=True, **kw)
-
-
-PARTIAL_BLOCKS = 4   # row blocks of the cache for flash_decode_partial
-
-
-def flash_rows(dev, gen) -> list[dict]:
-    """flash_attention (#16) at the slice-5 prefill shape and flash_decode
-    (#17) at its decode shape, bf16 with f32 accumulation, each within
-    fp_bounds.attention_tol of its plain version, with its achieved rate
-    and its ratio to SDPA's time in the same run; then the f32 prefill
-    (the FMA kernel, off the LM's bf16 path) as the row
-    flash_attention_f32."""
-    from repro_torch.core.fp_bounds import attention_tol
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-
-    B, S, H, KV, D = LM_BATCH, LM_PROMPT, 24, 8, 128
-    T, length = LM_PROMPT + LM_GEN, LM_PROMPT + 1
-    bf16 = torch.bfloat16
-    flops = 4 * B * H * D * (S * S + S) // 2
-    rows = []
-    for dtype, name, peak in ((bf16, "flash_attention", BF16_FLOP_PER_S),
-                              (torch.float32, "flash_attention_f32",
-                               F32_FLOP_PER_S)):
-        q, k, v = (torch.randn((B, S, n, D), generator=gen).to(dev, dtype)
-                   for n in (H, KV, KV))
-        got = fa.flash_attention(q, k, v, causal=True)
-        ref = fa.attention_ref(q, k, v, causal=True)
-        require_within(got, ref, attention_tol(q, k, v, causal=True), name)
-        sdpa = _sdpa(q, k, v, is_causal=True)
-        log(f"kernel {name}: SDPA vs the kernel "
-            f"{max_abs_err(sdpa().transpose(1, 2), got)}")
-        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-        iters = 10 if dtype == bf16 else 3
-        ms = graph_ms(lambda: fa.flash_attention(q, k, v), iters=iters)
-        library_ms = graph_ms(sdpa, iters=iters)
-        log(f"kernel {name}: {flops / 1e9:.2f} GFLOP in {ms:.4f} ms = "
-            f"{flops / ms / 1e9:.1f} TFLOP/s (peak {peak / 1e12:.0f}, bound "
-            f"{flops / peak * 1e3:.4f} ms); SDPA {library_ms:.4f} ms, "
-            f"kernel / SDPA {ms / library_ms:.2f}")
-        rows.append(dict(
-            name=name, route="cuda",
-            source="src/repro_torch/csrc/flash_attention.cu",
-            replaces="src/repro/kernels/flash_attention/flash_attention.py:79",
-            max_abs_err=max_abs_err(got, ref), ms=ms,
-            call_ms=cuda_ms(lambda: fa.flash_attention(q, k, v),
-                            iters=iters),
-            plain_ms=cuda_ms(lambda: fa.attention_ref(q, k, v), iters=3,
-                             warmup=1),
-            bound_ms=max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
-            bound_by=("operations" if flops / peak > nbytes / HBM_BYTES_PER_S
-                      else "bytes"),
-            library_ms=library_ms,
-            shape=f"causal q ({B}, {S}, {H}, {D}) k/v ({B}, {S}, {KV}, {D}) "
-                  f"{str(dtype).removeprefix('torch.')}"))
-        del q, k, v, got, ref
-
-    q = torch.randn((B, 1, H, D), generator=gen).to(dev, bf16)
-    k, v = (torch.randn((B, T, KV, D), generator=gen).to(dev, bf16)
-            for _ in range(2))
-    n = torch.tensor([length], dtype=torch.int32, device=dev)
-    got = fa.flash_decode(q, k, v, n)
-    ref = fa.decode_ref(q, k, v, length)
-    require_within(got, ref, attention_tol(q, k, v, causal=False,
-                                           length=length), "flash_decode")
-    sdpa = _sdpa(q, k[:, :length], v[:, :length])
-    log(f"kernel flash_decode: SDPA vs the kernel "
-        f"{max_abs_err(sdpa().transpose(1, 2), got)}")
-    nbytes = (2 * B * length * KV * D + 2 * q.numel()) * 2
-    flops = 4 * B * H * D * length
-    ms = graph_ms(lambda: fa.flash_decode(q, k, v, n))
-    library_ms = graph_ms(sdpa)
-    split_rows, splits = fa.decode_plan(B, T, H, KV, dev, bf16)
-    log(f"kernel flash_decode: {nbytes / 1e6:.2f} MB in {ms:.4f} ms = "
-        f"{nbytes / ms / 1e9:.3f} TB/s (peak 3.35, bound "
-        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {splits} splits of "
-        f"{split_rows} rows); SDPA {library_ms:.4f} ms, kernel / SDPA "
-        f"{ms / library_ms:.2f}")
-    rows.append(dict(
-        name="flash_decode", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/flash_attention.py:144",
-        max_abs_err=max_abs_err(got, ref), ms=ms,
-        call_ms=cuda_ms(lambda: fa.flash_decode(q, k, v, n)),
-        plain_ms=cuda_ms(lambda: fa.decode_ref(q, k, v, n)),
-        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
-        * 1e3,
-        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                  >= flops / BF16_FLOP_PER_S else "operations"),
-        library_ms=library_ms,
-        shape=f"q ({B}, 1, {H}, {D}) vs cache ({B}, {T}, {KV}, {D}) bf16 "
-              f"at length {length}"))
-    rows.append(partial_row(q, k, v, length, got))
-    return rows
-
-
-def partial_row(q, k, v, length: int, whole) -> dict:
-    """flash_decode_partial (#17's partial mode, the kernel of a decode
-    over a cache whose rows lie over ranks) at the decode shape with the
-    cache split into PARTIAL_BLOCKS row blocks, each block's local length
-    on the device: each block's (o, lse) within attention_tol /
-    decode_lse_tol of its plain version; the blocks combined
-    (combine_partials) within row 17's bound of the whole-cache
-    flash_decode (``whole``); one block's call timed against its byte
-    bound and SDPA over the same block's live rows."""
-    from repro_torch.core.fp_bounds import attention_tol, decode_lse_tol
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-
-    B, _, H, D = q.shape
-    T, KV = k.shape[1], k.shape[2]
-    rows_b = T // PARTIAL_BLOCKS
-    n = torch.tensor([length], dtype=torch.int32, device=q.device)
-    blocks, parts = [], []
-    before = fa.flash_decode_partial.launches
-    for b in range(PARTIAL_BLOCKS):
-        kb, vb = (t[:, b * rows_b:(b + 1) * rows_b] for t in (k, v))
-        nb = (n - b * rows_b).clamp(0, rows_b)   # on the device
-        live = max(0, min(length - b * rows_b, rows_b))
-        o, lse = fa.flash_decode_partial(q, kb, vb, nb)
-        ro, rl = fa.decode_partial_ref(q, kb, vb, live)
-        require_within(o, ro, attention_tol(q, kb, vb, causal=False,
-                                            length=live),
-                       f"flash_decode_partial block {b} o")
-        require_within(lse, rl, decode_lse_tol(q, kb, live),
-                       f"flash_decode_partial block {b} lse")
-        blocks.append((kb, vb, nb, live))
-        parts.append((o, lse, ro, rl))
-    if fa.flash_decode_partial.launches - before != PARTIAL_BLOCKS:
-        raise AssertionError(f"flash_decode_partial: "
-                             f"{fa.flash_decode_partial.launches - before} "
-                             f"launches for {PARTIAL_BLOCKS} blocks")
-    comb = fa.combine_partials(torch.stack([p[0] for p in parts]),
-                               torch.stack([p[1] for p in parts]), q.dtype)
-    require_within(comb, whole, attention_tol(q, k, v, causal=False,
-                                              length=length),
-                   "flash_decode_partial combined against flash_decode")
-    kb, vb, nb, live = blocks[0]
-    sdpa = _sdpa(q, kb[:, :live], vb[:, :live])
-    nbytes = (2 * B * live * KV * D + q.numel()) * 2 + B * H * (D + 1) * 4
-    flops = 4 * B * H * D * live
-    ms = graph_ms(lambda: fa.flash_decode_partial(q, kb, vb, nb))
-    library_ms = graph_ms(sdpa)
-
-    def every_block():
-        got = [fa.flash_decode_partial(q, *blk[:3]) for blk in blocks]
-        return fa.combine_partials(torch.stack([g[0] for g in got]),
-                                   torch.stack([g[1] for g in got]), q.dtype)
-
-    all_ms = cuda_ms(every_block)
-    whole_ms = cuda_ms(lambda: fa.flash_decode(q, k, v, n))
-    log(f"kernel flash_decode_partial: one block of {rows_b} rows ({live} "
-        f"live) {nbytes / 1e6:.2f} MB in {ms:.4f} ms = "
-        f"{nbytes / ms / 1e9:.3f} TB/s (bound "
-        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); SDPA over the block "
-        f"{library_ms:.4f} ms; the {PARTIAL_BLOCKS} blocks and their "
-        f"combine {all_ms:.4f} ms a call against the whole-cache "
-        f"flash_decode's {whole_ms:.4f}; max|err| combined against it "
-        f"{max_abs_err(comb, whole)}")
-    return dict(
-        name="flash_decode_partial", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/flash_attention.py:144",
-        max_abs_err=max(max(max_abs_err(p[0], p[2]), max_abs_err(
-            p[1].masked_fill(p[1].isinf(), 0), p[3].masked_fill(
-                p[3].isinf(), 0))) for p in parts),
-        ms=ms,
-        call_ms=cuda_ms(lambda: fa.flash_decode_partial(q, kb, vb, nb)),
-        plain_ms=cuda_ms(lambda: fa.decode_partial_ref(q, kb, vb, nb)),
-        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
-        * 1e3,
-        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                  >= flops / BF16_FLOP_PER_S else "operations"),
-        library_ms=library_ms,
-        shape=f"q ({B}, 1, {H}, {D}) vs one of {PARTIAL_BLOCKS} blocks "
-              f"({B}, {rows_b}, {KV}, {D}) bf16 of the cache at length "
-              f"{length}")
-
 
 def _teacher_forced(cfg, params, prompts, toks, attention: str):
     """Prefill, then the decode steps fed ``toks`` (the kernel path's
@@ -1608,7 +565,7 @@ def edsr_timings(e: dict, ex) -> None:
     walls: dict[str, list[float]] = {k: [] for k in runs}
     for k in ("eager", "partitioned", "partitioned", "eager"):
         walls[k].append(wall_ms(runs[k], iters=3))
-    dev_ms = {k: cuda_ms(fn, iters=3, warmup=1) for k, fn in runs.items()}
+    dev_ms = {k: events_ms(fn, iters=3, warmup=1) for k, fn in runs.items()}
     log("model EDSR x2 wall ms/forward: " + "; ".join(
         f"{k} {min(v):.3f} (runs {', '.join(f'{t:.3f}' for t in v)}), "
         f"device {dev_ms[k]:.3f}" for k, v in walls.items()))
@@ -1723,7 +680,7 @@ def espcn_compiled_check(e: dict) -> None:
         raise AssertionError(f"ESPCN fused phase lowered to "
                              f"{[(r.path, r.reason) for r in recs]}")
     require_equal(out_s, eager, "ESPCN split vs eager")
-    tol = 2 * gamma(3 * 3 * 32) * _shuffle(_conv_mag(e["h"], model.c3), 3)
+    tol = 2 * gamma(3 * 3 * 32) * shuffle(conv_mag(e["h"], model.c3), 3)
     require_within(out_f, eager, tol, "ESPCN fused vs eager")
     if not bool(torch.isfinite(out_f).all()):
         raise AssertionError("ESPCN: non-finite values")
@@ -1747,9 +704,9 @@ def espcn_compiled_check(e: dict) -> None:
         eval_tpu_node(conv3, env_s)
         split.run_phase(s_m, env_s, backend="cuda")
 
-    dev_f = cuda_ms(lambda: fused.run_phase(f_ph, env_f, backend="cuda"),
+    dev_f = events_ms(lambda: fused.run_phase(f_ph, env_f, backend="cuda"),
                     iters=10)
-    dev_s = cuda_ms(split_tail, iters=10)
+    dev_s = events_ms(split_tail, iters=10)
     log(f"model ESPCN x3 {tuple(img.shape)} -> {tuple(out_f.shape)} f32: "
         f"split bit-exact vs eager; fused ({recs[0].path}, launches "
         f"{recs[0].launches}) max |err| {max_abs_err(out_f, eager)} "
@@ -1772,7 +729,7 @@ def espcn_im2col_check(e: dict) -> None:
     patches = img2col_call(h[0], kh=3, kw=3, stride=1, pad=1)
     out = matmul_pixel_shuffle_call(patches, c3.reshape(-1, 27).contiguous(),
                                     H=h.shape[1], W=h.shape[2], C=3, s=3)
-    tol = 2 * gamma(288) * _shuffle(_conv_mag(h, c3), 3)[0]
+    tol = 2 * gamma(288) * shuffle(conv_mag(h, c3), 3)[0]
     require_within(out, e["compiled"][0], tol,
                    "matmul_tm im2col vs the compiled ESPCN")
     log(f"model ESPCN last layer as img2col {tuple(patches.shape)} + "
@@ -1808,7 +765,7 @@ def yolo_compiled_check(y: dict, chained) -> None:
     require_equal(p1, part[0], "YOLOv3-Tiny compiled head 1 vs partitioned")
     r, skip = model.trunk(tm_ops.rearrange(img, 1, 16))
     cat = tm_ops.route([tm_ops.upsample(model.neck_in(r), 2), skip])
-    tol = 2 * gamma(256) * _conv_mag(cat, model.head2_w)
+    tol = 2 * gamma(256) * conv_mag(cat, model.head2_w)
     for ref, what in ((y["eager"][1], "eager"), (part[1], "partitioned")):
         require_within(p2, ref, tol, f"YOLOv3-Tiny compiled head 2 vs {what}")
     if not (torch.isfinite(p1).all() and torch.isfinite(p2).all()):
@@ -2073,12 +1030,12 @@ def served_traffic(dev, img_shape=IMG, n_classes=N_CLASSES,
             p1, p2 = yolo(x)
             r, skip = yolo.trunk(tm_ops.rearrange(x, 1, 16))
             cat = tm_ops.route([tm_ops.upsample(yolo.neck_in(r), 2), skip])
-            tol2 = 2 * gamma(256) * _conv_mag(cat, yolo.head2_w)
+            tol2 = 2 * gamma(256) * conv_mag(cat, yolo.head2_w)
         else:
             eager = espcn(x)
             h = torch.tanh(cnn.conv2d(torch.tanh(cnn.conv2d(x, espcn.c1)),
                                       espcn.c2))
-            tol = 2 * gamma(3 * 3 * 32) * _shuffle(_conv_mag(h, espcn.c3), 3)
+            tol = 2 * gamma(3 * 3 * 32) * shuffle(conv_mag(h, espcn.c3), 3)
         for i, (req, part) in enumerate(zip(batch, split(direct, len(batch)))):
             got = req.future.result(timeout=0)
             what = f"served {key} x{size} row {i}"
@@ -2515,32 +1472,16 @@ def _shape_cfg(arch: str):
 
 
 def flash_check(name: str, B: int, S: int, H: int, KV: int, D: int,
-                T: int, dev, gen) -> None:
+                T: int, dev) -> None:
     """flash_attention (causal prefill) and flash_decode (at length S + 1
     of a T-row cache) at one model's attention shape, bf16, each within
-    fp_bounds.attention_tol of its plain version."""
-    from repro_torch.core.fp_bounds import attention_tol
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-    bf16 = torch.bfloat16
-    q, k, v = (torch.randn((B, S, n, D), generator=gen).to(dev, bf16)
-               for n in (H, KV, KV))
-    got = fa.flash_attention(q, k, v, causal=True)
-    ref = fa.attention_ref(q, k, v, causal=True)
-    require_within(got, ref, attention_tol(q, k, v, causal=True),
-                   f"{name} flash_attention")
-    e_pre = max_abs_err(got, ref)
-    ck, cv = (torch.randn((B, T, KV, D), generator=gen).to(dev, bf16)
-              for _ in range(2))
-    n = torch.tensor([S + 1], dtype=torch.int32, device=dev)
-    got = fa.flash_decode(q[:, :1], ck, cv, n)
-    ref = fa.decode_ref(q[:, :1], ck, cv, S + 1)
-    require_within(got, ref, attention_tol(q[:, :1], ck, cv, causal=False,
-                                           length=S + 1),
-                   f"{name} flash_decode")
-    log(f"kernel check {name}: q ({B}, {S}, {H}, {D}) k/v KV {KV} "
-        f"(G = {H // KV}) bf16: flash_attention max|err| {e_pre}, "
-        f"flash_decode (cache {T} rows, length {S + 1}) max|err| "
-        f"{max_abs_err(got, ref)}, both within attention_tol")
+    fp_bounds.attention_tol of its plain version (the kernel table's
+    functions at this shape)."""
+    log(f"kernel check {name}: " + kernel_table.summary(
+        kernel_table.prefill_case(dev, torch.bfloat16, B, S, H, KV, D)))
+    log(f"kernel check {name}: " + kernel_table.summary(
+        kernel_table.flash_decode_row(dev, B=B, T=T, H=H, KV=KV, D=D,
+                                      length=S + 1)))
 
 
 def moe_kernel_checks(cfg, dev, gen) -> None:
@@ -2548,11 +1489,10 @@ def moe_kernel_checks(cfg, dev, gen) -> None:
     shape (MHA, G = 1) and the assemble kernel's dispatch timed at the
     served prefill shape beside its plain version and its byte bound."""
     from repro_torch.core import rme
-    from repro_torch.kernels.rme_gather import rme_gather as rg
     from repro_torch.models.moe import capacity_of
     B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
     flash_check(cfg.name, B, P, cfg.n_heads, cfg.n_kv_heads, cfg.hd, P + G,
-                dev, gen)
+                dev)
     E, k = cfg.num_experts_padded, cfg.top_k
     cap = capacity_of(P, k, cfg.num_experts, cfg.capacity_factor)
     eo = torch.randint(0, cfg.num_experts, (B, P * k), generator=gen).to(dev)
@@ -2560,21 +1500,13 @@ def moe_kernel_checks(cfg, dev, gen) -> None:
             ).reshape(B * E, P * k)
     recs = torch.arange(P * k, dtype=torch.int32, device=dev).expand(
         B * E, P * k)[..., None].contiguous()
-    got, cnt = rg.rme_assemble(recs, mask, cap)
-    want, wcnt = rg.assemble_plain(recs, mask, cap)
-    require_equal(got, want, "rme_assemble at the MoE dispatch shape")
-    require_equal(cnt, wcnt, "rme_assemble counts at the MoE dispatch shape")
-    nbytes = recs.numel() * 4 + mask.numel() + got.numel() * 4 + cnt.numel() * 4
-    ms = graph_ms(lambda: rg.rme_assemble(recs, mask, cap))
-    plain_ms = cuda_ms(lambda: rg.assemble_plain(recs, mask, cap), iters=5)
+    log(kernel_table.summary(kernel_table.assemble_case(recs, mask, cap)))
     whole_ms = graph_ms(lambda: rme.dispatch_tokens(eo, E, cap))
-    whole_plain = cuda_ms(lambda: rme.dispatch_tokens_plain(eo, E, cap),
-                          iters=5)
-    log(f"kernel rme_assemble at the MoE dispatch: records "
-        f"({B * E}, {P * k}, 1) int32, capacity {cap}: {ms:.4f} ms device "
-        f"(plain {plain_ms:.4f}, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f}"
-        f" by bytes); the whole dispatch_tokens {whole_ms:.4f} ms device "
-        f"(its plain one-hot form {whole_plain:.4f})")
+    whole_plain = events_ms(lambda: rme.dispatch_tokens_plain(eo, E, cap),
+                            iters=5)
+    log(f"kernel rme_assemble at the MoE dispatch: the whole dispatch_tokens "
+        f"{whole_ms:.4f} ms device (its plain one-hot form "
+        f"{whole_plain:.4f})")
 
 
 def _sets(experts: torch.Tensor) -> torch.Tensor:
@@ -2715,7 +1647,7 @@ def moe_check(cfg, toks, stats, peak: int, dev) -> dict:
     return {"flips": flips, "agree": agree}
 
 
-def family_kernel_checks(dev, gen) -> None:
+def family_kernel_checks(dev) -> None:
     """Before slice 13b's path: the flash kernels at each attention arch's
     shape (zamba2's shared attention at head dim 112, InternVL2's G = 7
     at 64, MusicGen's MHA at 64, Llama4-Scout's G = 5)."""
@@ -2724,7 +1656,7 @@ def family_kernel_checks(dev, gen) -> None:
         cfg = _shape_cfg(arch)
         if cfg.family != "ssm":
             flash_check(cfg.name, B, P, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                        P + G, dev, gen)
+                        P + G, dev)
 
 
 def _expected(cfg) -> dict:
@@ -2938,7 +1870,7 @@ def _optimizer_ms(cfg, state, update=None) -> float:
     grads = tree_map(torch.zeros_like, state["params"])
     opt = AdamWState(**state["opt"])
     lr = torch.zeros((), device=opt.step.device)
-    return cuda_ms(lambda: update(grads, opt, lr, param_dtype=cfg.dtype,
+    return events_ms(lambda: update(grads, opt, lr, param_dtype=cfg.dtype,
                                   params=state["params"]), iters=3, warmup=1)
 
 
@@ -2958,7 +1890,7 @@ def _fused_adamw_ms(state) -> float:
                          tree_leaves(state["opt"]["v"])):
         opt.state[w] = {"step": torch.zeros((), device=w.device),
                         "exp_avg": mu, "exp_avg_sq": nu}
-    ms = cuda_ms(opt.step, iters=3, warmup=1)
+    ms = events_ms(opt.step, iters=3, warmup=1)
     for w in masters:
         w.grad = None
     return ms
@@ -3105,7 +2037,7 @@ def train_check(cfg, run: dict, card: str, dev) -> dict:
     opt_ms = _optimizer_ms(cfg, state)
     plain_ms = _optimizer_ms(cfg, state, adamw_update_plain)
     library_ms = _fused_adamw_ms(state)
-    bound_ms = ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3
+    bound, by = bound_ms(ADAMW_BYTES_PER_PARAM * n_params)
     del state, met
     torch.cuda.empty_cache()
 
@@ -3122,7 +2054,7 @@ def train_check(cfg, run: dict, card: str, dev) -> dict:
         f"the step {again_ms:.3f} ms), median {step_ms:.3f} ms = "
         f"{tokens / step_ms * 1e3:.1f} tokens/s; peak {_gib(run['peak'])}; "
         f"the optimizer alone {opt_ms:.3f} ms "
-        f"({opt_ms / step_ms:.3f} of a step; bound {bound_ms:.3f} ms at "
+        f"({opt_ms / step_ms:.3f} of a step; bound {bound:.3f} ms at "
         f"{ADAMW_BYTES_PER_PARAM} bytes a parameter, plain {plain_ms:.3f}, "
         f"torch.optim.AdamW(fused=True) {library_ms:.3f})")
     log(f"model {cfg.name} step 0: loss {float(plain_loss)!r} through the "
@@ -3136,7 +2068,7 @@ def train_check(cfg, run: dict, card: str, dev) -> dict:
         source="src/repro_torch/csrc/adamw.cu",
         replaces="none (the JAX package's AdamW is jnp)",
         max_abs_err=None, ms=opt_ms, call_ms=opt_ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
+        bound_ms=bound, bound_by=by, library_ms=library_ms,
         shape=f"adamw_update (adamw_sumsq + adamw_apply) over "
               f"{n_params / 1e9:.3f} B parameters, bf16 gradients and "
               f"parameters, f32 master, m and v; ulps {check['ulps']}")
@@ -3600,7 +2532,7 @@ def card_cell_check(cfg, plain: dict, dev) -> dict:
         raise AssertionError(f"15c card cell: matmul FLOPs "
                              f"{rec['matmul_flops']} traced, {real} on the "
                              f"card: {rel:.3g}")
-    bound_ms = rec["step_time_bound_s"] * 1e3
+    step_bound = rec["step_time_bound_s"] * 1e3
     log(f"dry-run card cell ({cfg.name}, {cfg.n_layers} layers, batch "
         f"{TRAIN_BATCH} x {TRAIN_SEQ}, a (1, 1) mesh): matmul FLOPs "
         f"{rec['matmul_flops']:.6g} traced against {real:.6g} by "
@@ -3611,8 +2543,8 @@ def card_cell_check(cfg, plain: dict, dev) -> dict:
         f"compute {rec['compute_s'] * 1e3:.3f} / memory "
         f"{rec['memory_s'] * 1e3:.3f} / collective "
         f"{rec['collective_s'] * 1e3:.3f} ms, dominant {rec['dominant']}; "
-        f"step-time bound {bound_ms:.3f} ms against 14a's measured "
-        f"{plain['step_ms']:.3f} ms ({bound_ms / plain['step_ms']:.3f})")
+        f"step-time bound {step_bound:.3f} ms against 14a's measured "
+        f"{plain['step_ms']:.3f} ms ({step_bound / plain['step_ms']:.3f})")
     return {"rec": rec, "real": real}
 
 
@@ -3709,10 +2641,7 @@ def main() -> int:
     from repro_torch.core.executor import TMExecutor
     from repro_torch.kernels import build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     log(card)
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
@@ -3731,7 +2660,9 @@ def main() -> int:
     torch.backends.cudnn.benchmark = False
     with torch.inference_mode():
         es = espcn_setup(dev, gen)  # the eager model launches no kernel
-        rows = kernel_phase(dev, gen, es)
+        rows = [row(dev) for row in kernel_table.ROWS]
+        for r in rows:
+            log(kernel_table.summary(r))
         y = yolo_setup(dev, gen)  # the eager model launches no kernel
         unfused = TMExecutor(backend="cuda", device=dev)
         chained = TMExecutor(backend="cuda", device=dev, fuse_chains=True)
@@ -3827,7 +2758,7 @@ def main() -> int:
         moe_check(moe, toks, stats, peak, dev)
         del toks
         torch.cuda.empty_cache()
-        family_kernel_checks(dev, gen)
+        family_kernel_checks(dev)
         _, counts13b = run_path("13b", lambda: family_paths(dev))
 
     # slice 14 trains: autograd, so outside inference mode

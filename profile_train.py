@@ -1,10 +1,12 @@
+#!/usr/bin/env python3
 """Where the time of a benchmark train cell's step goes, host and device.
 
-    PYTHONPATH=src python3 -m repro_torch.tools.profile_train \\
-        [--workload qwen2-moe.train-b4x1024] [--seed N] [--steps 10,...]
+    python3 profile_train.py [--workload qwen2-moe.train-b4x1024] \\
+        [--seed N] [--steps 10,...]
 
-From a checkout's root: the cell's model, weights, batches and schedule as
-``bench/run.py`` builds them (``bench.harness``), on the card.  After three
+The cell's model, weights, batches and schedule as ``bench/run.py`` builds
+them (``bench.harness``), on the card: a script beside ``bench/``, since the
+port's package imports nothing of the benchmark that measures it.  After three
 warm steps it prints, as one dict:
 
 * ``untraced_ms``: the wall ms a step over 20 steps run back to back;
@@ -30,13 +32,22 @@ Prints the card's name and power limit first.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-import torch
-from torch.profiler import ProfilerActivity, profile
+ROOT = Path(__file__).resolve().parent
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from bench.harness import core, lmcfg, weights  # noqa: E402
+from bench.harness.trace import TraceData  # noqa: E402
+from bench.reference import lm as ref  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.h100 import card_line  # noqa: E402
+from repro_torch.runtime import step as step_mod  # noqa: E402
 
 
 def main(argv=None) -> None:
@@ -46,16 +57,7 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", default="10",
                     help="steps under each profiler, comma-separated")
     args = ap.parse_args(argv)
-    sys.path.insert(0, str(Path.cwd()))
-    from bench.harness import core, lmcfg, weights
-    from bench.harness.trace import TraceData
-    from bench.reference import lm as ref
-    from repro_torch import obs
-    from repro_torch.runtime import step as step_mod
-
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     torch.set_num_threads(1)
     ref.exact_float32()
     cell = core.load_cell(args.workload)
@@ -99,7 +101,7 @@ def main(argv=None) -> None:
              ("device_only", [ProfilerActivity.CUDA]))
     for n in map(int, args.steps.split(",")):
         for name, acts in kinds:
-            out[f"{name}_{n}"] = profiled(steps, n, acts, TraceData, obs)
+            out[f"{name}_{n}"] = profiled(steps, n, acts)
 
     peaks: dict[str, float] = {}
     real = step_mod.lm_loss, step_mod.adamw_update
@@ -130,7 +132,7 @@ def main(argv=None) -> None:
     print(out, flush=True)
 
 
-def profiled(steps, n: int, acts, trace_data, obs) -> dict:
+def profiled(steps, n: int, acts) -> dict:
     """``steps(n)`` under a profiler of ``acts``: the wall and busy ms a
     step, the idle share, each span's device and host ms a step; the
     first step's wall ms apart (synchronised after it) and the rest's a
@@ -146,7 +148,7 @@ def profiled(steps, n: int, acts, trace_data, obs) -> dict:
         wall = time.perf_counter() - t0
     # a call outside the session ends it, so the next starts clean
     obs.current()
-    td = trace_data.of(prof, wall)
+    td = TraceData.of(prof, wall)
     spans: dict[str, list[float]] = {}
     for sp in obs.process_tracer().spans():
         ms = spans.setdefault(sp.name, [0.0, 0.0])

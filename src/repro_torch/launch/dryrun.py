@@ -47,6 +47,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.configs.shapes import (SHAPES, ShapeSpec, cell_is_live,
                                         input_specs, shape_spec)
+from repro_torch.h100 import BF16_FLOP_PER_S, HBM_BYTES_PER_S
 from repro_torch.launch.cost import CostCounter, local_bytes
 from repro_torch.launch.mesh import (fake_process_group, make_production_mesh,
                                      rules_for_cell, specialize_rules)
@@ -59,9 +60,8 @@ from repro_torch.runtime.step import (init_train_state, make_decode_step,
                                       serve_state_specs, state_specs)
 from repro_torch.tree import tree_map
 
-# -- hardware constants (one NVIDIA H100 SXM, NVIDIA's data sheet) ----------
-PEAK_FLOPS = 989e12      # bf16 FLOP/s, dense, on the tensor cores
-HBM_BW = 3.35e12         # bytes/s of HBM3
+# -- hardware (one NVIDIA H100 SXM, NVIDIA's data sheet; its peaks are
+# repro_torch.h100's) -----------------------------------------------------
 HBM_BYTES = 80e9         # bytes of HBM a device (the fits-HBM verdict)
 # bytes/s a device for collectives: one 400 Gb/s NDR InfiniBand NIC per GPU
 # in a DGX H100; both 16-wide mesh axes cross nodes of 8 GPUs, so the
@@ -178,8 +178,8 @@ def record(cfg: ModelConfig, shape: str | ShapeSpec, mesh, *,
     tot = counter.totals
     arg_bytes, out_bytes = local_bytes(args), local_bytes(out)
     peak = arg_bytes + counter.temp_peak_bytes
-    t_compute = tot.flops / PEAK_FLOPS
-    t_memory = tot.bytes / HBM_BW
+    t_compute = tot.flops / BF16_FLOP_PER_S
+    t_memory = tot.bytes / HBM_BYTES_PER_S
     t_coll = tot.collective_bytes / LINK_BW
     mf = model_flops(cfg, shape)
     terms = {"compute_s": t_compute, "memory_s": t_memory,

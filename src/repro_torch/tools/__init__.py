@@ -1,2 +1,3 @@
-"""Measurement scripts of the port, run on a GPU (``python3 -m
-repro_torch.tools.<name>`` with ``src`` on ``PYTHONPATH``)."""
+"""The port's card tooling: the kernel table and the measurement scripts
+around it, run on a GPU (``PYTHONPATH=src python3 -m
+repro_torch.tools.<name>``)."""

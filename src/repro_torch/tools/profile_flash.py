@@ -2,87 +2,61 @@
 
     PYTHONPATH=src python3 -m repro_torch.tools.profile_flash
 
-Prints the card's name and power limit, then one line per case: the
-kernel's device ms (a CUDA graph of back-to-back calls, timed with CUDA
-events) and its rate beside one SDPA call of the same attention:
+Prints the card's name and power limit, then the kernel table's flash rows
+(:mod:`repro_torch.tools.kernel_table`: ``flash_attention`` causal at
+(8, 1024, 24/8, 128), the prefill of Phi-4-mini at batch 8, in bf16 and
+f32; ``flash_decode`` bf16 at length 1025 of a (8, 1088, 8, 128) cache, a
+decode step of the same model, with the row split the wrapper picks),
+and around them, each checked and timed by the table's function beside
+one SDPA call of the same attention:
 
-* ``flash_attention`` causal, bf16 at (8, 1024, 24/8, 128) (the prefill of
-  Phi-4-mini at batch 8), (1, 8192, 24/8, 128) (the same work in longer
-  rows: how much of the time is per tile rather than per row) and
-  (8, 1024, 24/8, 64), and f32 at the first shape;
-* ``flash_decode`` bf16 at length 1025 of a (8, 1088, 8, 128) cache (a
-  decode step of the same model), with the row split the wrapper picks and
-  with splits of 64, 128, 256 and 1088 rows.
+* ``flash_attention`` bf16 at (8, 1024, 24/8, 64), and at
+  (1, 8192, 24/8, 128) (the same work in longer rows: how much of the time
+  is per tile rather than per row), timed only: its plain version and
+  tolerance at that length would not fit in the card's memory;
+* ``flash_decode`` at the decode step with splits of 64, 128, 256 and 1088
+  rows (device ms, a CUDA graph of back-to-back calls).
 
 Needs a CUDA device.
 """
 
 from __future__ import annotations
 
-import subprocess
 import sys
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch.h100 import card_line, graph_ms
 from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.tools import kernel_table as kt
 
 
-def graph_ms(fn, iters: int = 10) -> float:
-    """Device ms per call of ``fn``: ``iters`` calls in one CUDA graph."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start, end = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def long_prefill(dev) -> None:
+    S = 8192
+    q, k, v = (torch.randn((1, S, n, 128), generator=torch.Generator().manual_seed(kt.SEED)).to(
+        dev, torch.bfloat16) for n in (24, 8, 8))
+    flops = 4 * 24 * 128 * (S * S + S) // 2
+    ms = graph_ms(lambda: fa.flash_attention(q, k, v), 10)
+    sdpa = graph_ms(kt.sdpa_call(q, k, v, is_causal=True), 10)
+    kt.log(f"flash_attention bf16 (1, {S}, 24/8, 128): {ms:.4f} ms = "
+           f"{flops / ms / 1e9:.1f} TFLOP/s; SDPA {sdpa:.4f} ms; kernel / "
+           f"SDPA {ms / sdpa:.2f}")
 
 
-def prefill(gen, dev, B, S, H, KV, D, dtype) -> None:
-    q, k, v = (torch.randn((B, S, n, D), generator=gen).to(dev, dtype)
-               for n in (H, KV, KV))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    flops = 4 * B * H * D * (S * S + S) // 2
-    iters = 10 if dtype == torch.bfloat16 else 3
-    ms = graph_ms(lambda: fa.flash_attention(q, k, v), iters)
-    sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), iters)
-    print(f"flash_attention {str(dtype)[6:]} ({B}, {S}, {H}/{KV}, {D}): "
-          f"{ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s; SDPA "
-          f"{sdpa:.4f} ms; kernel / SDPA {ms / sdpa:.2f}", flush=True)
-
-
-def decode(gen, dev) -> None:
-    B, T, H, KV, D, L = 8, 1088, 24, 8, 128, 1025
-    q = torch.randn((B, 1, H, D), generator=gen).to(dev, torch.bfloat16)
-    k, v = (torch.randn((B, T, KV, D), generator=gen).to(dev, torch.bfloat16)
-            for _ in range(2))
-    n = torch.tensor([L], dtype=torch.int32, device=dev)
-    qt, kt, vt = q.transpose(1, 2), k[:, :L].transpose(1, 2), \
-        v[:, :L].transpose(1, 2)
+def decode_splits(dev) -> None:
+    q, k, v, length, n = kt.decode_inputs(dev)
+    (B, T, KV, D), L = k.shape, length
     nbytes = (2 * B * L * KV * D + 2 * q.numel()) * 2
-    sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, enable_gqa=True), 20)
+    sdpa = graph_ms(kt.sdpa_call(q, k[:, :L], v[:, :L]))
     plan = fa.decode_plan
     try:
-        for rows in (None, 64, 128, 256, T):
-            if rows is not None:  # the same kernels over another split
-                fa.decode_plan = lambda *_, r=rows: (r, -(-T // r))
-            r, splits = fa.decode_plan(B, T, H, KV, dev, q.dtype)
-            ms = graph_ms(lambda: fa.flash_decode(q, k, v, n), 20)
-            which = " (the wrapper's)" if rows is None else ""
-            print(f"flash_decode bf16 length {L} of ({B}, {T}, {KV}, {D}), "
-                  f"{splits} splits of {r} rows{which}: {ms:.4f} ms = "
-                  f"{nbytes / ms / 1e9:.3f} TB/s; SDPA {sdpa:.4f} ms; "
-                  f"kernel / SDPA {ms / sdpa:.2f}", flush=True)
+        for rows in (64, 128, 256, T):  # the same kernels over another split
+            fa.decode_plan = lambda *_, r=rows: (r, -(-T // r))
+            ms = graph_ms(lambda: fa.flash_decode(q, k, v, n))
+            kt.log(f"flash_decode bf16 length {L} of ({B}, {T}, {KV}, {D}), "
+                   f"{-(-T // rows)} splits of {rows} rows: {ms:.4f} ms = "
+                   f"{nbytes / ms / 1e9:.3f} TB/s; SDPA {sdpa:.4f} ms; "
+                   f"kernel / SDPA {ms / sdpa:.2f}")
     finally:
         fa.decode_plan = plan
 
@@ -91,18 +65,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_flash: no CUDA device", file=sys.stderr)
         return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0])
+    kt.log(card_line())
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    gen = torch.Generator().manual_seed(0)
     with torch.inference_mode():
-        for B, S, D, dtype in ((8, 1024, 128, torch.bfloat16),
-                               (1, 8192, 128, torch.bfloat16),
-                               (8, 1024, 64, torch.bfloat16),
-                               (8, 1024, 128, torch.float32)):
-            prefill(gen, dev, B, S, 24, 8, D, dtype)
-        decode(gen, dev)
+        for r in (kt.flash_attention_row(dev),
+                  kt.prefill_case(dev, torch.bfloat16, D=64),
+                  kt.flash_attention_f32_row(dev), kt.flash_decode_row(dev)):
+            kt.log(kt.summary(r))
+        long_prefill(dev)
+        decode_splits(dev)
     return 0
 
 

@@ -19,13 +19,12 @@ Needs a CUDA device.
 
 from __future__ import annotations
 
-import subprocess
 import sys
 import time
 
 import torch
 
-from repro_torch.tools.profile_edsr import kernel_times
+from repro_torch.h100 import card_line
 
 ARCH, BATCH, PROMPT, GEN = "phi4-mini-3.8b", 8, 1024, 64
 
@@ -39,6 +38,25 @@ def wall_ms(fn, runs: int = 3) -> float:
         torch.cuda.synchronize()
         best = min(best, (time.perf_counter() - t0) * 1e3)
     return best
+
+
+def kernel_times(fn) -> dict[str, list]:
+    """{kernel name: [device ms, launches]} over one call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel: dict[str, list] = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            row = by_kernel.setdefault(ev.name, [0.0, 0])
+            row[0] += ev.time_range.elapsed_us() / 1e3
+            row[1] += 1
+    return by_kernel
 
 
 def report(name: str, fn) -> None:
@@ -93,9 +111,7 @@ def main(argv=None) -> int:
 
     argv = sys.argv[1:] if argv is None else argv
     arch = argv[0] if argv else ARCH
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0])
+    print(card_line())
     build.build(["flash_attention", "rme_gather"])
     dev = torch.device("cuda", 0)
     cfg = get_config(arch)

@@ -149,7 +149,7 @@ def edsr_f64(p: dict, x: np.ndarray, res_scale: float = 0.1):
 
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "profile_train.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -165,8 +165,53 @@ def _imported_roots(path: Path) -> set[str]:
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_no_reference_package(path):
-    banned = _imported_roots(path) & {"jax", "jaxlib", "repro"}
-    assert not banned, (path, banned)
+    """No file of the port imports JAX or the JAX package, and no file of
+    the package imports the benchmark that measures it (``bench``); the
+    scripts at the repository's root that drive the benchmark's cells on
+    the card may."""
+    banned = {"jax", "jaxlib", "repro"}
+    if ROOT / "src" in path.parents:
+        banned.add("bench")
+    assert not _imported_roots(path) & banned, (path,
+                                                _imported_roots(path) & banned)
+
+
+def test_h100_bound_and_the_dry_run_read_one_set_of_peaks(monkeypatch):
+    """``h100.bound_ms`` gives bytes over 3.35e12 B/s, f32 operations over
+    67e12 and bf16 operations over 989e12 FLOP/s, the largest with what
+    sets it (bytes on a tie); the dry-run's roofline terms are its
+    counts over the same constants."""
+    from repro_torch import h100
+    from repro_torch.launch import dryrun
+    assert h100.bound_ms(3.35e12) == (1e3, "bytes")
+    assert h100.bound_ms(0, f32_ops=67e12) == (1e3, "operations")
+    assert h100.bound_ms(0, bf16_ops=989e12) == (1e3, "operations")
+    for args, kw, want in (((3.35e9,), dict(f32_ops=2 * 67e9), (2, "operations")),
+                           ((3 * 3.35e9,), dict(f32_ops=67e9, bf16_ops=2 * 989e9),
+                            (3, "bytes")),
+                           ((3.35e9,), dict(f32_ops=67e9, bf16_ops=2 * 989e9),
+                            (2, "operations")),
+                           ((3.35e9,), dict(bf16_ops=989e9), (1, "bytes"))):
+        ms, by = h100.bound_ms(*args, **kw)
+        assert (ms, by) == (pytest.approx(want[0]), want[1]), (args, kw)
+    assert (dryrun.BF16_FLOP_PER_S, dryrun.HBM_BYTES_PER_S) == (989e12, 3.35e12)
+    assert dryrun.BF16_FLOP_PER_S is h100.BF16_FLOP_PER_S
+    assert dryrun.HBM_BYTES_PER_S is h100.HBM_BYTES_PER_S
+
+    # one product of (512, 1024) by (1024, 256) traced as a cell's step
+    a, b = (torch.empty(s, device="meta") for s in ((512, 1024), (1024, 256)))
+    monkeypatch.setattr(dryrun, "build_cell",
+                        lambda *_, **__: (torch.mm, (a, b)))
+    monkeypatch.setattr(dryrun, "model_flops", lambda *_: 1.0)
+    mesh = type("Mesh", (), {"size": lambda self: 1})()
+    rec = dryrun.record(None, "train_4k", mesh)
+    flops, nbytes = 2 * 512 * 1024 * 256, (512 * 1024 + 1024 * 256
+                                           + 512 * 256) * 4
+    assert (rec["flops_per_device"], rec["bytes_per_device"]) == (flops, nbytes)
+    assert rec["compute_s"] == flops / 989e12
+    assert rec["memory_s"] == nbytes / 3.35e12
+    assert rec["collective_s"] == 0.0
+    assert rec["step_time_bound_s"] == max(flops / 989e12, nbytes / 3.35e12)
 
 
 # ---------------------------------------------------------------------------
